@@ -1,0 +1,85 @@
+"""Vectorized geometry helpers (mirror of ``aosx/geom.py``)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .types import Polygon
+
+TWO_PI_F32 = torch.tensor(2 * math.pi, dtype=torch.float32).item()
+
+
+def point_in_polygon(px, py, poly: Polygon):
+    """Ray-casting point-in-polygon, faithful to the reference
+    (aos_seed_gen_node.cpp:1231-1255): a crossing counts only when
+    |dy| > 1e-9. px/py: broadcastable f32 tensors. Polygons with
+    count < 3 return False."""
+    P = poly.pts.shape[0]
+    idx = torch.arange(P, device=poly.pts.device)
+    valid = idx < poly.count
+    jdx = torch.where(idx == 0, poly.count - 1, idx - 1)
+    pi = poly.pts
+    pj = poly.pts[torch.clamp(jdx, 0, P - 1).long()]
+
+    px = px.to(torch.float32)[..., None]
+    py = py.to(torch.float32)[..., None]
+
+    xi, yi = pi[:, 0], pi[:, 1]
+    xj, yj = pj[:, 0], pj[:, 1]
+    dy = yj - yi
+    big_dy = torch.abs(dy) > 1e-9
+    safe_dy = torch.where(big_dy, dy, torch.ones_like(dy))
+    crosses = (
+        big_dy
+        & ((yi > py) != (yj > py))
+        & (px < (xj - xi) * (py - yi) / safe_dy + xi)
+        & valid
+    )
+    inside = crosses.to(torch.int32).sum(-1) % 2 == 1
+    return inside & (poly.count >= 3)
+
+
+def active_bounds(poly: Polygon, clip_xy, margin):
+    """getActiveBounds (aos_seed_gen_node.cpp:873-890)."""
+    minx, maxx, miny, maxy = poly.bbox()
+    has_poly = poly.count > 0
+    return (
+        torch.where(has_poly, minx - margin, clip_xy[0]),
+        torch.where(has_poly, maxx + margin, clip_xy[1]),
+        torch.where(has_poly, miny - margin, clip_xy[2]),
+        torch.where(has_poly, maxy + margin, clip_xy[3]),
+    )
+
+
+def normalized_angle(a):
+    """aos_state_machine_node.cpp:196-204: one conditional wrap (valid for a
+    difference of two angles in (-pi, pi]; see aosx.geom)."""
+    a = torch.where(a > math.pi, a - TWO_PI_F32, a)
+    a = torch.where(a < -math.pi, a + TWO_PI_F32, a)
+    return a
+
+
+def wrap_angle(a):
+    """Full wrap to [-pi, pi]; bitwise no-op for |a| <= pi. The divisor is
+    a tensor: CUDA divides by a Python scalar as a multiply by its
+    reciprocal, which rounds differently."""
+    two_pi = torch.full_like(a, TWO_PI_F32)
+    return a - two_pi * torch.round(a / two_pi)
+
+
+def atan2(y, x):
+    """f32 atan2 evaluated in f64 and rounded once, so that CPU and CUDA
+    (whose f32 libraries differ in the last bit) agree."""
+    return torch.atan2(y.double(), x.double()).float()
+
+
+def sin(a):
+    """f32 sin evaluated in f64 and rounded once (see atan2)."""
+    return torch.sin(a.double()).float()
+
+
+def cos(a):
+    """f32 cos evaluated in f64 and rounded once (see atan2)."""
+    return torch.cos(a.double()).float()

@@ -1,0 +1,98 @@
+"""Grid-space Voronoi field via jump flooding (mirror of
+``aosx/gvd/voronoi.py``).
+
+The "1+JFA" variant (an extra step-1 pass first) with JACOBI passes: all 8
+directional candidates are read from the pass-start planes and folded with a
+lexicographic (d2, owner) min, ties to the lower seed index. Owner
+positions ride along as separate planes. Every pass runs through kernel K1
+(``jfa_pass_cuda.jfa_pass``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import Statics
+from ..perceive.raster import f32, live_mask
+from ..types import GridWorld, SeedSet
+
+INF = 3.4e38
+
+
+def _passes(s: Statics):
+    n = max(s.grid_h, s.grid_w)
+    steps = [1]
+    k = 1
+    while k < n:
+        k *= 2
+    k //= 2
+    while k >= 1:
+        steps.append(k)
+        k //= 2
+    return steps
+
+
+def _jfa_init(grid: GridWorld, seeds: SeedSet, s: Statics):
+    """Seed scatter -> (owner [H,W] i32 with S = no owner, ox, oy planes).
+    Seeds sharing a cell: the lowest seed index wins (scatter-min), and all
+    of them write the winner's coordinates, so the writes agree."""
+    h, w = grid.occ.shape
+    dev = grid.occ.device
+    res = f32(s.resolution, dev)
+    S = seeds.xy.shape[0]
+    sx = torch.floor((seeds.xy[:, 0] - grid.origin_x) / res).to(torch.int32)
+    sx = torch.minimum(torch.clamp(sx, min=0), grid.w_cells - 1)
+    sy = torch.floor((seeds.xy[:, 1] - grid.origin_y) / res).to(torch.int32)
+    sy = torch.minimum(torch.clamp(sy, min=0), grid.h_cells - 1)
+    flat = (sy.long() * w + sx.long())
+    sidx = torch.where(seeds.valid, torch.arange(S, dtype=torch.int32, device=dev), S)
+    owner = torch.full((h * w,), S, dtype=torch.int32, device=dev)
+    owner = owner.scatter_reduce(0, flat, sidx, reduce="amin", include_self=True)
+    far = torch.full((1,), 1e9, dtype=torch.float32, device=dev)
+    seeds_x = torch.cat([seeds.xy[:, 0], far])
+    seeds_y = torch.cat([seeds.xy[:, 1], far])
+    win = owner[flat].long()
+    ox = torch.full((h * w,), 1e9, dtype=torch.float32, device=dev)
+    oy = torch.full((h * w,), 1e9, dtype=torch.float32, device=dev)
+    ox[flat] = seeds_x[win]
+    oy[flat] = seeds_y[win]
+    return owner.reshape(h, w), ox.reshape(h, w), oy.reshape(h, w)
+
+
+def jacobi_fold(o0, x0, y0, neighbors, S: int, cellx, celly):
+    """One Jacobi JFA update: fold the 8 pass-start neighbour triples
+    (owner, x, y) into the state with a lexicographic (d2, owner) min.
+    d2 = (px - cellx)^2 + (py - celly)^2 with each operation rounded
+    separately (the CUDA kernel does the same)."""
+
+    def dist2(px, py):
+        dx = px - cellx
+        dy = py - celly
+        return dx * dx + dy * dy
+
+    inf = torch.tensor(INF, dtype=torch.float32, device=o0.device)
+    d2 = torch.where(o0 < S, dist2(x0, y0), inf)
+    o, x, y = o0, x0, y0
+    for no, nx, ny in neighbors:
+        nd = torch.where(no < S, dist2(nx, ny), inf)
+        better = (nd < d2) | ((nd == d2) & (no < o))
+        o = torch.where(better, no, o)
+        x = torch.where(better, nx, x)
+        y = torch.where(better, ny, y)
+        d2 = torch.where(better, nd, d2)
+    return o, x, y
+
+
+def jump_flood(grid: GridWorld, seeds: SeedSet, s: Statics):
+    """Nearest-seed ownership over the live region. Returns owner [H,W]
+    i32: seed index, or -1 outside the live region / with no seeds.
+    Distances are measured from cell corners (world = origin + cell*res)."""
+    from .jfa_pass_cuda import jfa_pass
+
+    S = seeds.xy.shape[0]
+    state = _jfa_init(grid, seeds, s)
+    for step in _passes(s):
+        state = jfa_pass(*state, step, S, grid.origin_x, grid.origin_y, s.resolution)
+    owner = state[0]
+    return torch.where(live_mask(grid) & (owner < S), owner, -1)
+

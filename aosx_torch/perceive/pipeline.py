@@ -1,0 +1,62 @@
+"""The full perception pass: points -> (occupancy, skeleton, rows, seeds)
+(mirror of ``aosx/perceive/pipeline.py``; reference:
+aos_seed_gen_node.cpp:230-2268)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..config import AosParams, Statics
+from ..types import GridWorld, PointCloud, Polygon, SeedSet, TreeRows
+from . import points as _points
+from . import raster as _raster
+from . import rows as _rows
+from . import seeds as _seeds
+from . import skeleton as _skeleton
+
+
+@dataclasses.dataclass(frozen=True)
+class PerceiveOut:
+    occupancy: GridWorld      # inflated + borders (/occupancy_grid)
+    skeleton: GridWorld       # skeleton without boundary (raycast source)
+    skeleton_pub: GridWorld   # + polygon rectangle (/skeletonized_occupancy_grid)
+    rows: TreeRows            # reference (discovery) order
+    rows_sorted: TreeRows     # /exploration_tree_rows_info order
+    seeds: SeedSet            # /voronoi_seeds order
+    guards: torch.Tensor      # aosx_torch.guards bitmask
+
+
+def perceive(pc: PointCloud, poly: Polygon, params: AosParams, exclusions,
+             s: Statics, *, ror_method: str = "sorted") -> PerceiveOut:
+    """Preprocess, rasterize, inflate, mark borders, skeletonize, then
+    ``perceive_tail``. (``aosx``'s row-sharded ``stencil_mesh`` option is
+    not ported.)"""
+    xy, keep, bounds, guards = _points.preprocess(
+        pc, poly, params, exclusions, s, ror_method=ror_method)
+    grid = _raster.generate_grid(xy, keep, bounds, s)
+    inflated = _raster.inflate(grid, s)
+    occupancy = _raster.mark_borders(inflated)
+    skel = _skeleton.skeletonize(inflated, s)
+    return perceive_tail(skel, occupancy, poly, params, s, guards)
+
+
+def perceive_tail(skel, occupancy, poly: Polygon, params: AosParams,
+                  s: Statics, pre_guards) -> PerceiveOut:
+    """Everything downstream of the skeleton: clusters -> rows -> seeds ->
+    published grids. pre_guards seeds the output guard bitmask."""
+    clusters = _rows.cluster_grid(skel, poly, params, s)
+    rows = _rows.rows_from_clusters(clusters, skel, poly, params, s)
+    rows_sorted = _rows.sort_rows(rows)
+    seeds = _seeds.generate_seeds(rows, skel, poly, params, s)
+    skeleton_pub = _raster.mark_polygon_rect(skel, poly, params.polygon_margin, s)
+    return PerceiveOut(
+        occupancy=occupancy,
+        skeleton=skel,
+        skeleton_pub=skeleton_pub,
+        rows=rows,
+        rows_sorted=rows_sorted,
+        seeds=seeds,
+        guards=pre_guards | clusters["guards"],
+    )

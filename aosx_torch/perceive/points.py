@@ -1,0 +1,139 @@
+"""Point-cloud preprocessing: radius outlier removal + clipping + exclusion
+discs as fixed-shape masks (mirror of ``aosx/perceive/points.py``;
+reference: aos_seed_gen_node.cpp:230-538).
+
+ROR methods ported here:
+- 'sorted': sort by x and compare each block of 2048 points with itself and
+            its two neighbour blocks (the main path);
+- 'exact' : all pairs, elementwise (xi-xj)^2 sums in f32.
+The 'mxu' and 'pallas' methods of ``aosx`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import AosParams, Statics
+from ..geom import active_bounds
+from ..guards import GUARD_ROR_SPAN
+from ..types import PointCloud, Polygon
+
+# rows of the [rows, 3W] distance tile evaluated at once
+_ROW_CHUNK = 256
+
+
+def _d2(a, b):
+    """Squared 3-D distance, summed as (dx^2 + dy^2) + dz^2."""
+    dx = a[..., 0] - b[..., 0]
+    dy = a[..., 1] - b[..., 1]
+    dz = a[..., 2] - b[..., 2]
+    return (dx * dx + dy * dy) + dz * dz
+
+
+def ror_counts(xyz, valid, radius, *, method: str = "exact", block: int = None):
+    """Number of OTHER valid points within ``radius`` (3-D), per point.
+
+    Returns (counts [n] i32, span_violated bool tensor); the flag is only
+    ever True for 'sorted' when its block-span precondition breaks
+    (guards.GUARD_ROR_SPAN)."""
+    if method not in ("exact", "sorted"):
+        raise NotImplementedError(f"ror method {method!r} is not ported")
+    n = xyz.shape[0]
+    dev = xyz.device
+    park = 1e9 + torch.arange(n, dtype=torch.float32, device=dev)[:, None] * 1e3
+    pts = torch.where(valid[:, None], xyz, park)
+    r2 = torch.as_tensor(radius, dtype=torch.float32, device=dev) ** 2
+    if method == "sorted":
+        return _ror_counts_sorted(pts, n, r2)
+    block = block or 2048
+    cnt = torch.zeros(n, dtype=torch.int32, device=dev)
+    for r0 in range(0, n, _ROW_CHUNK):
+        rows = pts[r0:r0 + _ROW_CHUNK]
+        c = torch.zeros(rows.shape[0], dtype=torch.int32, device=dev)
+        for c0 in range(0, n, block):
+            d2 = _d2(rows[:, None, :], pts[None, c0:c0 + block, :])
+            c += (d2 <= r2).sum(dim=1, dtype=torch.int32)
+        cnt[r0:r0 + _ROW_CHUNK] = c
+    # exclude self (d2 == 0 with itself is always counted)
+    return cnt - 1, torch.zeros((), dtype=torch.bool, device=dev)
+
+
+def _ror_counts_sorted(pts, n, r2, W: int = 2048):
+    """Sorted-sweep neighbour counting (see ``aosx.perceive.points``): exact
+    whenever no within-radius pair spans two block boundaries. Returns
+    counts (excluding self) in the ORIGINAL point order."""
+    dev = pts.device
+    N = pts.shape[0]
+    pad = (-N) % W
+    if pad:
+        parked = 2e9 + torch.arange(pad, dtype=torch.float32, device=dev) * 1e3
+        ptsp = torch.cat([pts, torch.stack([parked, parked, parked], dim=1)], dim=0)
+    else:
+        ptsp = pts
+    Np = ptsp.shape[0]
+    order = torch.argsort(ptsp[:, 0], stable=True)
+    ps = ptsp[order]
+    Nb = Np // W
+    blocks = ps.reshape(Nb, W, 3)
+    far = torch.full((1, W, 3), -3e9, dtype=torch.float32, device=dev)
+    left = torch.cat([far, blocks[:-1]], dim=0)
+    far2 = torch.full((1, W, 3), 3.2e9, dtype=torch.float32, device=dev)
+    right = torch.cat([blocks[1:], far2], dim=0)
+    trip = torch.cat([left, blocks, right], dim=1)            # [Nb, 3W, 3]
+
+    cnt_sorted = torch.empty((Nb, W), dtype=torch.int32, device=dev)
+    for j in range(0, W, _ROW_CHUNK):
+        b = blocks[:, j:j + _ROW_CHUNK]                         # [Nb, C, 3]
+        d2 = _d2(b[:, :, None, :], trip[:, None, :, :])         # [Nb, C, 3W]
+        cnt_sorted[:, j:j + _ROW_CHUNK] = (d2 <= r2).sum(dim=2, dtype=torch.int32) - 1
+    cnt = torch.empty(Np, dtype=torch.int32, device=dev)
+    cnt[order] = cnt_sorted.reshape(-1)
+    first_x = blocks[:, 0, 0]
+    last_x = blocks[:, -1, 0]
+    if Nb > 2:
+        violated = (first_x[2:] - last_x[:-2] < torch.sqrt(r2)).any()
+    else:
+        violated = torch.zeros((), dtype=torch.bool, device=dev)
+    return cnt[:n], violated
+
+
+def static_keep_mask(xyz, params: AosParams, exclusions, bounds):
+    """PassThrough z / x / y against the active bounds + exclusion discs
+    (aos_seed_gen_node.cpp:452-525)."""
+    minx, maxx, miny, maxy = bounds
+    x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+    m = (z >= params.clipping_minz) & (z <= params.clipping_maxz)
+    m &= (x >= minx) & (x <= maxx) & (y >= miny) & (y <= maxy)
+    ex = exclusions.to(torch.float32)
+    ddx = x[:, None] - ex[None, :, 0]
+    ddy = y[:, None] - ex[None, :, 1]
+    d2 = ddx * ddx + ddy * ddy
+    r = ex[None, :, 2]
+    inside_excl = ((d2 <= r * r) & (r > 0)).any(dim=1)
+    return m & ~inside_excl
+
+
+def preprocess_full(pc: PointCloud, poly: Polygon, params: AosParams, exclusions,
+                    s: Statics, *, ror_method: str = "exact"):
+    """Returns (xy [N,2], keep [N], cnt [N] i32 ROR neighbour counts,
+    valid [N] post-isfinite, bounds tuple, guards i32 bitmask)."""
+    xyz, valid = pc.xyz, pc.valid
+    valid = valid & torch.isfinite(xyz).all(dim=1)
+    cnt, ror_span_violated = ror_counts(xyz, valid, params.ror_radius, method=ror_method)
+    keep = valid & (cnt >= params.ror_min_neighbors)
+    bounds = active_bounds(
+        poly,
+        (params.clipping_minx, params.clipping_maxx, params.clipping_miny, params.clipping_maxy),
+        params.polygon_margin,
+    )
+    keep &= static_keep_mask(xyz, params, exclusions, bounds)
+    guards = torch.where(ror_span_violated, GUARD_ROR_SPAN, 0).to(torch.int32)
+    return xyz[:, :2], keep, cnt, valid, bounds, guards
+
+
+def preprocess(pc: PointCloud, poly: Polygon, params: AosParams, exclusions,
+               s: Statics, *, ror_method: str = "exact"):
+    """Returns (xy [N,2], keep [N], bounds tuple, guards i32 bitmask)."""
+    xy, keep, _, _, bounds, guards = preprocess_full(
+        pc, poly, params, exclusions, s, ror_method=ror_method)
+    return xy, keep, bounds, guards

@@ -1,0 +1,158 @@
+"""Occupancy rasterization + inflation + borders (mirror of
+``aosx/perceive/raster.py``; reference: aos_seed_gen_node.cpp:581-967).
+
+- scatter-to-grid: one scatter-max of 1 into the cells of kept points.
+- disc inflation: the separable decomposition of ``aosx`` (horizontal
+  dilations H_k, then a vertical max over shifted H_{w(|dy|)}), exactly the
+  dilation by the disc dx^2 + dy^2 <= ic^2.
+- borders / rectangle boundary: index masks.
+
+The grid lives in a static [grid_h, grid_w] buffer; the live region
+[0:h_cells, 0:w_cells] is carried as 0-d tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..config import Statics
+from ..types import GridWorld
+
+
+def f32(x, device):
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def iota2(shape, device):
+    """(iy, ix) int32 index planes of ``shape``."""
+    h, w = shape
+    iy = torch.arange(h, dtype=torch.int32, device=device)[:, None].expand(h, w)
+    ix = torch.arange(w, dtype=torch.int32, device=device)[None, :].expand(h, w)
+    return iy, ix
+
+
+def shift2d(a, dy: int, dx: int, fill=0):
+    """Static fill shift: out[y, x] = a[y - dy, x - dx] (``fill`` outside)."""
+    h, w = a.shape
+    if abs(dy) >= h or abs(dx) >= w:
+        return torch.full_like(a, fill)
+    out = torch.full_like(a, fill)
+    out[max(dy, 0):h + min(dy, 0), max(dx, 0):w + min(dx, 0)] = \
+        a[max(-dy, 0):h - max(dy, 0), max(-dx, 0):w - max(dx, 0)]
+    return out
+
+
+def live_mask(grid: GridWorld):
+    iy, ix = iota2(grid.occ.shape, grid.occ.device)
+    return (iy < grid.h_cells) & (ix < grid.w_cells)
+
+
+def generate_grid(xy, keep, bounds, s: Statics) -> GridWorld:
+    """generateOccupancyGrid (aos_seed_gen_node.cpp:581-622)."""
+    dev = xy.device
+    minx, maxx, miny, maxy = bounds
+    res = f32(s.resolution, dev)
+    zero = f32(0.0, dev)
+    width = torch.maximum(zero, maxx - minx)
+    height = torch.maximum(zero, maxy - miny)
+    w_cells = torch.clamp(torch.ceil(width / res).to(torch.int32), min=1, max=s.grid_w)
+    h_cells = torch.clamp(torch.ceil(height / res).to(torch.int32), min=1, max=s.grid_h)
+    # C-truncation cast (points are >= origin after clipping, so trunc == floor)
+    gx = ((xy[:, 0] - minx) / res).to(torch.int32)
+    gy = ((xy[:, 1] - miny) / res).to(torch.int32)
+    ok = keep & (gx >= 0) & (gx < w_cells) & (gy >= 0) & (gy < h_cells)
+    # dropped points index (-1, -1), which aosx's scatter normalizes to the
+    # last row and column of the buffer (negative indices wrap); mirror it
+    gx = torch.where(ok, gx, s.grid_w - 1)
+    gy = torch.where(ok, gy, s.grid_h - 1)
+    occ = torch.zeros(s.grid_h * s.grid_w, dtype=torch.uint8, device=dev)
+    occ[(gy.long() * s.grid_w + gx.long())] = 1
+    return GridWorld(
+        occ=occ.reshape(s.grid_h, s.grid_w),
+        origin_x=minx.to(torch.float32),
+        origin_y=miny.to(torch.float32),
+        h_cells=h_cells,
+        w_cells=w_cells,
+    )
+
+
+def dilate_disc(occ, ic: int):
+    """Binary dilation with the disc dx^2 + dy^2 <= ic^2 via the separable
+    horizontal-dilation decomposition (no live-region masking)."""
+    H = [occ]
+    cur = occ
+    for k in range(1, ic + 1):
+        cur = torch.maximum(cur, torch.maximum(shift2d(occ, 0, k), shift2d(occ, 0, -k)))
+        H.append(cur)
+    out = H[ic]
+    for dy in range(1, ic + 1):
+        w = int(math.floor(math.sqrt(ic * ic - dy * dy)))
+        band = H[w]
+        out = torch.maximum(out, torch.maximum(shift2d(band, dy, 0), shift2d(band, -dy, 0)))
+    return out
+
+
+def _with_occ(grid: GridWorld, occ) -> GridWorld:
+    return GridWorld(occ, grid.origin_x, grid.origin_y, grid.h_cells, grid.w_cells)
+
+
+def inflate(grid: GridWorld, s: Statics) -> GridWorld:
+    """applyInflation (aos_seed_gen_node.cpp:933-967)."""
+    out = dilate_disc(grid.occ, s.inflation_cells)
+    out = torch.where(live_mask(grid), out, torch.zeros_like(out))
+    return _with_occ(grid, out)
+
+
+def mark_borders(grid: GridWorld, thickness: int = 5) -> GridWorld:
+    """markBoundariesAsOccupied (aos_seed_gen_node.cpp:708-757)."""
+    iy, ix = iota2(grid.occ.shape, grid.occ.device)
+    border = (
+        (iy < thickness)
+        | (iy >= grid.h_cells - thickness)
+        | (ix < thickness)
+        | (ix >= grid.w_cells - thickness)
+    )
+    occ = torch.where(border & live_mask(grid), torch.ones_like(grid.occ), grid.occ)
+    return _with_occ(grid, occ)
+
+
+def edge_replicated(grid: GridWorld):
+    """occ with the dead region filled by replicating the live edge:
+    occ_ext[y, x] == occ[min(y, h_cells-1), min(x, w_cells-1)]."""
+    h, w = grid.occ.shape
+    iy, ix = iota2((h, w), grid.occ.device)
+    c = torch.clamp(grid.w_cells - 1, 0, w - 1).long().reshape(1)
+    last_col = grid.occ.index_select(1, c)
+    colrep = torch.where(ix >= grid.w_cells, last_col, grid.occ)
+    r = torch.clamp(grid.h_cells - 1, 0, h - 1).long().reshape(1)
+    last_row = colrep.index_select(0, r)
+    return torch.where(iy >= grid.h_cells, last_row, colrep)
+
+
+def world_to_grid_clamped(grid: GridWorld, wx, wy, res):
+    """worldToGrid (aos_seed_gen_node.cpp:760-769): floor + clamp to live region."""
+    gx = torch.floor((wx - grid.origin_x) / res).to(torch.int32)
+    gy = torch.floor((wy - grid.origin_y) / res).to(torch.int32)
+    gx = torch.minimum(torch.clamp(gx, min=0), grid.w_cells - 1)
+    gy = torch.minimum(torch.clamp(gy, min=0), grid.h_cells - 1)
+    return gx, gy
+
+
+def mark_polygon_rect(grid: GridWorld, poly, margin, s: Statics) -> GridWorld:
+    """markPolygonBoundaryAsOccupied (aos_seed_gen_node.cpp:772-825): the
+    axis-aligned rectangle (polygon bbox +- margin) boundary; 5-cell borders
+    when there is no polygon."""
+    minx, maxx, miny, maxy = poly.bbox()
+    res = f32(s.resolution, grid.occ.device)
+    gx0, gy0 = world_to_grid_clamped(grid, minx - margin, miny - margin, res)
+    gx1, gy1 = world_to_grid_clamped(grid, maxx + margin, maxy + margin, res)
+    iy, ix = iota2(grid.occ.shape, grid.occ.device)
+    on_rect = (
+        ((iy == gy0) | (iy == gy1)) & (ix >= gx0) & (ix <= gx1)
+    ) | (((ix == gx0) | (ix == gx1)) & (iy >= gy0) & (iy <= gy1))
+    occ_rect = torch.where(on_rect & live_mask(grid), torch.ones_like(grid.occ), grid.occ)
+    borders = mark_borders(grid)
+    occ = torch.where(poly.count > 0, occ_rect, borders.occ)
+    return _with_occ(grid, occ)

@@ -1,0 +1,67 @@
+"""Skeletonization: morphological open (3x3 cross) then Zhang-Suen thinning
+to fixpoint (mirror of ``aosx/perceive/skeleton.py``; reference:
+aos_seed_gen_node.cpp:672-705, cv::morphologyEx +
+cv::ximgproc::thinning(THINNING_ZHANGSUEN)).
+
+OpenCV border semantics: erosion treats outside-of-image as 1, dilation as
+0; thinning never modifies the outer 1-pixel ring of the live image. Every
+thinning iteration goes through kernel K2 (``skeleton_cuda``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import Statics
+from ..ops import CHECK_EVERY
+from ..types import GridWorld
+from .raster import iota2, live_mask, shift2d
+from .skeleton_cuda import zhang_suen_iteration
+
+_CROSS = ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0))
+
+
+def _outside_live(grid: GridWorld, dy: int, dx: int):
+    """Mask of cells whose (y-dy, x-dx) source lies outside the live region."""
+    iy, ix = iota2(grid.occ.shape, grid.occ.device)
+    sy, sx = iy - dy, ix - dx
+    return (sy < 0) | (sy >= grid.h_cells) | (sx < 0) | (sx >= grid.w_cells)
+
+
+def morph_open(grid: GridWorld) -> GridWorld:
+    """cv::morphologyEx(MORPH_OPEN) with the 3x3 ellipse (cross) kernel."""
+    p = grid.occ
+    one = torch.ones_like(p)
+    er = one
+    for dy, dx in _CROSS:
+        nb = torch.where(_outside_live(grid, dy, dx), one, shift2d(p, dy, dx))
+        er = torch.minimum(er, nb)
+    live = live_mask(grid)
+    er = torch.where(live, er, torch.zeros_like(er))
+    di = torch.zeros_like(p)
+    for dy, dx in _CROSS:
+        di = torch.maximum(di, shift2d(er, dy, dx))
+    di = torch.where(live, di, torch.zeros_like(di))
+    return GridWorld(di, grid.origin_x, grid.origin_y, grid.h_cells, grid.w_cells)
+
+
+def zhang_suen(grid: GridWorld, s: Statics) -> GridWorld:
+    """Thin to fixpoint (both sub-iterations per iteration, stop when
+    unchanged), capped at s.skeleton_max_iters iterations. The host reads
+    the changed-cell count every CHECK_EVERY iterations: an iteration past
+    the fixpoint changes nothing, so reading late only costs launches."""
+    occ = grid.occ.contiguous()
+    it = 0
+    while it < s.skeleton_max_iters:
+        n = min(CHECK_EVERY, s.skeleton_max_iters - it)
+        for _ in range(n):
+            occ, changed = zhang_suen_iteration(occ, grid.h_cells, grid.w_cells)
+        it += n
+        if int(changed) == 0:
+            break
+    return GridWorld(occ, grid.origin_x, grid.origin_y, grid.h_cells, grid.w_cells)
+
+
+def skeletonize(grid: GridWorld, s: Statics) -> GridWorld:
+    """skeletonizeOccupancyGrid (aos_seed_gen_node.cpp:672-705)."""
+    return zhang_suen(morph_open(grid), s)

@@ -1,0 +1,204 @@
+"""Weighted A* over the padded GVD graph (mirror of ``aosx/plan/astar.py``;
+reference: aos_path_gen_node.cpp:800-932).
+
+The graph is held as a padded-CSR adjacency (``CsrCosts``: [N, D] neighbour
+ids + costs). One pop is a masked argmin over f = g + w*h (ties: lowest
+index); a relaxation is a D-wide scatter-min. The k candidate starts of
+``plan_between`` run as one batch of searches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..config import AosParams, Statics
+from ..guards import GUARD_DEGREE_CAP
+from ..ops import while_loop
+from ..types import GvdGraph
+
+INF = 3.4e38
+
+
+@dataclasses.dataclass(frozen=True)
+class CsrCosts:
+    """Padded-CSR edge costs: slot j of row i holds neighbour ``idx[i, j]``
+    at cost ``cost[i, j]`` (pad: idx = N, cost = INF). ``guards`` carries
+    GUARD_DEGREE_CAP when a node exceeded max_degree."""
+
+    idx: torch.Tensor    # [N, D] i32
+    cost: torch.Tensor   # [N, D] f32
+    guards: torch.Tensor  # i32 scalar
+
+
+def cost_matrix(graph: GvdGraph, s: Statics) -> CsrCosts:
+    """Edge list -> padded-CSR adjacency. Both directions of every valid
+    edge are slotted onto their source row; slot = rank among same-source
+    entries (one stable sort + a segmented cumulative max)."""
+    dev = graph.edges.device
+    N, D = s.max_nodes, s.max_degree
+    E = graph.edges.shape[0]
+    a = torch.where(graph.edge_valid, graph.edges[:, 0], N).to(torch.int32)
+    b = torch.where(graph.edge_valid, graph.edges[:, 1], N).to(torch.int32)
+    lens = torch.where(graph.edge_valid, graph.edge_lengths, INF)
+    src = torch.cat([a, b])
+    dst = torch.cat([b, a])
+    c = torch.cat([lens, lens])
+
+    order = torch.argsort(src, stable=True)
+    ss = src[order]
+    pos = torch.arange(2 * E, dtype=torch.int32, device=dev)
+    is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), ss[1:] != ss[:-1]])
+    slot = pos - torch.cummax(torch.where(is_start, pos, 0), dim=0).values
+
+    live = ss < N
+    ok = live & (slot < D)
+    overflow = (live & (slot >= D)).any()
+    flat = (torch.where(ok, ss, N).long() * D + torch.clamp(slot, max=D - 1).long())
+    idx = torch.full(((N + 1) * D,), N, dtype=torch.int32, device=dev)
+    idx[flat] = dst[order]
+    cost = torch.full(((N + 1) * D,), INF, dtype=torch.float32, device=dev)
+    cost[flat] = c[order]
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return CsrCosts(idx=idx[:N * D].reshape(N, D), cost=cost[:N * D].reshape(N, D),
+                    guards=torch.where(overflow, GUARD_DEGREE_CAP, zero))
+
+
+def _norm2(v):
+    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
+
+
+def astar(costs: CsrCosts, nodes, node_valid, start, goal, weight, s: Statics):
+    """Weighted A* (f = g + w*h, h = euclidean to goal; cpp:800-896) from
+    each of the start nodes ``start`` [K] to ``goal``. Returns (path [K,
+    max_path] i32 padded with -1, path_len [K] i32, found [K] bool). Pops
+    the open node with min f (ties: lowest index).
+
+    The search runs in lockstep over the K starts; a search that is done
+    keeps its state (its updates are masked), so extra iterations between
+    host checks of the loop condition change nothing."""
+    dev = nodes.device
+    N = s.max_nodes
+    K = start.shape[0]
+    inf = torch.tensor(INF, dtype=torch.float32, device=dev)
+    start = start.long()
+    goal = torch.as_tensor(goal, device=dev).long()
+    h = _norm2(nodes - nodes[goal][None, :]) * weight
+
+    rows = torch.arange(K, device=dev)
+    g0 = torch.full((K, N), INF, dtype=torch.float32, device=dev)
+    g0[rows, start] = 0.0
+    open0 = torch.zeros((K, N), dtype=torch.bool, device=dev)
+    open0[rows, start] = True
+
+    start_ok = node_valid[start] & node_valid[goal]
+    has_nb_start = (costs.cost[start] < inf).any(dim=1)
+    has_nb_goal = (costs.cost[goal] < inf).any()
+    runnable = start_ok & has_nb_start & has_nb_goal & (start != goal)
+
+    def active(st):
+        _, _, open_, _, done, it = st
+        return ~done & open_.any(dim=1) & (it < N)
+
+    def body(st):
+        g, parent, open_, closed, done, it = st
+        act = active(st)
+        f = torch.where(open_, g + h[None, :], inf)
+        u = torch.argmin(f, dim=1)
+        at_goal = u == goal
+        closed1 = closed.clone()
+        closed1[rows, u] = True
+        open1 = open_.clone()
+        open1[rows, u] = False
+        t = costs.idx[u].long()                                  # [K, D]
+        c = costs.cost[u]
+        tc = torch.clamp(t, max=N - 1)
+        ng = torch.where((c < inf) & ~closed1.gather(1, tc) & ~at_goal[:, None],
+                         g[rows, u][:, None] + c, inf)
+        gext = torch.cat([g, torch.full((K, 1), INF, dtype=g.dtype, device=dev)], dim=1)
+        g2 = gext.scatter_reduce(1, t, ng, reduce="amin", include_self=True)[:, :N]
+        better = g2 < g
+        parent1 = torch.where(better, u.to(torch.int32)[:, None], parent)
+        open1 = open1 | better
+        a2 = act[:, None]
+        return (torch.where(a2, g2, g), torch.where(a2, parent1, parent),
+                torch.where(a2, open1, open_), torch.where(a2, closed1, closed),
+                torch.where(act, done | at_goal, done), it + act.to(torch.int32))
+
+    state = (g0, torch.full((K, N), -1, dtype=torch.int32, device=dev), open0,
+             torch.zeros((K, N), dtype=torch.bool, device=dev), ~runnable,
+             torch.zeros(K, dtype=torch.int32, device=dev))
+    _, parent, _, closed, done, _ = while_loop(lambda st: active(st).any(), body, state)
+    found = done & runnable & closed[:, goal]
+
+    # reconstruct goal -> start by pointer doubling over the parent table
+    # (parent -1 is the absorbing index N), then reverse front-aligned
+    P = s.max_path
+    par = torch.where(parent >= 0, parent, N).long()
+    par = torch.cat([par, torch.full((K, 1), N, dtype=torch.long, device=dev)], dim=1)
+    seq = torch.where(found, goal, N)[:, None]                  # [K, 1]
+    jump = par
+    while seq.shape[1] < P:
+        seq = torch.cat([seq, jump.gather(1, seq)], dim=1)
+        jump = jump.gather(1, jump)
+    seq = seq[:, :P]
+    ok = seq < N
+    rev = torch.where(ok, seq, -1).to(torch.int32)
+    ln = ok.sum(dim=1, dtype=torch.int32)
+    idx = torch.arange(P, device=dev)
+    src_i = torch.clamp(ln[:, None] - 1 - idx[None, :], 0, P - 1).long()
+    path = torch.where(idx[None, :] < ln[:, None], rev.gather(1, src_i), -1)
+    # single-node degenerate case start == goal (cpp:808-811)
+    trivial = start_ok & (start == goal)
+    triv_path = torch.full((K, P), -1, dtype=torch.int32, device=dev)
+    triv_path[:, 0] = start.to(torch.int32)
+    path = torch.where(trivial[:, None], triv_path, path)
+    ln = torch.where(trivial, 1, torch.where(found, ln, 0)).to(torch.int32)
+    return path, ln, found | trivial
+
+
+def path_cost(costs: CsrCosts, nodes, path, path_len):
+    """calculatePathCost (cpp:935-973): edge costs along consecutive path
+    pairs, euclidean where no edge matches. path [..., P], path_len [...]."""
+    P = path.shape[-1]
+    a = path[..., :-1]
+    b = path[..., 1:]
+    ok = ((torch.arange(P - 1, device=path.device) < (path_len[..., None] - 1))
+          & (a >= 0) & (b >= 0))
+    ai = torch.clamp(a, min=0).long()
+    bi = torch.clamp(b, min=0).long()
+    rows = costs.idx[ai]                       # [..., P-1, D]
+    match = rows == bi[..., None]
+    has = match.any(dim=-1)
+    slot = match.to(torch.uint8).argmax(dim=-1)
+    c = costs.cost[ai, slot]
+    eu = _norm2(nodes[bi] - nodes[ai])
+    c = torch.where(has, c, eu)
+    # summed in f64 and rounded once, so that every device gives one value
+    return torch.where(ok, c, 0.0).double().sum(dim=-1).float()
+
+
+def k_nearest_nodes(nodes, node_valid, point, k: int):
+    """findKNearestNodes (cpp:914-932): k nearest by distance, ties to the
+    lower index (a stable sort, as lax.top_k orders ties)."""
+    d = _norm2(nodes - point[None, :])
+    d = torch.where(node_valid, d, INF)
+    return torch.argsort(d, stable=True)[:k].to(torch.int32)
+
+
+def plan_between(costs: CsrCosts, nodes, node_valid, start_point, goal_node,
+                 params: AosParams, s: Statics):
+    """The k-candidate-start planning core (cpp:1282-1386): A* from each of
+    the astar_k nearest nodes to start_point, score = dist(start,
+    candidate) + path cost, keep the best (first on ties). Returns
+    (path [max_path] i32, path_len, found)."""
+    cands = k_nearest_nodes(nodes, node_valid, start_point, s.astar_k)
+    paths, lens, found = astar(costs, nodes, node_valid, cands, goal_node,
+                               params.heuristic_weight, s)
+    usable = found & (lens > 1) & (cands != goal_node)
+    cost = path_cost(costs, nodes, paths, lens) + _norm2(start_point[None, :] - nodes[cands.long()])
+    cost = torch.where(usable, cost, INF)
+    best = torch.argmin(cost)
+    any_ok = usable.any()
+    return paths[best], torch.where(any_ok, lens[best], 0), any_ok

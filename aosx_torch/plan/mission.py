@@ -1,0 +1,324 @@
+"""Mission planner: boustrophedon waypoint tour + progressive-planning FSM
+(mirror of ``aosx/plan/mission.py``; reference: aos_path_gen_node.cpp).
+
+- build_waypoints(graph)    <- buildClusterWaypointMapping +
+                               buildWaypointSequence (cpp:588-765)
+- mission_tick(state, ...)  <- currentPosCallback (cpp:195-278) +
+                               controlModCallback (cpp:280-343)
+- plan_current_path(...)    <- planAndPublishPath (cpp:976-1567) +
+                               trimPathNearOccupiedRegions (cpp:1570-1630)
+
+``rebuild_waypoints`` and ``force_next_waypoint`` are not ported yet.
+Status codes: 0 Success, 1 Failed, 2 Returning..., 3 Exploration Complete.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..config import AosParams, Statics
+from ..geom import atan2
+from ..ops import scatter_set
+from ..perceive.raster import f32, shift2d
+from ..types import GridWorld, GvdGraph, MissionState, Path, Waypoints
+from .astar import INF, plan_between
+
+
+def _norm2(v):
+    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
+
+
+# ---------------------------------------------------------------------------
+# waypoint tour
+# ---------------------------------------------------------------------------
+
+
+def build_waypoints(graph: GvdGraph, params: AosParams, s: Statics) -> Waypoints:
+    """Even cluster BR->BL, odd TL->TR; tail TR on the last cluster when the
+    max cluster index is even, BL when odd; consecutive waypoints <= 0.2 m
+    apart are dropped (cpp:588-702). The last slot is reserved for the
+    origin-return waypoint."""
+    dev = graph.nodes.device
+    C = s.max_rows
+    ln = graph.label_node                      # [C,4] TL,TR,BL,BR
+    present = (ln >= 0).any(dim=1)
+    cidx = torch.arange(C, device=dev)
+    max_c = torch.where(present, cidx, -1).max()
+    last_odd = (max_c % 2) == 1
+    is_last = cidx == max_c
+    even = (cidx % 2) == 0
+
+    n0 = torch.where(even, ln[:, 3], ln[:, 0])   # BR | TL
+    n1 = torch.where(even, ln[:, 2], ln[:, 1])   # BL | TR
+    tail_even = is_last & ~last_odd & even
+    tail_odd = is_last & last_odd & ~even
+    n2 = torch.where(tail_even, ln[:, 1], torch.where(tail_odd, ln[:, 2], -1))
+    slots = torch.stack([n0, n1, n2], dim=1)
+    slot_ok = present[:, None] & (slots >= 0) & (slots < graph.num_nodes)
+    flat = slots.reshape(-1)
+    ok = slot_ok.reshape(-1)
+    pos = graph.nodes[torch.clamp(flat, min=0).long()]
+
+    # sequential consecutive-distance filter (3C entries)
+    T = 3 * C
+    keep = torch.zeros(T, dtype=torch.bool, device=dev)
+    last_xy = torch.full((2,), 1e9, dtype=torch.float32, device=dev)
+    any_kept = torch.zeros((), dtype=torch.bool, device=dev)
+    for i in range(T):
+        p = pos[i]
+        d = _norm2(p - last_xy)
+        k = ok[i] & (~any_kept | (d > params.min_waypoint_distance))
+        keep[i] = k
+        last_xy = torch.where(k, p, last_xy)
+        any_kept = any_kept | k
+
+    W = s.max_waypoints
+    rank = torch.cumsum(keep.to(torch.int32), 0, dtype=torch.int32) - 1
+    tgt = torch.where(keep & (rank < W - 1), rank, W)
+    return Waypoints(xy=scatter_set(W, 0.0, tgt, pos),
+                     node_idx=scatter_set(W, -1, tgt, flat),
+                     count=torch.clamp(keep.sum(dtype=torch.int32), max=W - 1))
+
+
+def labeled_cluster_total(graph: GvdGraph):
+    """Number of clusters with any TL/TR/BL/BR label (cpp:1633-1652)."""
+    return (graph.label_node >= 0).any(dim=1).sum(dtype=torch.int32)
+
+
+def cluster_index_from_total(target_wp, total):
+    """calculateClusterIndex (cpp:1633-1652) given the labeled-cluster count."""
+    in_tail = target_wp < 2 * (total - 1) + 3
+    cluster = torch.where(target_wp < 2 * (total - 1), target_wp // 2, total - 1)
+    cluster = torch.where(in_tail, cluster, 0)
+    return torch.where((target_wp < 0) | (total <= 0), -1, cluster).to(torch.int32)
+
+
+def current_cluster_index(target_wp, graph: GvdGraph):
+    """Published on /aos/current_cluster_index (cpp:1655-1663)."""
+    return cluster_index_from_total(target_wp, labeled_cluster_total(graph))
+
+
+def _append_origin(wp: Waypoints, params: AosParams) -> Waypoints:
+    """Append the (0,0) origin-return waypoint unless the last waypoint is
+    already within 0.2 m of it (cpp:299-310)."""
+    W = wp.xy.shape[0]
+    last = wp.xy[torch.clamp(wp.count - 1, min=0).long()]
+    near = (wp.count > 0) & (_norm2(last) <= 0.2)
+    slot = torch.clamp(wp.count, max=W - 1).long()
+    xy = wp.xy.clone()
+    xy[slot] = 0.0
+    node_idx = wp.node_idx.clone()
+    node_idx[slot] = -1
+    return Waypoints(xy=torch.where(near, wp.xy, xy),
+                     node_idx=torch.where(near, wp.node_idx, node_idx),
+                     count=torch.where(near, wp.count, torch.clamp(wp.count + 1, max=W)))
+
+
+# ---------------------------------------------------------------------------
+# FSM tick
+# ---------------------------------------------------------------------------
+
+
+def mission_tick(state: MissionState, wp: Waypoints, robot_xy, control_mod,
+                 params: AosParams):
+    """One mission update: control-mod handling (cpp:280-343) then position
+    handling (cpp:195-278). Returns (state, wp, should_replan)."""
+    advance = (control_mod == 3) & state.waiting_for_docking
+    at_last = state.target_wp >= wp.count - 1
+    completing = advance & at_last & ~state.exploration_completed
+    wp2 = _append_origin(wp, params)
+    wp = Waypoints(
+        xy=torch.where(completing, wp2.xy, wp.xy),
+        node_idx=torch.where(completing, wp2.node_idx, wp.node_idx),
+        count=torch.where(completing, wp2.count, wp.count),
+    )
+    go_origin = advance & at_last
+    prev_wp = torch.where(advance, state.target_wp, state.prev_wp)
+    target_wp = torch.where(
+        advance, torch.where(go_origin, wp.count - 1, state.target_wp + 1), state.target_wp)
+    waiting = torch.where(advance, False, state.waiting_for_docking)
+    completed = state.exploration_completed | completing
+    status = torch.where(completing, 2, state.status)
+    origin_appended = state.origin_appended | completing
+
+    # ---- currentPosCallback -------------------------------------------------
+    init_wp = torch.stack([params.initial_waypoint_x, params.initial_waypoint_y])
+    d_init = _norm2(robot_xy - init_wp)
+    reach_init = ~state.initial_reached & (d_init <= params.initial_arrive_dist)
+    target_wp = torch.where(reach_init & (wp.count > 0), 0, target_wp)
+    prev_wp = torch.where(reach_init, -1, prev_wp)
+    initial_reached = state.initial_reached | reach_init
+
+    W = wp.xy.shape[0]
+    tvalid = (target_wp >= 0) & (target_wp < wp.count)
+    target = wp.xy[torch.clamp(target_wp, 0, W - 1).long()]
+    d_target = _norm2(robot_xy - target)
+
+    # Exploration Complete at the origin (cpp:230-246)
+    at_origin_goal = (completed & tvalid & (torch.abs(target[0]) < 0.1)
+                      & (torch.abs(target[1]) < 0.1) & (d_target <= 1.0))
+    status = torch.where(at_origin_goal, 3, status)
+    # docking freeze (cpp:248-256)
+    enter_dock = initial_reached & tvalid & (d_target <= params.docking_radius) & ~waiting
+    waiting = waiting | enter_dock
+
+    st = MissionState(
+        target_wp=target_wp.to(torch.int32),
+        prev_wp=prev_wp.to(torch.int32),
+        initial_reached=initial_reached,
+        exploration_completed=completed,
+        waiting_for_docking=waiting,
+        status=status.to(torch.int32),
+        origin_appended=origin_appended,
+    )
+    return st, wp, ~waiting | advance
+
+
+# ---------------------------------------------------------------------------
+# path planning
+# ---------------------------------------------------------------------------
+
+
+def _assemble(cand_xy, cand_ok, s: Statics):
+    P = s.max_path
+    rank = torch.cumsum(cand_ok.to(torch.int32), 0, dtype=torch.int32) - 1
+    tgt = torch.where(cand_ok & (rank < P), rank, P)
+    return scatter_set(P, 0.0, tgt, cand_xy), torch.clamp(cand_ok.sum(dtype=torch.int32), max=P)
+
+
+def _yaws(xy, count, last_yaw):
+    P = xy.shape[0]
+    d = torch.roll(xy, -1, dims=0) - xy
+    yaw = atan2(d[:, 1], d[:, 0])
+    idx = torch.arange(P, device=xy.device)
+    yaw = torch.where(idx == count - 1, last_yaw, yaw)
+    return torch.where(idx < count, yaw, 0.0)
+
+
+def _trim_offsets(s: Statics):
+    """(dy, dx, dist_m) cell offsets within s.trim_max_distance."""
+    res = s.resolution
+    rc = int(math.ceil(s.trim_max_distance / res))
+    return [
+        (dy, dx, math.hypot(dx, dy) * res)
+        for dy in range(-rc, rc + 1)
+        for dx in range(-rc, rc + 1)
+        if math.hypot(dx, dy) * res <= s.trim_max_distance
+    ]
+
+
+_TRIM_FAR = 3.4e38
+
+
+def trim_distance_plane(skel: GridWorld, s: Statics):
+    """Per-cell min distance (m, f32) to an occupied skeleton cell within
+    s.trim_max_distance (3.4e38 where none), computed once per world."""
+    occ1 = (skel.occ == 1).to(torch.uint8)
+    far = torch.tensor(_TRIM_FAR, dtype=torch.float32, device=skel.occ.device)
+    out = torch.full(skel.occ.shape, _TRIM_FAR, dtype=torch.float32, device=skel.occ.device)
+    for dy, dx, dist in _trim_offsets(s):
+        hit = shift2d(occ1, -dy, -dx) == 1
+        out = torch.minimum(out, torch.where(hit, f32(dist, skel.occ.device), far))
+    return out
+
+
+def _trim(xy, yaw, count, skel: GridWorld, params: AosParams, s: Statics, trim_plane):
+    """trimPathNearOccupiedRegions (cpp:1570-1630) through the distance
+    plane: the first index i >= 1 whose trim disc touches an occupied
+    skeleton cell truncates the path to i."""
+    resf = f32(s.resolution, xy.device)
+    H, W = skel.occ.shape
+    mx = ((xy[:, 0] - skel.origin_x) / resf).to(torch.int32)
+    my = ((xy[:, 1] - skel.origin_y) / resf).to(torch.int32)
+    ing = (mx >= 0) & (mx < skel.w_cells) & (my >= 0) & (my < skel.h_cells)
+    flat = (torch.clamp(my, 0, H - 1) * W + torch.clamp(mx, 0, W - 1)).long()
+    too_close = (trim_plane.reshape(-1)[flat] <= params.trim_safety_distance) & ing
+    idx = torch.arange(xy.shape[0], device=xy.device)
+    bad = too_close & (idx >= 1) & (idx < count)
+    first_bad = torch.where(bad, idx, xy.shape[0]).min()
+    return xy, yaw, torch.minimum(count, first_bad.to(torch.int32))
+
+
+def plan_current_path(state: MissionState, wp: Waypoints, graph: GvdGraph, costmat,
+                      skel: GridWorld, params: AosParams, s: Statics, *, trim_plane):
+    """planAndPublishPath (cpp:976-1567) with the trim distance plane.
+    Returns (Path, success bool)."""
+    dev = graph.nodes.device
+    P = s.max_path
+    init_wp = torch.stack([params.initial_waypoint_x, params.initial_waypoint_y])
+    arP = torch.arange(P, device=dev)
+
+    # ---------------- initial straight path (cpp:983-1031) -----------------
+    dist0 = _norm2(init_wp)
+    num0 = torch.ceil(dist0 / params.path_step).to(torch.int32)
+    t0 = arP.to(torch.float32) / torch.clamp(num0.to(torch.float32), min=1.0)
+    straight = t0[:, None] * init_wp[None, :]
+    straight_xy, straight_count = _assemble(straight, arP <= num0, s)
+    straight_xy[torch.clamp(straight_count - 1, min=0).long()] = init_wp
+    yaw0 = atan2(init_wp[1], init_wp[0])
+    straight_yaw = torch.where(arP < straight_count, yaw0, 0.0)
+
+    # ---------------- graph path (cpp:1046-1549) ---------------------------
+    Wn = wp.xy.shape[0]
+    tw = torch.clamp(state.target_wp, 0, Wn - 1).long()
+    target = wp.xy[tw]
+    target_node = wp.node_idx[tw]
+    prev_ok = (state.prev_wp >= 0) & (state.prev_wp < wp.count)
+    start_point = torch.where(prev_ok, wp.xy[torch.clamp(state.prev_wp, 0, Wn - 1).long()], init_wp)
+
+    origin_return = target_node < 0
+    d_to_nodes = _norm2(graph.nodes - target[None, :])
+    nearest_to_target = torch.argmin(torch.where(graph.node_valid, d_to_nodes, INF)).to(torch.int32)
+    goal = torch.where(origin_return, nearest_to_target, torch.clamp(target_node, min=0))
+
+    node_path, plen, found = plan_between(costmat, graph.nodes, graph.node_valid,
+                                          start_point, goal, params, s)
+
+    first_node_xy = graph.nodes[torch.clamp(node_path[0], min=0).long()]
+    add_start = _norm2(start_point - first_node_xy) > 0.1
+    node_xy = graph.nodes[torch.clamp(node_path, min=0).long()]
+    node_ok = (arP < plen) & (node_path >= 0)
+    # drop exact-duplicate consecutive node positions (cpp:1446-1454)
+    prev_xy = torch.cat([start_point[None, :], node_xy[:-1]], dim=0)
+    prev_ok_arr = torch.cat([add_start.reshape(1), node_ok[:-1]], dim=0)
+    dup = node_ok & prev_ok_arr & (node_xy == prev_xy).all(dim=1)
+    node_ok = node_ok & ~dup
+
+    last_node_xy = graph.nodes[torch.clamp(node_path[torch.clamp(plen - 1, min=0).long()], min=0).long()]
+    dtail = target - last_node_xy
+    tail_num = torch.ceil(_norm2(dtail) / params.path_step).to(torch.int32)
+    it = arP.to(torch.float32) + 1.0
+    tt = it / torch.clamp(tail_num.to(torch.float32), min=1.0)
+    tail_xy = last_node_xy[None, :] + tt[:, None] * dtail[None, :]
+    tail_ok = (arP < tail_num) & origin_return
+    target_point_ok = ~origin_return & (_norm2(last_node_xy - target) > 0.01)
+    tail_xy = torch.where((arP == 0)[:, None] & ~origin_return, target[None, :], tail_xy)
+    tail_ok = tail_ok | ((arP == 0) & target_point_ok)
+
+    cand_xy = torch.cat([start_point[None, :], node_xy, tail_xy], dim=0)
+    cand_ok = torch.cat([add_start.reshape(1), node_ok, tail_ok], dim=0) & found
+    gxy, gcount = _assemble(cand_xy, cand_ok, s)
+    # exact target at the end (cpp:1252-1255,1494-1503)
+    gxy_t = gxy.clone()
+    gxy_t[torch.clamp(gcount - 1, min=0).long()] = target
+    gxy = torch.where(found & (gcount > 0), gxy_t, gxy)
+
+    # last yaw: face the next waypoint if any (cpp:1517-1534)
+    has_next = state.target_wp < wp.count - 1
+    nxt_wp = wp.xy[torch.clamp(state.target_wp + 1, 0, Wn - 1).long()]
+    last_pt = gxy[torch.clamp(gcount - 1, min=0).long()]
+    prev_pt = gxy[torch.clamp(gcount - 2, min=0).long()]
+    dn = torch.where(has_next, nxt_wp - last_pt, last_pt - prev_pt)
+    gyaw = _yaws(gxy, gcount, atan2(dn[1], dn[0]))
+
+    # ---------------- select branch + trim ---------------------------------
+    use_straight = ~state.initial_reached
+    have_wp = (wp.count > 0) & (state.target_wp >= 0) & (state.target_wp < wp.count)
+    success = torch.where(use_straight, True, found & have_wp)
+    xy = torch.where(use_straight, straight_xy, gxy)
+    yaw = torch.where(use_straight, straight_yaw, gyaw)
+    count = torch.where(use_straight, straight_count, torch.where(success, gcount, 0))
+    xy, yaw, count = _trim(xy, yaw, count.to(torch.int32), skel, params, s, trim_plane)
+    return Path(xy=xy, yaw=yaw, count=count), success
