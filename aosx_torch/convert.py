@@ -3,7 +3,8 @@
 ``to_torch(obj, cls, device)`` builds a port dataclass from any object (or
 dict) whose same-named fields hold array-likes: a port value, a dict from
 ``to_numpy``, or a JAX value, since ``np.asarray`` reads each leaf. So the
-port never needs jax to take a JAX package's output as its input.
+port never needs jax to take a JAX package's output as its input: a JAX
+``ServeState`` becomes ``to_torch(sv, serving.ServeState, device)``.
 
 ``to_numpy(obj)`` walks a dataclass (of this package or any other), a dict,
 a list or a tuple down to nested dicts of numpy arrays.
@@ -26,19 +27,22 @@ def _get(obj, name):
 
 def to_torch(obj, cls, device):
     """A ``cls`` (a dataclass of this package) on ``device`` from ``obj``'s
-    same-named fields. Leaves keep their dtype; None stays None."""
+    same-named fields. Fields annotated with a dataclass or a
+    ``tuple[...]`` of them (``IncrementalState.cfg``) are rebuilt nested;
+    leaves keep their dtype; None stays None."""
     hints = typing.get_type_hints(cls)
-    kwargs = {}
-    for f in dataclasses.fields(cls):
-        v = _get(obj, f.name)
-        hint = hints.get(f.name)
-        if v is None:
-            kwargs[f.name] = None
-        elif isinstance(hint, type) and dataclasses.is_dataclass(hint):
-            kwargs[f.name] = to_torch(v, hint, device)
-        else:
-            kwargs[f.name] = _leaf(v, device)
-    return cls(**kwargs)
+    return cls(**{f.name: _field(_get(obj, f.name), hints.get(f.name), device)
+                  for f in dataclasses.fields(cls)})
+
+
+def _field(v, hint, device):
+    if v is None:
+        return None
+    if isinstance(hint, type) and dataclasses.is_dataclass(hint):
+        return to_torch(v, hint, device)
+    if typing.get_origin(hint) is tuple:
+        return tuple(_field(x, h, device) for x, h in zip(v, typing.get_args(hint), strict=True))
+    return _leaf(v, device)
 
 
 def _leaf(v, device):

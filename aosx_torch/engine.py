@@ -6,8 +6,8 @@ then each ``step`` runs
     mission FSM + replan (aos_path_gen_node)
     path linearization   (aos_path_linearization_node)
     robot kinematics     (a simple unicycle stand-in)
-``episode`` is a Python loop over ``step``. ``replay_episode`` is not
-ported yet.
+``episode`` is a Python loop over ``step``; ``replay_episode`` runs it over
+a growing map, rebuilding the world from scratch at every frame.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from .plan.mission import (
     current_cluster_index,
     mission_tick,
     plan_current_path,
+    rebuild_waypoints,
     trim_distance_plane,
 )
 from .types import (
@@ -235,6 +236,41 @@ def step(state: EngineState, world: World, params: AosParams, s: Statics, *, v_d
     return new_state, metrics
 
 
+def frame(pc_frames: PointCloud, f: int) -> PointCloud:
+    """Frame f of a stacked [F, ...] snapshot sequence."""
+    return PointCloud(xyz=pc_frames.xyz[f], valid=pc_frames.valid[f])
+
+
+def stack_metrics(per_step):
+    """A list of per-tick metric dicts stacked along a leading axis."""
+    return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+
+def replay_episode(pc_frames: PointCloud, poly: Polygon, params: AosParams, exclusions,
+                   s: Statics, steps_per_frame: int, *, ror_method: str = "sorted"):
+    """Dynamic-map closed loop: per map frame, the full perceive -> GVD ->
+    waypoints pass (the reference recomputes the graph on every map update,
+    aos_gvd_node.cpp:152-177), the mission target restored across the
+    rebuild (aos_path_gen_node.cpp:456-560), then ``steps_per_frame`` ticks.
+    pc_frames holds stacked [F, ...] snapshots. Returns (final state,
+    per-frame metrics stacked [F, steps_per_frame, ...])."""
+    world0 = prepare_world(frame(pc_frames, 0), poly, params, exclusions, s,
+                           ror_method=ror_method)
+    st = initial_state(world0, s)
+    per_frame = []
+    for f in range(pc_frames.xyz.shape[0]):
+        world = prepare_world(frame(pc_frames, f), poly, params, exclusions, s,
+                              ror_method=ror_method)
+        mission, wp = rebuild_waypoints(st.mission, st.wp, world.graph, params, s)
+        st = dataclasses.replace(st, mission=mission, wp=wp)
+        per_step = []
+        for _ in range(steps_per_frame):
+            st, m = step(st, world, params, s)
+            per_step.append(m)
+        per_frame.append(stack_metrics(per_step))
+    return st, stack_metrics(per_frame)
+
+
 def episode(world: World, params: AosParams, s: Statics, n_steps: int, *, v_dt=0.12):
     """Closed-loop rollout as a Python loop. Returns (final state, per-step
     metrics stacked along a leading axis)."""
@@ -243,4 +279,4 @@ def episode(world: World, params: AosParams, s: Statics, n_steps: int, *, v_dt=0
     for _ in range(n_steps):
         st, m = step(st, world, params, s, v_dt=v_dt)
         per_step.append(m)
-    return st, {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+    return st, stack_metrics(per_step)

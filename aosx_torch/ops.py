@@ -133,7 +133,20 @@ def compact_take(vals, indices, fill):
 
 
 def fma(a, b, c):
-    """a * b + c rounded once, as a fused multiply-add (the f64 product of
-    two f32 values is exact). XLA:CPU contracts many of aosx's a*b + c
-    expressions this way; the port uses it where the results must agree."""
-    return (a.double() * b.double() + c.double()).float()
+    """f32 a * b + c rounded once, as a fused multiply-add. XLA:CPU
+    contracts many of aosx's a*b + c expressions this way; the port uses it
+    where the results must agree, and CUDA's __fmaf_rn gives the same bits.
+
+    The f64 product of two f32 values is exact. The f64 sum is made
+    round-to-odd (TwoSum gives its rounding error e; when e != 0 the sum is
+    truncated toward zero and its last bit set), and rounding a 53-bit
+    round-to-odd value to 24 bits equals rounding the exact value once
+    (Boldo and Melquiond), where plain f64 rounding could round twice."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    inexact = (e != 0) & torch.isfinite(s)
+    t = torch.where(inexact & ((e < 0) != (s < 0)), torch.nextafter(s, torch.zeros_like(s)), s)
+    return torch.where(inexact, (t.view(torch.int64) | 1).view(torch.float64), s).float()

@@ -2,11 +2,15 @@
 discs as fixed-shape masks (mirror of ``aosx/perceive/points.py``;
 reference: aos_seed_gen_node.cpp:230-538).
 
-ROR methods ported here:
+ROR methods:
 - 'sorted': sort by x and compare each block of 2048 points with itself and
             its two neighbour blocks (the main path);
-- 'exact' : all pairs, elementwise (xi-xj)^2 sums in f32.
-The 'mxu' and 'pallas' methods of ``aosx`` are not ported yet.
+- 'exact' : all pairs, elementwise (xi-xj)^2 sums in f32;
+- 'pallas': all pairs, d2 = (|a|^2 + |b|^2) - 2 a.b in f32, through kernel
+            K3 (``ror_cuda.ror_counts``) on a CUDA tensor and its plain
+            version on a CPU tensor;
+- 'mxu'   : the same d2 formula, which ``aosx`` takes to XLA dots; here the
+            same path as 'pallas'.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from ..config import AosParams, Statics
 from ..geom import active_bounds
 from ..guards import GUARD_ROR_SPAN
 from ..types import PointCloud, Polygon
+from . import ror_cuda
 
 # rows of the [rows, 3W] distance tile evaluated at once
 _ROW_CHUNK = 256
@@ -30,21 +35,39 @@ def _d2(a, b):
     return (dx * dx + dy * dy) + dz * dz
 
 
+def park(xyz, valid):
+    """Invalid points parked far away, each at its own spot (1e9 + i*1e3),
+    so that they never count each other in an exact pass."""
+    n = xyz.shape[0]
+    far = 1e9 + torch.arange(n, dtype=torch.float32, device=xyz.device)[:, None] * 1e3
+    return torch.where(valid[:, None], xyz, far)
+
+
+def pad_to_block(pts, block: int):
+    """[n, 3] points padded to a multiple of ``block`` rows at -1e9."""
+    pad = -pts.shape[0] % block
+    return torch.cat([pts, torch.full((pad, 3), -1e9, dtype=torch.float32, device=pts.device)])
+
+
 def ror_counts(xyz, valid, radius, *, method: str = "exact", block: int = None):
     """Number of OTHER valid points within ``radius`` (3-D), per point.
 
     Returns (counts [n] i32, span_violated bool tensor); the flag is only
     ever True for 'sorted' when its block-span precondition breaks
     (guards.GUARD_ROR_SPAN)."""
-    if method not in ("exact", "sorted"):
-        raise NotImplementedError(f"ror method {method!r} is not ported")
+    if method not in ("exact", "sorted", "pallas", "mxu"):
+        raise ValueError(f"unknown ror method {method!r}")
     n = xyz.shape[0]
     dev = xyz.device
-    park = 1e9 + torch.arange(n, dtype=torch.float32, device=dev)[:, None] * 1e3
-    pts = torch.where(valid[:, None], xyz, park)
+    pts = park(xyz, valid)
     r2 = torch.as_tensor(radius, dtype=torch.float32, device=dev) ** 2
+    no_span = torch.zeros((), dtype=torch.bool, device=dev)
     if method == "sorted":
         return _ror_counts_sorted(pts, n, r2)
+    if method in ("pallas", "mxu"):
+        # padding never counts towards a point (-1e9 lies far from every
+        # point and parked spot), so one block size serves both
+        return ror_cuda.ror_counts(pad_to_block(pts, block or 2048), r2)[:n] - 1, no_span
     block = block or 2048
     cnt = torch.zeros(n, dtype=torch.int32, device=dev)
     for r0 in range(0, n, _ROW_CHUNK):
@@ -55,7 +78,7 @@ def ror_counts(xyz, valid, radius, *, method: str = "exact", block: int = None):
             c += (d2 <= r2).sum(dim=1, dtype=torch.int32)
         cnt[r0:r0 + _ROW_CHUNK] = c
     # exclude self (d2 == 0 with itself is always counted)
-    return cnt - 1, torch.zeros((), dtype=torch.bool, device=dev)
+    return cnt - 1, no_span
 
 
 def _ror_counts_sorted(pts, n, r2, W: int = 2048):

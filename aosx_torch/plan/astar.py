@@ -69,7 +69,8 @@ def _norm2(v):
     return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
 
 
-def astar(costs: CsrCosts, nodes, node_valid, start, goal, weight, s: Statics):
+def astar(costs: CsrCosts, nodes, node_valid, start, goal, weight, s: Statics,
+          enabled=None):
     """Weighted A* (f = g + w*h, h = euclidean to goal; cpp:800-896) from
     each of the start nodes ``start`` [K] to ``goal``. Returns (path [K,
     max_path] i32 padded with -1, path_len [K] i32, found [K] bool). Pops
@@ -77,7 +78,11 @@ def astar(costs: CsrCosts, nodes, node_valid, start, goal, weight, s: Statics):
 
     The search runs in lockstep over the K starts; a search that is done
     keeps its state (its updates are masked), so extra iterations between
-    host checks of the loop condition change nothing."""
+    host checks of the loop condition change nothing.
+
+    enabled (optional bool tensor): when False every search starts done, so
+    the loop body never runs, and (all -1, 0, False) is returned, exactly
+    what an unreachable search gives (build_plan_cache's dead rows)."""
     dev = nodes.device
     N = s.max_nodes
     K = start.shape[0]
@@ -96,6 +101,8 @@ def astar(costs: CsrCosts, nodes, node_valid, start, goal, weight, s: Statics):
     has_nb_start = (costs.cost[start] < inf).any(dim=1)
     has_nb_goal = (costs.cost[goal] < inf).any()
     runnable = start_ok & has_nb_start & has_nb_goal & (start != goal)
+    if enabled is not None:
+        runnable = runnable & enabled
 
     def active(st):
         _, _, open_, _, done, it = st
@@ -151,6 +158,8 @@ def astar(costs: CsrCosts, nodes, node_valid, start, goal, weight, s: Statics):
     path = torch.where(idx[None, :] < ln[:, None], rev.gather(1, src_i), -1)
     # single-node degenerate case start == goal (cpp:808-811)
     trivial = start_ok & (start == goal)
+    if enabled is not None:
+        trivial = trivial & enabled
     triv_path = torch.full((K, P), -1, dtype=torch.int32, device=dev)
     triv_path[:, 0] = start.to(torch.int32)
     path = torch.where(trivial[:, None], triv_path, path)
@@ -188,14 +197,14 @@ def k_nearest_nodes(nodes, node_valid, point, k: int):
 
 
 def plan_between(costs: CsrCosts, nodes, node_valid, start_point, goal_node,
-                 params: AosParams, s: Statics):
+                 params: AosParams, s: Statics, enabled=None):
     """The k-candidate-start planning core (cpp:1282-1386): A* from each of
     the astar_k nearest nodes to start_point, score = dist(start,
     candidate) + path cost, keep the best (first on ties). Returns
-    (path [max_path] i32, path_len, found)."""
+    (path [max_path] i32, path_len, found). enabled: see astar."""
     cands = k_nearest_nodes(nodes, node_valid, start_point, s.astar_k)
     paths, lens, found = astar(costs, nodes, node_valid, cands, goal_node,
-                               params.heuristic_weight, s)
+                               params.heuristic_weight, s, enabled=enabled)
     usable = found & (lens > 1) & (cands != goal_node)
     cost = path_cost(costs, nodes, paths, lens) + _norm2(start_point[None, :] - nodes[cands.long()])
     cost = torch.where(usable, cost, INF)

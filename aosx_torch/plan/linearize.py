@@ -167,6 +167,28 @@ def _backtrack_keep(oxy, oseg, ocount, NSEG: int):
     return keep
 
 
+def breakpoint_mask(path: Path, params: AosParams, s: Statics):
+    """[max_path] bool: the points where the linearized path's segments
+    start and end (0 and count - 1 included); every point of a path of at
+    most 4, else the regression split's (max 10 segments when the goal is
+    the origin, else 4)."""
+    P = s.max_path
+    xy, count = path.xy, path.count
+    end_pt = xy[torch.clamp(count - 1, min=0).long()]
+    is_long = (torch.abs(end_pt[0]) < 1e-6) & (torch.abs(end_pt[1]) < 1e-6)
+    max_segments = torch.where(is_long, s.max_segments, 4).to(torch.int32)
+
+    bp_mask = _find_breakpoints(xy, count, max_segments, params, P)
+    idxs = torch.arange(P, device=xy.device)
+    interior_all = (idxs > 0) & (idxs < count - 1)
+    bp_mask = torch.where(count <= 4, interior_all, bp_mask)
+    bp_mask = bp_mask & (idxs > 0) & (idxs < count - 1)
+    bp_mask = bp_mask.clone()
+    bp_mask[0] = count > 0
+    bp_mask = bp_mask | (idxs == count - 1)
+    return bp_mask & (idxs < count)
+
+
 def linearize(path: Path, params: AosParams, s: Statics) -> Path:
     """convertToLinearSegments (cpp:248-370). Input path of n points:
     n <= 1: passthrough; n == 2: one interpolated segment; 3 <= n <= 4:
@@ -177,18 +199,8 @@ def linearize(path: Path, params: AosParams, s: Statics) -> Path:
     xy, count = path.xy, path.count
     end_pt = xy[torch.clamp(count - 1, min=0).long()]
     start_pt = xy[0]
-    is_long = (torch.abs(end_pt[0]) < 1e-6) & (torch.abs(end_pt[1]) < 1e-6)
-    max_segments = torch.where(is_long, s.max_segments, 4).to(torch.int32)
-
-    bp_mask = _find_breakpoints(xy, count, max_segments, params, P)
+    bp_mask = breakpoint_mask(path, params, s)
     idxs = torch.arange(P, device=dev)
-    interior_all = (idxs > 0) & (idxs < count - 1)
-    bp_mask = torch.where(count <= 4, interior_all, bp_mask)
-    bp_mask = bp_mask & (idxs > 0) & (idxs < count - 1)
-    bp_mask = bp_mask.clone()
-    bp_mask[0] = count > 0
-    bp_mask = bp_mask | (idxs == count - 1)
-    bp_mask = bp_mask & (idxs < count)
 
     NSEG = max(s.max_segments, 4) + 1
     MAXBP = NSEG + 1

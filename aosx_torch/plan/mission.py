@@ -7,13 +7,15 @@
                                controlModCallback (cpp:280-343)
 - plan_current_path(...)    <- planAndPublishPath (cpp:976-1567) +
                                trimPathNearOccupiedRegions (cpp:1570-1630)
+- rebuild_waypoints(...)    <- graphCallback's tour rebuild (cpp:456-560)
 
-``rebuild_waypoints`` and ``force_next_waypoint`` are not ported yet.
+``force_next_waypoint`` is not ported yet.
 Status codes: 0 Success, 1 Failed, 2 Returning..., 3 Exploration Complete.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -176,6 +178,43 @@ def mission_tick(state: MissionState, wp: Waypoints, robot_xy, control_mod,
     return st, wp, ~waiting | advance
 
 
+def rebuild_waypoints(state: MissionState, old_wp: Waypoints, graph: GvdGraph,
+                      params: AosParams, s: Statics):
+    """graphCallback's waypoint-sequence rebuild + target restoration by
+    POSITION (cpp:456-560): the tour is rebuilt from the new graph unless
+    exploration completed, when the old tour is kept and the origin
+    re-appended if it was there; the target is re-found as the closest new
+    waypoint to the saved target position within 0.5 m, else the saved
+    index if still valid, else progress is kept. Returns (state, wp)."""
+    W = old_wp.xy.shape[0]
+    saved_idx = state.target_wp
+    saved_valid = (saved_idx >= 0) & (saved_idx < old_wp.count)
+    saved_pos = old_wp.xy[torch.clamp(saved_idx, 0, W - 1).long()]
+
+    done = state.exploration_completed
+    built = build_waypoints(graph, params, s)
+    new_wp = Waypoints(xy=torch.where(done, old_wp.xy, built.xy),
+                       node_idx=torch.where(done, old_wp.node_idx, built.node_idx),
+                       count=torch.where(done, old_wp.count, built.count))
+    wp2 = _append_origin(new_wp, params)
+    use_append = done & state.origin_appended
+    wp = Waypoints(xy=torch.where(use_append, wp2.xy, new_wp.xy),
+                   node_idx=torch.where(use_append, wp2.node_idx, new_wp.node_idx),
+                   count=torch.where(use_append, wp2.count, new_wp.count))
+
+    d = _norm2(wp.xy - saved_pos[None, :])
+    d = torch.where(torch.arange(W, device=d.device) < wp.count, d, INF)
+    best = torch.argmin(d).to(torch.int32)
+    best_ok = (wp.count > 0) & (d[best.long()] < 0.5)
+    idx_ok = (saved_idx >= 0) & (saved_idx < wp.count)
+    keep_or_zero = torch.where(state.target_wp < 0, 0, state.target_wp)
+    fallback = torch.where(done, torch.where(idx_ok, saved_idx, wp.count - 1),
+                           torch.where(idx_ok, saved_idx, keep_or_zero))
+    new_target = torch.where(saved_valid & best_ok, best, fallback)
+    new_target = torch.where(wp.count > 0, new_target, state.target_wp).to(torch.int32)
+    return dataclasses.replace(state, target_wp=new_target), wp
+
+
 # ---------------------------------------------------------------------------
 # path planning
 # ---------------------------------------------------------------------------
@@ -242,9 +281,12 @@ def _trim(xy, yaw, count, skel: GridWorld, params: AosParams, s: Statics, trim_p
 
 
 def plan_current_path(state: MissionState, wp: Waypoints, graph: GvdGraph, costmat,
-                      skel: GridWorld, params: AosParams, s: Statics, *, trim_plane):
+                      skel: GridWorld, params: AosParams, s: Statics, *, trim_plane,
+                      astar_enabled=None):
     """planAndPublishPath (cpp:976-1567) with the trim distance plane.
-    Returns (Path, success bool)."""
+    Returns (Path, success bool). astar_enabled (bool tensor): False skips
+    the graph search (plan_between's ``enabled``; build_plan_cache's dead
+    rows)."""
     dev = graph.nodes.device
     P = s.max_path
     init_wp = torch.stack([params.initial_waypoint_x, params.initial_waypoint_y])
@@ -274,7 +316,8 @@ def plan_current_path(state: MissionState, wp: Waypoints, graph: GvdGraph, costm
     goal = torch.where(origin_return, nearest_to_target, torch.clamp(target_node, min=0))
 
     node_path, plen, found = plan_between(costmat, graph.nodes, graph.node_valid,
-                                          start_point, goal, params, s)
+                                          start_point, goal, params, s,
+                                          enabled=astar_enabled)
 
     first_node_xy = graph.nodes[torch.clamp(node_path[0], min=0).long()]
     add_start = _norm2(start_point - first_node_xy) > 0.1

@@ -1,0 +1,344 @@
+"""Precomputed plan cache: replan-free control ticks on a static world
+(mirror of ``aosx/plan/plancache.py``).
+
+plan_current_path's start is the PREVIOUS WAYPOINT, not the robot pose
+(aos_path_gen_node.cpp:1046-1060), so on a fixed world the raw path is a
+pure function of the mission configuration (initial_reached, target_wp,
+prev_wp, origin_appended), and an episode visits at most W+4 of them:
+
+    row 0        initial straight line (0,0)->(8,0)   [~initial_reached]
+    rows 1..W    target t in 0..W-1, prev = t-1
+    row W+1      origin return, prev = last tour wp
+    row W+2      origin return, prev == target
+    row W+3      target_wp < 0 with initial_reached   [always fails]
+    row W+4      the initial empty path and its linearization
+
+``build_plan_cache`` plans every row once per world; ``step_cached`` then
+selects a row by index each tick, bit-identical to replanning every tick
+(``engine.step``). ``add_carry_row`` appends row R = W+5, which keeps the
+published plan across a world rebuild (``serving.serve_map_frame``).
+
+Rows are planned in a Python loop; ``tour_feasibility`` (the batch
+classifier) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..config import AosParams, Statics
+from ..engine import Robot, _move_robot, initial_state, stack_metrics
+from ..guards import GUARD_NONFINITE, GUARD_PLAN_CAP
+from ..types import ControlState, MissionState, Path, Waypoints
+from .control import control_tick
+from .linearize import linearize
+from .mission import (
+    _append_origin,
+    cluster_index_from_total,
+    labeled_cluster_total,
+    mission_tick,
+    plan_current_path,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanCache:
+    """Per-world precomputed plans, one row per reachable mission config."""
+
+    plan_xy: torch.Tensor     # [R, max_plan, 2] f32 linearized /plan points
+    plan_yaw: torch.Tensor    # [R, max_plan] f32 per-point yaw (serving export)
+    plan_count: torch.Tensor  # [R] i32
+    goal_xy: torch.Tensor     # [R, 2] f32 = plan_xy[r, max(count-1, 0)]
+    goal_yaw: torch.Tensor    # [R] f32  = plan_yaw[r, max(count-1, 0)]
+    success: torch.Tensor     # [R] bool plan_current_path success
+    nonfinite: torch.Tensor   # [R] i32 nonfinite entries of plan.xy + raw.xy
+
+
+@dataclasses.dataclass(frozen=True)
+class WorldLite:
+    """What step_cached still needs of the World once the plans are cached."""
+
+    guards: torch.Tensor         # i32 world-build guard bitmask
+    cluster_total: torch.Tensor  # i32 labeled-cluster count
+
+
+def world_lite(world) -> WorldLite:
+    return WorldLite(guards=world.guards, cluster_total=labeled_cluster_total(world.graph))
+
+
+@dataclasses.dataclass(frozen=True)
+class CachedEngineState:
+    """engine.EngineState with the carried paths replaced by the adopted
+    cache row index (keep-last-path == keep-last-index)."""
+
+    robot: Robot
+    mission: MissionState
+    control: ControlState
+    wp: Waypoints
+    adopted: torch.Tensor    # i32 cache row currently published as /plan
+    last_mod: torch.Tensor
+    t: torch.Tensor
+
+
+def num_rows(s: Statics) -> int:
+    return s.max_waypoints + 5
+
+
+def cache_row_index(mission: MissionState, s: Statics):
+    """The cache row of a mission configuration (module docstring)."""
+    W = s.max_waypoints
+    return torch.where(
+        ~mission.initial_reached, 0,
+        torch.where(mission.target_wp < 0, W + 3,
+                    torch.where(~mission.origin_appended, 1 + mission.target_wp,
+                                torch.where(mission.prev_wp == mission.target_wp,
+                                            W + 2, W + 1)))).to(torch.int32)
+
+
+def _row_payload(raw: Path, plan: Path, success) -> dict:
+    """One cache row from a (raw, linearized) plan pair; shared by
+    build_plan_cache and pin_live_row."""
+    gi = torch.clamp(plan.count - 1, min=0).long()
+    nf = ((~torch.isfinite(plan.xy)).sum(dtype=torch.int32)
+          + (~torch.isfinite(raw.xy)).sum(dtype=torch.int32))
+    return dict(plan_xy=plan.xy, plan_yaw=plan.yaw, plan_count=plan.count,
+                goal_xy=plan.xy[gi], goal_yaw=plan.yaw[gi], success=success,
+                nonfinite=nf)
+
+
+def plan_rows(world, params: AosParams, s: Statics, wp_base=None):
+    """[(raw Path, success)] of rows 0..W+3: plan_current_path for each
+    row's mission configuration, in a Python loop.
+
+    wp_base is the tour the engine carries (default world.waypoints); after
+    a graph change mid-survey pass the post-rebuild_waypoints tour (see
+    ``aosx.plan.plancache.build_plan_cache``). Dead rows (row 0's graph
+    search, and targets outside the tour) run with the search disabled:
+    their search result is never read."""
+    dev = world.graph.nodes.device
+    W = s.max_waypoints
+    wp0 = world.waypoints if wp_base is None else wp_base
+    wp2 = _append_origin(wp0, params)
+    c2 = wp2.count
+
+    def i32(v):
+        return torch.as_tensor(v, dtype=torch.int32, device=dev).reshape(())
+
+    def flag(v):
+        return torch.tensor(bool(v), device=dev)
+
+    rows = []
+    for r in range(W + 4):
+        if r == 0:
+            target, prev = i32(-1), i32(-1)
+        elif r <= W:
+            target, prev = i32(r - 1), i32(r - 2)
+        elif r == W + 1:
+            target, prev = i32(c2 - 1), i32(c2 - 2)
+        elif r == W + 2:
+            target, prev = i32(c2 - 1), i32(c2 - 1)
+        else:
+            target, prev = i32(-1), i32(-1)
+        use_wp2 = r in (W + 1, W + 2)
+        wp = wp2 if use_wp2 else wp0
+        m = MissionState(target_wp=target, prev_wp=prev, initial_reached=flag(r != 0),
+                         exploration_completed=flag(False), waiting_for_docking=flag(False),
+                         status=i32(0), origin_appended=flag(use_wp2))
+        live = m.initial_reached & (target >= 0) & (target < wp.count)
+        rows.append(plan_current_path(m, wp, world.graph, world.costmat, world.skeleton,
+                                      params, s, trim_plane=world.trim_skel,
+                                      astar_enabled=live))
+    return rows
+
+
+def build_plan_cache(world, params: AosParams, s: Statics, wp_base=None) -> PlanCache:
+    """plan_current_path + linearize for every row of this world (rows
+    0..W+3 from ``plan_rows``, then the W+4 empty row)."""
+    dev = world.graph.nodes.device
+    payloads = [_row_payload(raw, linearize(raw, params, s), success)
+                for raw, success in plan_rows(world, params, s, wp_base)]
+
+    # row W+4: the engine's initial empty /aos/path and its linearization
+    P = s.max_path
+    empty_raw = Path(xy=torch.zeros((P, 2), dtype=torch.float32, device=dev),
+                     yaw=torch.zeros(P, dtype=torch.float32, device=dev),
+                     count=torch.zeros((), dtype=torch.int32, device=dev))
+    payloads.append(_row_payload(empty_raw, linearize(empty_raw, params, s),
+                                 torch.tensor(False, device=dev)))
+    return PlanCache(**{k: torch.stack([p[k] for p in payloads]) for k in payloads[0]})
+
+
+def add_carry_row(cache: PlanCache, s: Statics) -> PlanCache:
+    """Append the CARRY row (index num_rows(s)), initialised to the empty
+    row W+4. cache_row_index never returns it; a rebuild sets it to the old
+    cache's adopted row (carry_adopted_row) and points adoption at it."""
+    W4 = num_rows(s) - 1
+    return PlanCache(**{f.name: torch.cat([getattr(cache, f.name),
+                                           getattr(cache, f.name)[W4:W4 + 1]])
+                        for f in dataclasses.fields(cache)})
+
+
+def carry_adopted_row(new_cache: PlanCache, old_cache: PlanCache, old_adopted) -> PlanCache:
+    """new_cache with its carry row := old_cache[old_adopted] (exact
+    keep-last-path across a world rebuild)."""
+    R = new_cache.plan_xy.shape[0] - 1
+    idx = torch.as_tensor(old_adopted).long()
+
+    def put(a, b):
+        a = a.clone()
+        a[R] = b[idx]
+        return a
+
+    return PlanCache(**{f.name: put(getattr(new_cache, f.name), getattr(old_cache, f.name))
+                        for f in dataclasses.fields(new_cache)})
+
+
+def rows_bitwise_equal(cache: PlanCache, i, j):
+    """True iff rows i and j of every leaf are bitwise identical (floats
+    compared as int32 views, so NaN payloads and -0.0 equal themselves)."""
+    i = torch.as_tensor(i).long()
+    j = torch.as_tensor(j).long()
+    eq = []
+    for f in dataclasses.fields(cache):
+        a = getattr(cache, f.name)
+        if a.is_floating_point():
+            a = a.view(torch.int32)
+        eq.append((a[i] == a[j]).all())
+    return torch.stack(eq).all()
+
+
+def pin_live_row(cache: PlanCache, world, mission: MissionState, wp: Waypoints,
+                 params: AosParams, s: Statics) -> PlanCache:
+    """Overwrite the row cache_row_index(mission) selects with the plan for
+    the ACTUAL (prev_wp, target_wp) pair: rebuild_waypoints restores the
+    target by position but keeps prev_wp, so right after a rebuild the live
+    config may break the rows' prev == target - 1 encoding."""
+    raw, success = plan_current_path(mission, wp, world.graph, world.costmat, world.skeleton,
+                                     params, s, trim_plane=world.trim_skel)
+    pay = _row_payload(raw, linearize(raw, params, s), success)
+    r = cache_row_index(mission, s).long()
+    out = {}
+    for k, v in pay.items():
+        a = getattr(cache, k).clone()
+        a[r] = v
+        out[k] = a
+    return PlanCache(**out)
+
+
+def initial_cached_state(world, s: Statics) -> CachedEngineState:
+    st = initial_state(world, s)
+    return CachedEngineState(
+        robot=st.robot, mission=st.mission, control=st.control, wp=st.wp,
+        adopted=torch.tensor(s.max_waypoints + 4, dtype=torch.int32, device=st.t.device),
+        last_mod=st.last_mod, t=st.t)
+
+
+def _on_path_cached(state: ControlState, cache: PlanCache, adopted) -> ControlState:
+    """control.on_path on the cached plan: only the goal pose and count > 0
+    are read, both precomputed per row."""
+    a = adopted.long()
+    has = cache.plan_count[a] > 0
+    new_xy = cache.goal_xy[a]
+    new_yaw = cache.goal_yaw[a]
+    changed = has & (~state.goal_initialized | (new_xy != state.goal_xy).any()
+                     | (new_yaw != state.goal_yaw))
+    return ControlState(
+        mode=state.mode,
+        is_path_received=state.is_path_received | changed,
+        goal_initialized=state.goal_initialized | changed,
+        odom_cnt=state.odom_cnt,
+        goal_xy=torch.where(changed, new_xy, state.goal_xy),
+        goal_yaw=torch.where(changed, new_yaw, state.goal_yaw),
+    )
+
+
+def select_row(arr, adopted):
+    """Row ``adopted`` of an [R, ...] array. A gather keeps every bit (the
+    JAX package's one-hot bitcast sum serves vmapped TPU lanes)."""
+    return arr[torch.as_tensor(adopted).long()]
+
+
+def step_cached(state: CachedEngineState, lite: WorldLite, cache: PlanCache,
+                params: AosParams, s: Statics, *, v_dt=0.12, external_pose: bool = False):
+    """engine.step with the per-tick replan + linearization replaced by the
+    cache row select; bit-identical metrics and trajectories.
+
+    external_pose=True: state.robot already holds the MEASURED pose
+    (serving.serve_control_tick), nothing simulates motion, and the metrics
+    also carry the selected ``plan_xy``."""
+    dev = state.t.device
+    # 1. control tick on the currently published /plan
+    ctrl = _on_path_cached(state.control, cache, state.adopted)
+    ctrl, fired, mod, goal_xy, goal_yaw = control_tick(ctrl, state.robot.xy, state.robot.yaw,
+                                                       params)
+    mod_pub = torch.where(fired | ~ctrl.goal_initialized, mod, state.last_mod)
+
+    # 2. mission FSM; the "replan" is the cache row lookup
+    mission, wp, should_replan = mission_tick(state.mission, state.wp, state.robot.xy,
+                                              mod_pub, params)
+    idx_now = cache_row_index(mission, s)
+    success = cache.success[idx_now.long()]
+    use_new = should_replan & success
+    adopted = torch.where(use_new, idx_now, state.adopted).to(torch.int32)
+
+    plan_count = cache.plan_count[adopted.long()]
+    plan_xy = select_row(cache.plan_xy, adopted)
+    plan_path = Path(xy=plan_xy, yaw=torch.zeros(s.max_plan, dtype=torch.float32, device=dev),
+                     count=plan_count)
+    status = torch.where(mission.status == 3, 3,
+                         torch.where(mission.status == 2, 2,
+                                     torch.where(success, 0, 1))).to(torch.int32)
+    mission = dataclasses.replace(mission, status=status)
+
+    # 3. robot kinematics; the follower's progress index resets when the
+    # ADOPTED ROW changes (engine.step's content-changed reset in cache
+    # coordinates)
+    if external_pose:
+        robot = state.robot
+    else:
+        robot_in = dataclasses.replace(
+            state.robot,
+            follow_i=torch.where(use_new & (idx_now != state.adopted), 0,
+                                 state.robot.follow_i).to(torch.int32))
+        robot = _move_robot(robot_in, mod_pub, plan_path, ctrl.goal_xy, ctrl.goal_yaw,
+                            v_dt=v_dt)
+
+    new_state = CachedEngineState(robot=robot, mission=mission, control=ctrl, wp=wp,
+                                  adopted=adopted, last_mod=mod_pub, t=state.t + 1)
+    nonfinite = ((~torch.isfinite(robot.xy)).sum(dtype=torch.int32)
+                 + cache.nonfinite[adopted.long()]
+                 + (~torch.isfinite(ctrl.goal_xy)).sum(dtype=torch.int32))
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    metrics = dict(
+        xy=robot.xy,
+        yaw=robot.yaw,
+        mod=mod_pub,
+        status=status,
+        target_wp=mission.target_wp,
+        cluster_idx=cluster_index_from_total(mission.target_wp, lite.cluster_total),
+        waiting=mission.waiting_for_docking,
+        completed=mission.exploration_completed,
+        plan_len=plan_count,
+        nonfinite=nonfinite,
+        guards=lite.guards
+        | torch.where(nonfinite > 0, GUARD_NONFINITE, zero)
+        | torch.where(plan_count >= s.max_plan, GUARD_PLAN_CAP, zero),
+    )
+    if external_pose:
+        metrics["plan_xy"] = plan_xy
+    return new_state, metrics
+
+
+def episode_cached(world, params: AosParams, s: Statics, n_steps: int, *, v_dt=0.12):
+    """engine.episode through the plan cache. Returns (final
+    CachedEngineState, per-step metrics stacked along a leading axis)."""
+    cache = build_plan_cache(world, params, s)
+    lite = world_lite(world)
+    st = initial_cached_state(world, s)
+    per_step = []
+    for _ in range(n_steps):
+        st, m = step_cached(st, lite, cache, params, s, v_dt=v_dt)
+        per_step.append(m)
+    return st, stack_metrics(per_step)
