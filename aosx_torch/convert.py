@@ -6,6 +6,10 @@ dict) whose same-named fields hold array-likes: a port value, a dict from
 port never needs jax to take a JAX package's output as its input: a JAX
 ``ServeState`` becomes ``to_torch(sv, serving.ServeState, device)``.
 
+Leaves keep their shape, so a value with a leading lane axis (a vmapped JAX
+``PlanCache`` or ``CachedEngineState``, a stacked ``AosParams``) crosses the
+same way; ``dict_to_torch`` carries a dict of leaves (a rollout accumulator).
+
 ``to_numpy(obj)`` walks a dataclass (of this package or any other), a dict,
 a list or a tuple down to nested dicts of numpy arrays.
 """
@@ -54,6 +58,11 @@ def _leaf(v, device):
     elif a.dtype == np.int64:
         a = a.astype(np.int32)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def dict_to_torch(d, device):
+    """A dict of tensors on ``device`` from a dict of array-likes."""
+    return {k: _leaf(v, device) for k, v in d.items()}
 
 
 def to_numpy(obj):

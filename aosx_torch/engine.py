@@ -20,6 +20,7 @@ import torch
 from .config import AosParams, Statics
 from .geom import atan2, cos, sin, wrap_angle
 from .guards import GUARD_NONFINITE, GUARD_PLAN_CAP
+from .ops import lanes, take_row
 from .gvd.graph import build_gvd_graph
 from .perceive.pipeline import PerceiveOut, perceive
 from .plan.astar import CsrCosts, cost_matrix
@@ -136,32 +137,36 @@ def initial_state(world: World, s: Statics) -> EngineState:
 
 def _move_robot(robot: Robot, mod, plan: Path, goal_xy, goal_yaw, v_dt=0.12, yaw_rate=0.6):
     """Minimal unicycle stand-in for the external controller: follow the
-    plan in mode 0, converge on the goal pose in modes 1/2, freeze in 3."""
+    plan in mode 0, converge on the goal pose in modes 1/2, freeze in 3.
+    Every leaf may carry leading lane axes; reductions run over a lane's own
+    plan axis, and two-term sums are written out, so a lane's result equals
+    the single-lane call's bit for bit."""
     dev = plan.xy.device
-    Q = plan.xy.shape[0]
+    Q = plan.xy.shape[-2]
     v_dt = torch.as_tensor(v_dt, dtype=torch.float32, device=dev)
     yaw_rate = torch.as_tensor(yaw_rate, dtype=torch.float32, device=dev)
     far = torch.tensor(3.4e38, dtype=torch.float32, device=dev)
     idx = torch.arange(Q, device=dev)
-    dp = plan.xy - robot.xy[None, :]
-    d = torch.sqrt(dp[:, 0] * dp[:, 0] + dp[:, 1] * dp[:, 1])
+    dp = plan.xy - robot.xy[..., None, :]
+    d = torch.sqrt(dp[..., 0] * dp[..., 0] + dp[..., 1] * dp[..., 1])
     # monotone window; the global search when the window is empty
-    live_g = idx < plan.count
-    live_w = live_g & (idx >= robot.follow_i)
-    ci = torch.where(live_w.any(), torch.argmin(torch.where(live_w, d, far)),
-                     torch.argmin(torch.where(live_g, d, far)))
+    live_g = idx < plan.count[..., None]
+    live_w = live_g & (idx >= robot.follow_i[..., None])
+    ci = torch.where(live_w.any(dim=-1), torch.argmin(torch.where(live_w, d, far), dim=-1),
+                     torch.argmin(torch.where(live_g, d, far), dim=-1))
     look = torch.minimum(ci + 10, torch.clamp(plan.count - 1, min=0))
-    follow_tgt = plan.xy[look]
+    follow_tgt = take_row(plan.xy, look)
 
-    tgt = torch.where(mod == 0, follow_tgt, goal_xy)
+    tgt = torch.where(lanes(mod == 0, goal_xy), follow_tgt, goal_xy)
     delta = tgt - robot.xy
-    dist = torch.sqrt(delta[0] * delta[0] + delta[1] * delta[1])
+    dist = torch.sqrt(delta[..., 0] * delta[..., 0] + delta[..., 1] * delta[..., 1])
     step = torch.minimum(v_dt, dist)
-    move = torch.where(dist > 1e-6, delta / torch.clamp(dist, min=1e-6) * step,
-                       torch.zeros(2, dtype=torch.float32, device=dev))
-    new_xy = torch.where(mod == 3, robot.xy, robot.xy + move)
+    move = torch.where((dist > 1e-6)[..., None],
+                       delta / torch.clamp(dist, min=1e-6)[..., None] * step[..., None],
+                       torch.zeros_like(delta))
+    new_xy = torch.where(lanes(mod == 3, delta), robot.xy, robot.xy + move)
 
-    heading = atan2(delta[1], delta[0])
+    heading = atan2(delta[..., 1], delta[..., 0])
     desired = torch.where((mod == 1) | (mod == 2) | (dist <= 1e-6),
                           torch.where(dist < 0.3, goal_yaw, heading), heading)
     dyaw = atan2(sin(desired - robot.yaw), cos(desired - robot.yaw))

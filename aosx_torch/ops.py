@@ -122,6 +122,38 @@ def scatter_set(size: int, fill, idx, vals):
     return out[:size]
 
 
+def lanes(cond, like):
+    """cond with trailing singleton axes appended until it broadcasts against
+    ``like`` from the left: cond's axes are ``like``'s leading (lane) axes."""
+    return cond.reshape(cond.shape + (1,) * (like.dim() - cond.dim()))
+
+
+def _row_index(arr, i):
+    n = i.dim()
+    return i.reshape(i.shape + (1,) * (arr.dim() - n)).expand(i.shape + (1,) + arr.shape[n + 1:])
+
+
+def take_row(arr, i):
+    """Row ``i`` of ``arr``. With a 0-d ``i`` this is ``arr[i]``; with lane
+    axes, ``i`` of shape B and ``arr`` of shape B + (R, ...), it is
+    ``arr[b, i[b]]`` for every lane b, as a gather (every bit kept)."""
+    i = torch.as_tensor(i, device=arr.device).long()
+    if i.dim() == 0:
+        return arr[i]
+    return torch.gather(arr, i.dim(), _row_index(arr, i)).squeeze(i.dim())
+
+
+def put_row(arr, i, value):
+    """A copy of ``arr`` with row ``i`` set to the scalar ``value``
+    (``take_row``'s indexing)."""
+    i = torch.as_tensor(i, device=arr.device).long()
+    if i.dim() == 0:
+        out = arr.clone()
+        out[i] = value
+        return out
+    return arr.scatter(i.dim(), _row_index(arr, i), value)
+
+
 def compact_take(vals, indices, fill):
     """Gather vals at compacted indices (-1 padded) with a fill value."""
     safe = torch.clamp(indices, min=0).long()

@@ -34,13 +34,14 @@ def control_tick(state: ControlState, pose_xy, pose_yaw, params: AosParams):
     """baseLinkOdomCallback + updateControlMode (cpp:83-141) for one
     odometry message. Returns (state, publish, mod, goal_xy, goal_yaw); the
     1-in-5 decimation rides odom_cnt, and mod 3 is published before the
-    first path."""
+    first path. Every leaf may carry leading lane axes (and so may every
+    field of params): the arithmetic is elementwise per lane."""
     cnt = state.odom_cnt + 1
     fire = (cnt % params.sm_skipping_hz) == 0
     cnt = torch.where(fire, 0, cnt).to(torch.int32)
 
     dxy = state.goal_xy - pose_xy
-    dist = torch.sqrt(dxy[0] * dxy[0] + dxy[1] * dxy[1])
+    dist = torch.sqrt(dxy[..., 0] * dxy[..., 0] + dxy[..., 1] * dxy[..., 1])
     yaw_diff = torch.abs(normalized_angle(state.goal_yaw - pose_yaw))
 
     m = state.mode

@@ -22,7 +22,7 @@ import torch
 
 from ..config import AosParams, Statics
 from ..geom import atan2
-from ..ops import scatter_set
+from ..ops import lanes, put_row, scatter_set, take_row
 from ..perceive.raster import f32, shift2d
 from ..types import GridWorld, GvdGraph, MissionState, Path, Waypoints
 from .astar import INF, plan_between
@@ -104,17 +104,16 @@ def current_cluster_index(target_wp, graph: GvdGraph):
 
 def _append_origin(wp: Waypoints, params: AosParams) -> Waypoints:
     """Append the (0,0) origin-return waypoint unless the last waypoint is
-    already within 0.2 m of it (cpp:299-310)."""
-    W = wp.xy.shape[0]
-    last = wp.xy[torch.clamp(wp.count - 1, min=0).long()]
+    already within 0.2 m of it (cpp:299-310). Leaves may carry leading lane
+    axes."""
+    W = wp.xy.shape[-2]
+    last = take_row(wp.xy, torch.clamp(wp.count - 1, min=0))
     near = (wp.count > 0) & (_norm2(last) <= 0.2)
-    slot = torch.clamp(wp.count, max=W - 1).long()
-    xy = wp.xy.clone()
-    xy[slot] = 0.0
-    node_idx = wp.node_idx.clone()
-    node_idx[slot] = -1
-    return Waypoints(xy=torch.where(near, wp.xy, xy),
-                     node_idx=torch.where(near, wp.node_idx, node_idx),
+    slot = torch.clamp(wp.count, max=W - 1)
+    xy = put_row(wp.xy, slot, 0.0)
+    node_idx = put_row(wp.node_idx, slot, -1)
+    return Waypoints(xy=torch.where(lanes(near, xy), wp.xy, xy),
+                     node_idx=torch.where(lanes(near, node_idx), wp.node_idx, node_idx),
                      count=torch.where(near, wp.count, torch.clamp(wp.count + 1, max=W)))
 
 
@@ -126,14 +125,16 @@ def _append_origin(wp: Waypoints, params: AosParams) -> Waypoints:
 def mission_tick(state: MissionState, wp: Waypoints, robot_xy, control_mod,
                  params: AosParams):
     """One mission update: control-mod handling (cpp:280-343) then position
-    handling (cpp:195-278). Returns (state, wp, should_replan)."""
+    handling (cpp:195-278). Returns (state, wp, should_replan). Every leaf
+    (and every field of params) may carry leading lane axes; each lane runs
+    the single-lane arithmetic."""
     advance = (control_mod == 3) & state.waiting_for_docking
     at_last = state.target_wp >= wp.count - 1
     completing = advance & at_last & ~state.exploration_completed
     wp2 = _append_origin(wp, params)
     wp = Waypoints(
-        xy=torch.where(completing, wp2.xy, wp.xy),
-        node_idx=torch.where(completing, wp2.node_idx, wp.node_idx),
+        xy=torch.where(lanes(completing, wp.xy), wp2.xy, wp.xy),
+        node_idx=torch.where(lanes(completing, wp.node_idx), wp2.node_idx, wp.node_idx),
         count=torch.where(completing, wp2.count, wp.count),
     )
     go_origin = advance & at_last
@@ -146,21 +147,21 @@ def mission_tick(state: MissionState, wp: Waypoints, robot_xy, control_mod,
     origin_appended = state.origin_appended | completing
 
     # ---- currentPosCallback -------------------------------------------------
-    init_wp = torch.stack([params.initial_waypoint_x, params.initial_waypoint_y])
+    init_wp = torch.stack([params.initial_waypoint_x, params.initial_waypoint_y], dim=-1)
     d_init = _norm2(robot_xy - init_wp)
     reach_init = ~state.initial_reached & (d_init <= params.initial_arrive_dist)
     target_wp = torch.where(reach_init & (wp.count > 0), 0, target_wp)
     prev_wp = torch.where(reach_init, -1, prev_wp)
     initial_reached = state.initial_reached | reach_init
 
-    W = wp.xy.shape[0]
+    W = wp.xy.shape[-2]
     tvalid = (target_wp >= 0) & (target_wp < wp.count)
-    target = wp.xy[torch.clamp(target_wp, 0, W - 1).long()]
+    target = take_row(wp.xy, torch.clamp(target_wp, 0, W - 1))
     d_target = _norm2(robot_xy - target)
 
     # Exploration Complete at the origin (cpp:230-246)
-    at_origin_goal = (completed & tvalid & (torch.abs(target[0]) < 0.1)
-                      & (torch.abs(target[1]) < 0.1) & (d_target <= 1.0))
+    at_origin_goal = (completed & tvalid & (torch.abs(target[..., 0]) < 0.1)
+                      & (torch.abs(target[..., 1]) < 0.1) & (d_target <= 1.0))
     status = torch.where(at_origin_goal, 3, status)
     # docking freeze (cpp:248-256)
     enter_dock = initial_reached & tvalid & (d_target <= params.docking_radius) & ~waiting

@@ -18,8 +18,10 @@ selects a row by index each tick, bit-identical to replanning every tick
 (``engine.step``). ``add_carry_row`` appends row R = W+5, which keeps the
 published plan across a world rebuild (``serving.serve_map_frame``).
 
-Rows are planned in a Python loop; ``tour_feasibility`` (the batch
-classifier) is not ported yet.
+Rows are planned in a Python loop. ``step_cached`` and what it calls take
+an optional leading lane axis on every state, cache, world-lite and
+parameter leaf (the Monte-Carlo chunk of ``aosx_torch.parallel.batch``): one
+copy of the tick logic, each lane the single-lane arithmetic bit for bit.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 from ..config import AosParams, Statics
 from ..engine import Robot, _move_robot, initial_state, stack_metrics
 from ..guards import GUARD_NONFINITE, GUARD_PLAN_CAP
+from ..ops import lanes, take_row
 from ..types import ControlState, MissionState, Path, Waypoints
 from .control import control_tick
 from .linearize import linearize
@@ -170,6 +173,54 @@ def build_plan_cache(world, params: AosParams, s: Statics, wp_base=None) -> Plan
     return PlanCache(**{k: torch.stack([p[k] for p in payloads]) for k in payloads[0]})
 
 
+def tour_feasibility(cache: PlanCache, wp: Waypoints, params: AosParams, s: Statics, *,
+                     dock_margin=0.0) -> dict:
+    """Static mission-completion feasibility of a world from its plan cache
+    (see ``aosx.plan.plancache.tour_feasibility`` for the contract): a tour
+    leg is completable iff its plan exists and some linearized plan point
+    lies within ``docking_radius - dock_margin`` of the leg's target; the
+    mission also needs the initial straight leg to end within
+    ``initial_arrive_dist`` of the initial waypoint and a nonempty tour.
+
+    Returns 0-d tensors: feasible, row0_ok, returnable (bool), first_bad_leg
+    (i32 cache row, num_rows(s) if none; row 0 reads waypoint 0 through the
+    clamp of rows - 1) and bad_legs (i32)."""
+    dev = cache.plan_xy.device
+    W = s.max_waypoints
+    R = num_rows(s)
+    rows = torch.arange(R, dtype=torch.int32, device=dev)
+    Wn = wp.xy.shape[0]
+
+    wp2 = _append_origin(wp, params)
+    origin_tgt = wp2.xy[torch.clamp(wp2.count - 1, 0, Wn - 1).long()]
+    tgt = wp.xy[torch.clamp(rows - 1, 0, Wn - 1).long()]
+    is_origin_row = (rows == W + 1) | (rows == W + 2)
+    tgt = torch.where(is_origin_row[:, None], origin_tgt[None, :], tgt)
+
+    dp = cache.plan_xy - tgt[:, None, :]
+    d = torch.sqrt(dp[..., 0] * dp[..., 0] + dp[..., 1] * dp[..., 1])
+    valid = (torch.arange(cache.plan_xy.shape[1], device=dev)[None, :]
+             < cache.plan_count[:, None])
+    far = torch.tensor(3.4e38, dtype=torch.float32, device=dev)
+    mind = torch.where(valid, d, far).min(dim=1).values
+    dockable = (cache.success & (cache.plan_count > 0)
+                & (mind <= params.docking_radius - dock_margin))
+
+    live = (rows >= 1) & (rows <= wp.count)      # mid-tour legs: targets 0..count-1
+    legs_ok = torch.where(live, dockable, True)
+    init_wp = torch.stack([params.initial_waypoint_x, params.initial_waypoint_y])
+    d0 = cache.goal_xy[0] - init_wp
+    row0_ok = torch.sqrt(d0[0] * d0[0] + d0[1] * d0[1]) <= params.initial_arrive_dist
+    first_bad = torch.where(legs_ok, R, rows).min().to(torch.int32)
+    return dict(
+        feasible=row0_ok & legs_ok.all() & (wp.count > 0),
+        row0_ok=row0_ok,
+        first_bad_leg=torch.where(row0_ok, first_bad, 0).to(torch.int32),
+        bad_legs=(~legs_ok).sum(dtype=torch.int32) + (~row0_ok).to(torch.int32),
+        returnable=dockable[W + 1],
+    )
+
+
 def add_carry_row(cache: PlanCache, s: Statics) -> PlanCache:
     """Append the CARRY row (index num_rows(s)), initialised to the empty
     row W+4. cache_row_index never returns it; a rebuild sets it to the old
@@ -238,26 +289,26 @@ def initial_cached_state(world, s: Statics) -> CachedEngineState:
 def _on_path_cached(state: ControlState, cache: PlanCache, adopted) -> ControlState:
     """control.on_path on the cached plan: only the goal pose and count > 0
     are read, both precomputed per row."""
-    a = adopted.long()
-    has = cache.plan_count[a] > 0
-    new_xy = cache.goal_xy[a]
-    new_yaw = cache.goal_yaw[a]
-    changed = has & (~state.goal_initialized | (new_xy != state.goal_xy).any()
+    has = take_row(cache.plan_count, adopted) > 0
+    new_xy = take_row(cache.goal_xy, adopted)
+    new_yaw = take_row(cache.goal_yaw, adopted)
+    changed = has & (~state.goal_initialized | (new_xy != state.goal_xy).any(dim=-1)
                      | (new_yaw != state.goal_yaw))
     return ControlState(
         mode=state.mode,
         is_path_received=state.is_path_received | changed,
         goal_initialized=state.goal_initialized | changed,
         odom_cnt=state.odom_cnt,
-        goal_xy=torch.where(changed, new_xy, state.goal_xy),
+        goal_xy=torch.where(lanes(changed, new_xy), new_xy, state.goal_xy),
         goal_yaw=torch.where(changed, new_yaw, state.goal_yaw),
     )
 
 
 def select_row(arr, adopted):
-    """Row ``adopted`` of an [R, ...] array. A gather keeps every bit (the
+    """Row ``adopted`` of an [R, ...] array, or of every lane of an
+    [L, R, ...] array for ``adopted`` [L]. A gather keeps every bit (the
     JAX package's one-hot bitcast sum serves vmapped TPU lanes)."""
-    return arr[torch.as_tensor(adopted).long()]
+    return take_row(arr, adopted)
 
 
 def step_cached(state: CachedEngineState, lite: WorldLite, cache: PlanCache,
@@ -267,7 +318,10 @@ def step_cached(state: CachedEngineState, lite: WorldLite, cache: PlanCache,
 
     external_pose=True: state.robot already holds the MEASURED pose
     (serving.serve_control_tick), nothing simulates motion, and the metrics
-    also carry the selected ``plan_xy``."""
+    also carry the selected ``plan_xy``.
+
+    Lanes: every leaf of state, lite, cache ([L, R, ...]) and, for a sweep,
+    params may carry one leading lane axis; lanes do not interact."""
     dev = state.t.device
     # 1. control tick on the currently published /plan
     ctrl = _on_path_cached(state.control, cache, state.adopted)
@@ -279,14 +333,13 @@ def step_cached(state: CachedEngineState, lite: WorldLite, cache: PlanCache,
     mission, wp, should_replan = mission_tick(state.mission, state.wp, state.robot.xy,
                                               mod_pub, params)
     idx_now = cache_row_index(mission, s)
-    success = cache.success[idx_now.long()]
+    success = take_row(cache.success, idx_now)
     use_new = should_replan & success
     adopted = torch.where(use_new, idx_now, state.adopted).to(torch.int32)
 
-    plan_count = cache.plan_count[adopted.long()]
+    plan_count = take_row(cache.plan_count, adopted)
     plan_xy = select_row(cache.plan_xy, adopted)
-    plan_path = Path(xy=plan_xy, yaw=torch.zeros(s.max_plan, dtype=torch.float32, device=dev),
-                     count=plan_count)
+    plan_path = Path(xy=plan_xy, yaw=torch.zeros_like(plan_xy[..., 0]), count=plan_count)
     status = torch.where(mission.status == 3, 3,
                          torch.where(mission.status == 2, 2,
                                      torch.where(success, 0, 1))).to(torch.int32)
@@ -307,9 +360,9 @@ def step_cached(state: CachedEngineState, lite: WorldLite, cache: PlanCache,
 
     new_state = CachedEngineState(robot=robot, mission=mission, control=ctrl, wp=wp,
                                   adopted=adopted, last_mod=mod_pub, t=state.t + 1)
-    nonfinite = ((~torch.isfinite(robot.xy)).sum(dtype=torch.int32)
-                 + cache.nonfinite[adopted.long()]
-                 + (~torch.isfinite(ctrl.goal_xy)).sum(dtype=torch.int32))
+    nonfinite = ((~torch.isfinite(robot.xy)).sum(dim=-1, dtype=torch.int32)
+                 + take_row(cache.nonfinite, adopted)
+                 + (~torch.isfinite(ctrl.goal_xy)).sum(dim=-1, dtype=torch.int32))
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     metrics = dict(
         xy=robot.xy,

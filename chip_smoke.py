@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """GPU smoke run of aosx_torch, the PyTorch/CUDA port of aosx.
 
-Drives the port's two paths on one CUDA card, bench.py's stage_full
-(perceive -> GVD graph -> cost matrix -> waypoints + trim plane -> one
-engine.step) and the live serving loop (serve_init, serve_map_frame per map
-message, control ticks), and checks every hand-written kernel on them:
+Drives the port's paths on one CUDA card, bench.py's stage_full (perceive ->
+GVD graph -> cost matrix -> waypoints + trim plane -> one engine.step), the
+live serving loop (serve_init, serve_map_frame per map message, control
+ticks), the probe entry point and the Monte-Carlo harness (sustained
+rollouts with lane refill, a parameter sweep), and checks every hand-written
+kernel on them:
 
   phase 0  environment: the card's name and power limit, torch and CUDA
-  phase 1  build kernels K1 (jfa_pass), K2 (zhang_suen) and K3 (ror_counts)
-           with nvcc, one process each, all started together
+  phase 1  build kernels K1 (jfa_pass), K2 (zhang_suen), K3 (ror_counts)
+           and P1-P3 (probe_prims) with nvcc, one process each, all started
+           together
   phase 2  K1: a full jump flood at 2000 x 2048, S = 4096, through the
            kernel and through the plain PyTorch pass; bitwise equal
   phase 3  K2: Zhang-Suen to the fixpoint on the bench orchard's inflated
@@ -29,6 +32,19 @@ message, control ticks), and checks every hand-written kernel on them:
            differs from JAX's excused only by an f32 regression split that
            is not the exact (f64) one; launches of K1, K2 and K3, and the
            serving latencies
+  phase 8  the probes P1 (scalar read+write chase), P2 (scalar read-only
+           chase) and P3 (row gather) through the kernels and their plain
+           versions, bitwise equal, and against the constants of the TPU
+           probe bodies (tests/torch_reference/probes.json); ns a step and
+           a gathered element, torch.gather's time for P3, the bounds; then
+           the probe entry point (python3 -m aosx_torch.probes) for the
+           launch counts
+  phase 9  Monte-Carlo at MC_STATICS: 128 rollouts of 1,200 ticks through 64
+           lanes with refill groups of 32 (plan-cached), each record held
+           against the JAX package's (tests/torch_reference/mc_np_seed0.json);
+           8 of them again alone, bitwise equal to their lane's record; a
+           2 x 2 parameter sweep whose first configuration equals the unswept
+           records; launches of K1 and K2 per world build; rollouts/s
 
 Every phase raises on failure, so the exit code is not 0 and no result is
 printed. There is no CPU fallback: without a CUDA device the run fails.
@@ -77,6 +93,34 @@ ROR_POINT_BOUND = 16
 # the 4-ulp bound holds yaw in ulp of its range's top, pi: 9.5e-7 rad
 YAW_BOUND_RAD = ULP_BOUND * float(np.spacing(np.float32(np.pi)))
 SERVE_REPS = 3
+PROBES_REFERENCE = REFERENCE.with_name("probes.json")
+MC_REFERENCE = REFERENCE.with_name("mc_np_seed0.json")
+MC_TOTAL, MC_BATCH, MC_REFILL, MC_BUDGET, MC_CHUNK = 128, 64, 32, 1200, 150
+MC_RERUN_IDS = (0, 1, 2, 3, 124, 125, 126, 127)
+MC_SWEEP_SEEDS, MC_SWEEP_BATCH = 8, 16
+# A rollout's travel is a sequential f32 sum of up to 1,200 segments of about
+# 0.12 m, some 100 m in all (ulp 7.6e-6 m), and a lane retires on its way
+# back, 20 m from the origin. XLA:CPU contracts a segment's x*x + y*y into a
+# fused multiply-add where the port rounds each operation, and the pose
+# carries the 4-ulp plan-point bound of the CPU parity tests, so the sums
+# drift apart by ulps of the total: the bound on both floats is 1e-3 m, what
+# the JAX package's own tests allow between its chunked and one-shot sums
+# (tests/test_parallel.py). Measured: 5.7e-4 m at most on the records that
+# keep it (the port on the CPU; the card's figure is in PERF.md).
+MC_FLOAT_BOUND_M = 1e-3
+# Records beyond that bound. The follower steers at the plan point ten past
+# the nearest one, an argmin over points 0.05 m apart, so a 1-ulp difference
+# in a plan point or the pose can move the look-ahead by a point and the
+# travelled path by millimetres to centimetres; a plan-cache row whose
+# linearize split or A* tie differs (ROADMAP section 3) moves it more. Each
+# such record is printed with both sides and the cache rows whose plan
+# lengths differ from JAX's. Measured: 15 of 128 (the port on the CPU; the
+# card's figure is in PERF.md), one of them with steps_to_complete 5 ticks
+# apart, the largest travel difference 0.29 m.
+MC_RECORD_BOUND = 32
+# ... and even those agree in every other int and bool field, within these
+MC_DRIFT_TRAVEL_M = 1.0
+MC_DRIFT_STEPS = 20
 
 # the card's ceilings for the bounds (NVIDIA's H100 SXM data sheet, 700 W):
 # 3.35 TB/s of HBM; 67 TFLOP/s FP32 counts an FMA as two, so FP32
@@ -87,7 +131,17 @@ SERVE_REPS = 3
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12 / 2
 INT32_OPS_PER_S = FP32_OPS_PER_S / 2
-DISPATCH_OPS_PER_S = 132 * 128 * 1.98e9
+SM_CLOCK_HZ = 1.98e9
+DISPATCH_OPS_PER_S = 132 * 128 * SM_CLOCK_HZ
+# shared memory: 32 banks of 4 bytes a clock on each of 132 SMs
+SMEM_BYTES_PER_S = 32 * 4 * 132 * SM_CLOCK_HZ
+# load-to-use latencies in SM clocks, assumed from Luo et al., "Benchmarking
+# and Dissecting the Nvidia Hopper GPU Architecture via Microbenchmarking"
+# (2024), H100: L1 hit 40.7, shared memory 29.0 (L2 hit 263, for scale); a
+# dependent integer operation (multiply-add, logic) issues after 4 clocks
+L1_HIT_CLOCKS = 40.7
+SMEM_CLOCKS = 29.0
+INT_DEP_CLOCKS = 4.0
 
 
 def log(msg):
@@ -142,17 +196,10 @@ def host_ms(fn):
 
 def cloud(statics, spec, seed, device):
     """make_orchard_np's cloud padded to statics.max_points, and its polygon."""
-    import torch
     from aosx_torch.orchards import make_orchard_np
-    from aosx_torch.types import PointCloud, Polygon
+    from aosx_torch.parallel.batch import cloud_tensors
 
-    xyz, poly = make_orchard_np(spec, seed=seed)
-    buf = np.zeros((statics.max_points, 3), np.float32)
-    buf[:len(xyz)] = xyz
-    valid = np.zeros(statics.max_points, bool)
-    valid[:len(xyz)] = True
-    pc = PointCloud(xyz=torch.from_numpy(buf).to(device), valid=torch.from_numpy(valid).to(device))
-    return pc, Polygon.from_array(poly, statics, device)
+    return cloud_tensors(make_orchard_np(spec, seed=seed), statics, device)
 
 
 def ulp_distance(a, b):
@@ -221,7 +268,7 @@ def phase_build():
 
     from aosx_torch import cuda_build
 
-    names = ("jfa_pass", "zhang_suen", "ror_counts")
+    names = ("jfa_pass", "zhang_suen", "ror_counts", "probe_prims")
 
     def one(name):
         t0 = time.time()
@@ -778,6 +825,338 @@ def phase_serving(device):
     return launches, stats
 
 
+def cuda_ms_once(fn):
+    """(fn()'s result, ms of that one call by CUDA events): for a plain
+    version too slow to repeat."""
+    import torch
+
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def chain_bound_ms(stores, steps, load_clocks):
+    """Least ms of a one-thread chase: ``stores`` independent table stores at
+    one a clock, then ``steps`` dependent steps of one load-to-use latency
+    plus three dependent integer operations (multiply-add, mask, xor)."""
+    return 1e3 * (stores + steps * (load_clocks + 3 * INT_DEP_CLOCKS)) / SM_CLOCK_HZ
+
+
+def phase_probes(device):
+    import contextlib
+    import io
+
+    import torch
+    from aosx_torch import probes
+
+    ref = json.loads(PROBES_REFERENCE.read_text())
+    seed = probes.seed_tensor(device, ref["seed"])
+
+    def sha(tn):
+        return hashlib.sha256(tn.cpu().numpy().astype("<i4").tobytes()).hexdigest()
+
+    def check(name, equal, **against_ref):
+        bad = {k: v for k, v in against_ref.items() if v != ref[k]}
+        if not equal or bad:
+            raise AssertionError(f"{name}: kernel == plain {equal}; differs from "
+                                 f"tests/torch_reference/probes.json in {bad}")
+
+    # P1: table in global memory, then the same chain from shared memory
+    (c_k, tab_k), ms1 = cuda_ms(lambda: probes.chase_rw(seed), REPS)
+    (c_s, tab_s), ms1s = cuda_ms(lambda: probes.chase_rw(seed, shared=True), REPS)
+    (c_p, tab_p), ms1p = cuda_ms_once(lambda: probes.chase_rw_plain(seed))
+    eq1 = (torch.equal(c_k, c_p) and torch.equal(tab_k, tab_p) and torch.equal(c_s, c_p)
+           and torch.equal(tab_s, tab_p))
+    err1 = float(max((c_k.double() - c_p.double()).abs().max(),
+                     (tab_k.double() - tab_p.double()).abs().max(),
+                     (tab_s.double() - tab_p.double()).abs().max()))
+    check("P1", eq1, p1_c=int(c_k), p1_table_sha256=sha(tab_k))
+    b1 = chain_bound_ms(probes.P1_N, probes.P1_STEPS, L1_HIT_CLOCKS)
+    b1s = chain_bound_ms(probes.P1_N, probes.P1_STEPS, SMEM_CLOCKS)
+    log(f"# phase 8: P1 chase_rw N={probes.P1_N}, {probes.P1_STEPS} steps: c = {int(c_k)}, "
+        f"kernel {ms1:.3f} ms ({1e6 * ms1 / probes.P1_STEPS:.1f} ns/step, global table; bound "
+        f"{b1:.3f} ms at an L1 hit a step), shared-memory u16 table {ms1s:.3f} ms "
+        f"({1e6 * ms1s / probes.P1_STEPS:.1f} ns/step; bound {b1s:.3f} ms), plain {ms1p:.1f} ms, "
+        f"c and table bitwise equal {eq1}")
+
+    # P2
+    c2, ms2 = cuda_ms(lambda: probes.chase_ro(seed), REPS)
+    c2p, ms2p = cuda_ms_once(lambda: probes.chase_ro_plain(seed))
+    eq2 = torch.equal(c2, c2p)
+    check("P2", eq2, p2_c=int(c2))
+    b2 = chain_bound_ms(probes.P2_N, probes.P2_STEPS, SMEM_CLOCKS)
+    log(f"# phase 8: P2 chase_ro {probes.P2_N}-entry shared table, {probes.P2_STEPS} steps: "
+        f"c = {int(c2)}, kernel {ms2:.3f} ms ({1e6 * ms2 / probes.P2_STEPS:.1f} ns/step; bound "
+        f"{b2:.3f} ms), plain {ms2p:.1f} ms, bitwise equal {eq2}")
+
+    # P3, and torch.gather alone for its 64 rounds (the library call)
+    x, idx = probes.gather_rows_inputs(device)
+    out_k, ms3 = cuda_ms(lambda: probes.gather_rows(x, idx), REPS)
+    out_p, ms3p = cuda_ms(lambda: probes.gather_rows_plain(x, idx), REPS)
+    index = ((idx + out_p) & (probes.P3_COLS - 1)).long()
+
+    def gathers():
+        for _ in range(probes.P3_ROUNDS):
+            torch.gather(x, 1, index)
+
+    _, ms3lib = cuda_ms(gathers, REPS)
+    eq3 = torch.equal(out_k, out_p)
+    err3 = float((out_k.double() - out_p.double()).abs().max())
+    check("P3", eq3, p3_sum=int(out_k.sum(dtype=torch.int64)), p3_first4=out_k[0, :4].tolist(),
+          p3_sha256=sha(out_k))
+    n_gather = x.numel() * probes.P3_ROUNDS
+    # x and idx read once, acc written once; per gathered element an index
+    # add, a mask and the accumulate (INT32) and one 4-byte shared-memory read
+    b3_ops, _ = bound(3 * 4 * x.numel(), int32_ops=3.0 * n_gather)
+    b3 = max(b3_ops, 1e3 * 4 * n_gather / SMEM_BYTES_PER_S)
+    log(f"# phase 8: P3 gather_rows {tuple(x.shape)} x {probes.P3_ROUNDS} rounds: kernel "
+        f"{ms3:.4f} ms ({1e6 * ms3 / n_gather:.5f} ns/element), plain {ms3p:.3f} ms, "
+        f"torch.gather x {probes.P3_ROUNDS} {ms3lib:.3f} ms, bound {b3:.4f} ms (INT32 "
+        f"{b3_ops:.4f}, shared-memory banks {1e3 * 4 * n_gather / SMEM_BYTES_PER_S:.4f}), "
+        f"all {out_k.numel()} outputs bitwise equal {eq3}")
+
+    # the probe entry point, with the counts set to 0 just before it
+    wrappers = (probes.chase_rw, probes.chase_ro, probes.gather_rows)
+    for w in wrappers:
+        w.launches = 0
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        probes.main([])
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    for line in text.getvalue().strip().splitlines():
+        log(f"# phase 8: probes.main | {line}")
+    log(f"# phase 8: launches on the probe entry point {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the probe entry point")
+    return dict(
+        chase_rw=dict(launches=launches["chase_rw"], max_abs_err=err1, ms=ms1, plain_ms=ms1p,
+                      bound_ms=b1, bound_by="operations", library_ms=None, shared_ms=ms1s,
+                      shared_bound_ms=b1s, ns_per_step=1e6 * ms1 / probes.P1_STEPS),
+        chase_ro=dict(launches=launches["chase_ro"],
+                      max_abs_err=float((c2.double() - c2p.double()).abs().max()), ms=ms2,
+                      plain_ms=ms2p, bound_ms=b2, bound_by="operations", library_ms=None,
+                      ns_per_step=1e6 * ms2 / probes.P2_STEPS),
+        gather_rows=dict(launches=launches["gather_rows"], max_abs_err=err3, ms=ms3,
+                         plain_ms=ms3p, bound_ms=b3, bound_by="operations", library_ms=ms3lib,
+                         ns_per_element=1e6 * ms3 / n_gather))
+
+
+MC_INT_FIELDS = ("completed", "steps_to_complete", "final_status", "waypoints", "guards",
+                 "feasible")
+MC_FLOAT_FIELDS = ("travel_distance", "final_dist_to_origin")
+
+
+def mc_single(cloud, params, S, device, budget, chunk):
+    """One rollout alone: plancache.episode_cached written out (world, cache,
+    feasibility, then single-lane ticks) and folded into the record the
+    harness keeps, stopped where the harness retires a lane: at the first
+    chunk boundary with exploration_completed set, or at the budget."""
+    from aosx_torch.parallel import batch
+
+    lite, cache, st, acc = batch.rollout_begin_cached(cloud, params, S, budget, device=device)
+    for off in range(0, budget, chunk):
+        st, acc = batch.rollout_chunk_cached(lite, cache, st, acc, params, S, chunk, off)
+        if bool(st.mission.exploration_completed):
+            break
+    return {k: v.cpu().numpy() for k, v in batch.rollout_finish(st, acc, S).items()}
+
+
+def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
+                      budget=MC_BUDGET, chunk=MC_CHUNK, rerun_ids=MC_RERUN_IDS,
+                      sweep_seeds=MC_SWEEP_SEEDS, sweep_batch=MC_SWEEP_BATCH):
+    import torch
+    from aosx_torch.config import MC_STATICS as S, AosParams, params_as_f32
+    from aosx_torch.gvd import jfa_pass_cuda
+    from aosx_torch.orchards import OrchardSpec, make_orchard_np
+    from aosx_torch.parallel import batch, sweep
+    from aosx_torch.perceive import ror_cuda, skeleton_cuda
+    from aosx_torch.plan import plancache
+    from aosx_torch.plan.linearize import linearize
+    from aosx_torch.plan.mission import plan_current_path
+    from aosx_torch.types import MissionState
+
+    ref = json.loads(MC_REFERENCE.read_text())
+    spec = OrchardSpec(**ref["spec"])
+    params = params_as_f32(AosParams(), device)
+    kernels = (jfa_pass_cuda.jfa_pass, skeleton_cuda.zhang_suen_iteration, ror_cuda.ror_counts)
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    # one world build alone: its kernel launches, and where begin's time goes
+    for k in kernels:
+        k.launches = 0
+    world, world_ms = timed(lambda: batch._world(make_orchard_np(spec, seed=0), params, S,
+                                                 "sorted", device))
+    per_world = {k.__name__: k.launches for k in kernels}
+    cache, cache_ms = timed(lambda: plancache.build_plan_cache(world, params, S))
+    tour = int(world.waypoints.count)
+    W = S.max_waypoints
+    # rows 1 + tour .. W plan a target outside the tour: their search is
+    # disabled, and they still pay the rest of plan_current_path and a
+    # linearize; row W is one of them
+    dead = W - tour
+
+    def dead_row():
+        def i32(v):
+            return torch.tensor(v, dtype=torch.int32, device=device)
+
+        def flag(v):
+            return torch.tensor(v, device=device)
+
+        m = MissionState(target_wp=i32(W - 1), prev_wp=i32(W - 2), initial_reached=flag(True),
+                         exploration_completed=flag(False), waiting_for_docking=flag(False),
+                         status=i32(0), origin_appended=flag(False))
+        raw, _ = plan_current_path(m, world.waypoints, world.graph, world.costmat,
+                                   world.skeleton, params, S, trim_plane=world.trim_skel,
+                                   astar_enabled=flag(False))
+        return linearize(raw, params, S)
+
+    dead_ms = float(np.median([timed(dead_row)[1] for _ in range(3)]))
+    log(f"# phase 9: one MC_STATICS world ({S.grid_h}x{S.grid_w}): prepare_world "
+        f"{world_ms:.0f} ms with launches {per_world}, build_plan_cache {cache_ms:.0f} ms for "
+        f"{plancache.num_rows(S)} rows; tour {tour}, so {dead} rows are dead at "
+        f"{dead_ms:.1f} ms each: {dead * dead_ms:.0f} ms, "
+        f"{100 * dead * dead_ms / (world_ms + cache_ms):.0f} % of a world's begin")
+
+    # the main path: the sustained harness, counts set to 0 just before it
+    started = []
+
+    def clouds(i):
+        started.append(i)
+        return make_orchard_np(spec, seed=i)
+
+    for k in kernels:
+        k.launches = 0
+    (res, stats), wall_ms = timed(lambda: batch.sustained_rollouts(
+        total, lanes, spec, params, S, budget, chunk_steps=chunk, refill=refill,
+        ror_method="sorted", cached=True, clouds=clouds, device=device))
+    launches = {k.__name__: k.launches for k in kernels}
+    n_groups = stats["begin_calls"]
+    lane_ticks = stats["chunk_calls"] * lanes * chunk
+    log(f"# phase 9: sustained_rollouts total={total} lanes={lanes} refill={refill} "
+        f"budget={budget} chunk={chunk}, cached, ror_method='sorted': "
+        f"{stats['rollouts_per_sec']:.3f} rollouts/s over {stats['elapsed_s']:.1f} s from the "
+        f"first chunk ({wall_ms / 1e3:.1f} s with the initial fill: "
+        f"{1e3 * total / wall_ms:.3f} rollouts/s); begin {n_groups} groups, "
+        f"{1e3 * stats['begin_s'] / n_groups:.0f} ms a group, "
+        f"{1e3 * stats['begin_s'] / total:.0f} ms a world; chunk {stats['chunk_calls']} calls, "
+        f"{1e3 * stats['chunk_s'] / stats['chunk_calls']:.0f} ms a call, "
+        f"{1e6 * stats['chunk_s'] / lane_ticks:.2f} us a lane-tick; launches {launches}")
+    if sorted(started) != list(range(total)):
+        raise AssertionError(f"rollouts started: {sorted(started)}")
+    if any(v.shape[0] != total or v.dtype == object for v in res.values()):
+        raise AssertionError("a rollout was not recorded")
+    if n_groups != lanes // refill + (total - lanes) // refill:
+        raise AssertionError(f"begin_calls {n_groups}")
+    if on_card:
+        if launches["jfa_pass"] != total * per_world["jfa_pass"]:
+            raise AssertionError(f"K1 launches {launches['jfa_pass']} for {total} worlds of "
+                                 f"{per_world['jfa_pass']} passes")
+        if launches["zhang_suen_iteration"] <= 0:
+            raise AssertionError("K2 was not launched on the Monte-Carlo path")
+        log(f"# phase 9: a world build launches K1 {launches['jfa_pass'] / total:.1f} times "
+            f"(alone: {per_world['jfa_pass']}) and K2 "
+            f"{launches['zhang_suen_iteration'] / total:.2f} times (alone: "
+            f"{per_world['zhang_suen_iteration']}; it ends on the data)")
+
+    # every record against the JAX reference
+    differ, worst, bad = [], 0.0, []
+    for i in range(total):
+        want = ref["records"][i]
+        got = {k: res[k][i].item() for k in res}
+        ints_ok = all(got[k] == want[k] for k in MC_INT_FIELDS)
+        err = max(abs(got[k] - want[k]) for k in MC_FLOAT_FIELDS)
+        if ints_ok and err <= MC_FLOAT_BOUND_M:
+            worst = max(worst, err)
+            continue
+        differ.append(i)
+        # which plan-cache rows of this world differ from JAX's in length
+        _, cache_i, _, _ = batch.rollout_begin_cached(make_orchard_np(spec, seed=i), params, S,
+                                                      budget, device=device)
+        rows = [r for r, (a, b) in enumerate(zip(cache_i.plan_count.tolist(),
+                                                 want["cache_count"])) if a != b]
+        log(f"# phase 9: rollout {i} differs from the JAX reference in "
+            f"{ {k: (got[k], want[k]) for k in got if got[k] != want[k]} } (port, JAX); "
+            f"cache rows of another plan length: {rows}")
+        if (any(got[k] != want[k] for k in MC_INT_FIELDS if k != "steps_to_complete")
+                or abs(got["steps_to_complete"] - want["steps_to_complete"]) > MC_DRIFT_STEPS
+                or err > MC_DRIFT_TRAVEL_M):
+            bad.append(i)
+    comp = res["completed"]
+    log(f"# phase 9: {total - len(differ)} of {total} records equal the JAX reference (int/bool "
+        f"bitwise, travel and distance to origin within {worst:.3g} m, bound {MC_FLOAT_BOUND_M}); "
+        f"{len(differ)} differ (bound {MC_RECORD_BOUND}): {differ}; "
+        f"completed {int(comp.sum())}, infeasible {int((res['feasible'] == 0).sum())}, "
+        f"guard-flagged {int((res['guards'] != 0).sum())}, out of budget "
+        f"{int((~comp & (res['guards'] == 0)).sum())}")
+    if len(differ) > MC_RECORD_BOUND or bad:
+        raise AssertionError(f"{len(differ)} records differ from the JAX reference; beyond "
+                             f"the drift bounds: {bad}")
+    if int(comp.sum()) == 0:
+        raise AssertionError("no rollout completed")
+
+    # lanes and refill change nothing: rollouts again, alone
+    t0 = time.perf_counter()
+    for i in rerun_ids:
+        alone = mc_single(make_orchard_np(spec, seed=i), params, S, device, budget, chunk)
+        bad = [k for k in res if alone[k].tobytes() != res[k][i].tobytes()]
+        if bad:
+            raise AssertionError(f"rollout {i} alone differs from its lane's record in {bad}: "
+                                 f"{ {k: (alone[k].item(), res[k][i].item()) for k in bad} }")
+    sync()
+    single_s = (time.perf_counter() - t0) / len(rerun_ids)
+    log(f"# phase 9: rollouts {list(rerun_ids)} alone (single-lane ticks up to the chunk "
+        f"boundary their lane retired at) equal "
+        f"their lane's record bitwise; {single_s:.1f} s a rollout alone")
+
+    # a 2 x 2 sweep; configuration 0 is the default parameters
+    stacked, configs = sweep.grid_params(device=device, docking_radius=[0.7, 0.4],
+                                         heuristic_weight=[3.0, 1.0])
+    (sres, sstats), sweep_ms = timed(lambda: sweep.sweep_rollouts(
+        stacked, configs, sweep_seeds, spec, S, budget, batch=sweep_batch, chunk_steps=chunk,
+        ror_method="sorted", cached=True, device=device))
+    table, agg = sweep.summarize_sweep(sres, len(configs), sweep_seeds)
+    bad = [k for k in res if table[k][0].tobytes() != res[k][:sweep_seeds].tobytes()]
+    if bad:
+        raise AssertionError(f"sweep configuration 0 differs from the unswept records in {bad}")
+    log(f"# phase 9: sweep {configs} x {sweep_seeds} orchards through {sweep_batch} lanes in "
+        f"{sweep_ms / 1e3:.1f} s ({sstats['rollouts_per_sec']:.3f} rollouts/s from the first "
+        f"chunk): configuration 0 equals the unswept records bitwise; completion rate "
+        f"{agg['completion_rate'].tolist()}, mean travel {np.round(agg['travel_mean'], 2).tolist()}")
+    mem = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    log(f"# phase 9: peak allocated {mem:.2f} GiB")
+    return launches, dict(
+        rollouts_per_sec=stats["rollouts_per_sec"], rollouts_per_sec_with_fill=1e3 * total / wall_ms,
+        elapsed_s=stats["elapsed_s"], begin_calls=n_groups, chunk_calls=stats["chunk_calls"],
+        begin_group_ms=1e3 * stats["begin_s"] / n_groups, begin_world_ms=1e3 * stats["begin_s"] / total,
+        chunk_call_ms=1e3 * stats["chunk_s"] / stats["chunk_calls"],
+        lane_tick_us=1e6 * stats["chunk_s"] / lane_ticks, prepare_world_ms=world_ms,
+        build_plan_cache_ms=cache_ms, dead_rows=dead, dead_row_ms=dead_ms, single_rollout_s=single_s,
+        records_differing=len(differ), float_err_m=worst, completed=int(comp.sum()),
+        infeasible=int((res["feasible"] == 0).sum()), flagged=int((res["guards"] != 0).sum()),
+        sweep_s=sweep_ms / 1e3, peak_allocated_gib=mem, launches_per_world=per_world)
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tests"))
@@ -798,24 +1177,38 @@ def main():
     launches, stages = phase_bench_slice(device, bench_spec)
     k3 = phase_k3(device, bench_spec)
     serve_launches, serve_stats = phase_serving(device)
+    probe_rows = phase_probes(device)
+    mc_launches, mc_stats = phase_monte_carlo(device)
 
     def row(name, source, replaces, k):
         # launches: on the serving path (phase 7); launches_stage_full: on
-        # stage_full (phase 5). No single PyTorch call computes any of the
-        # three functions, hence library_ms null
+        # stage_full (phase 5); launches_mc: on the Monte-Carlo path (phase
+        # 9). No single PyTorch call computes any of the three functions,
+        # hence library_ms null
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=serve_launches[name], launches_stage_full=launches.get(name, 0),
+                    launches_mc=mc_launches[name],
                     max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
                     bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None)
+
+    def probe_row(name, line, k):
+        # launches: on the probe entry point (phase 8). P1 and P2 are bound by
+        # a chain of dependent operations at their latency, not by a rate
+        return dict(name=name, route="cuda", source="aosx_torch/csrc/probe_prims.cu",
+                    replaces=f"benchmarks/probe_pallas_prims.py:{line}", **k)
 
     kernels = [
         row("jfa_pass", "aosx_torch/csrc/jfa_pass.cu", "aosx/gvd/jfa_pass_pallas.py:189", k1),
         row("zhang_suen_iteration", "aosx_torch/csrc/zhang_suen.cu",
             "aosx/perceive/skeleton_pallas.py:146", k2),
         row("ror_counts", "aosx_torch/csrc/ror_counts.cu", "aosx/perceive/ror_pallas.py:51", k3),
+        probe_row("chase_rw", 57, probe_rows["chase_rw"]),
+        probe_row("chase_ro", 90, probe_rows["chase_ro"]),
+        probe_row("gather_rows", 117, probe_rows["gather_rows"]),
     ]
     log(f"# stages: {json.dumps(stages)}")
     log(f"# serving: {json.dumps(serve_stats)}")
+    log(f"# monte carlo: {json.dumps(mc_stats)}")
     log(f"# K3 uniform cloud: kernel {k3['uniform_ms']:.3f} ms, plain {k3['uniform_plain_ms']:.3f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -35,7 +35,9 @@ def test_port_imports_with_jax_blocked():
     assert r.returncode == 0, r.stderr
     assert {"aosx_torch.engine", "aosx_torch.gvd.jfa_pass_cuda", "aosx_torch.serving",
             "aosx_torch.incremental", "aosx_torch.plan.plancache",
-            "aosx_torch.perceive.ror_cuda", "aosx_torch.io.checkpoint"} <= set(MODULES)
+            "aosx_torch.perceive.ror_cuda", "aosx_torch.io.checkpoint",
+            "aosx_torch.parallel.batch", "aosx_torch.parallel.sweep", "aosx_torch.probes",
+            "aosx_torch.tree"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
