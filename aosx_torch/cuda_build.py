@@ -67,6 +67,18 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name)))
 
 
+def device_scalar(v, dtype, device):
+    """``v`` as the one-element tensor of ``dtype`` on ``device`` that a kernel
+    reads through a pointer. A tensor that is one already (a GridWorld's
+    bounds and origin) passes through untouched: no copy, no host read."""
+    import torch
+
+    if (isinstance(v, torch.Tensor) and v.dtype == dtype and v.numel() == 1
+            and v.device == device):
+        return v
+    return torch.as_tensor(v).to(device=device, dtype=dtype).reshape(())
+
+
 def check(rc: int, what: str) -> None:
     """Raise when a C entry point returned a non-zero cudaError_t."""
     if rc != 0:

@@ -1,11 +1,17 @@
-"""Kernel K1: one Jacobi jump-flood pass at offset ``step``.
+"""Kernel K1: the Jacobi jump flood, every pass of it from one call.
 
 Replaces the TPU kernel ``aosx/gvd/jfa_pass_pallas.py::jfa_pass``. The CUDA
 C++ source is ``aosx_torch/csrc/jfa_pass.cu`` (design and bounds in its
-header note); ``jfa_pass_plain`` is the same pass in plain PyTorch: shifted
-pass-start planes folded by ``voronoi.jacobi_fold``.
+header note): it carries the owner plane alone and reads a candidate's
+position from the seed table in shared memory, because ``(ox, oy) ==
+table[owner]`` holds at the flood's start and a pass only copies triples.
 
-``jfa_pass`` takes the plain version only for tensors on the CPU. For CUDA
+Plain PyTorch versions beside it: ``jfa_pass_plain`` is one pass over the
+three carried planes (the TPU kernel's interface: shifted pass-start planes
+folded by ``voronoi.jacobi_fold``), ``jfa_flood_plain`` gathers
+``table[owner]`` and loops it over the steps.
+
+``jfa_flood`` takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises. Unlike the TPU kernel it has no
 step limit: every pass of the flood, 1 to 1024, runs through it.
 """
@@ -22,7 +28,7 @@ from . import voronoi as _voronoi
 from ..perceive.raster import iota2, shift2d
 
 FAR = 1e9
-
+MAX_STEPS = 32
 
 def cell_coords(shape, origin_x, origin_y, res: float, device):
     """(cellx, celly) f32 planes: origin + f32(index) * res."""
@@ -46,48 +52,80 @@ def jfa_pass_plain(owner, ox, oy, step: int, S: int, origin_x, origin_y, res: fl
     return _voronoi.jacobi_fold(owner, ox, oy, neighbors, S, cellx, celly)
 
 
+def jfa_flood_plain(owner, table, steps, S: int, origin_x, origin_y, res: float):
+    """The passes at ``steps`` in plain PyTorch, from an owner plane (i32
+    [H, W], owners in 0..S) and the seed table (f32 [S + 1, 2], row S =
+    (1e9, 1e9)). Returns (owner, ox, oy)."""
+    pos = table[owner.long()]
+    state = (owner, pos[..., 0].contiguous(), pos[..., 1].contiguous())
+    for step in steps:
+        state = jfa_pass_plain(*state, int(step), S, origin_x, origin_y, res)
+    return state
+
+
 _vp = ctypes.c_void_p
+_int = ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    fn = cuda_build.load("jfa_pass").jfa_pass
-    fn.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _vp, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, _vp]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.load("jfa_pass").jfa_flood
+    fn.argtypes = [_vp, _vp, _vp, _vp, _vp, ctypes.POINTER(_int), _int, _int, _int, _int,
+                   ctypes.c_float, _vp, _vp, _vp]
+    fn.restype = _int
     return fn
 
 
-def jfa_pass(owner, ox, oy, step: int, S: int, origin_x, origin_y, res: float):
-    """One 8-direction Jacobi pass over the full [H, W] carried planes
-    (owner i32 with S = none, ox/oy f32). CPU tensors take the plain
-    version; CUDA tensors launch kernel K1 (counted in
-    ``jfa_pass.launches``)."""
+def jfa_flood(owner, table, steps, S: int, origin_x, origin_y, res: float,
+              want_positions: bool = False):
+    """The 8-direction Jacobi passes at ``steps`` (a single pass is
+    ``steps=[k]``) over the owner plane (i32 [H, W], owners in 0..S with S =
+    none), positions read from ``table`` (f32 [S + 1, 2], row S = (1e9,
+    1e9)). Returns the owner plane, or (owner, ox, oy) with
+    ``want_positions``.
+
+    CPU tensors take the plain version. CUDA tensors launch kernel K1: one
+    call into the library and one cooperative launch for the whole flood,
+    with no host read (``jfa_flood.launches`` counts them,
+    ``jfa_flood.passes`` the passes they ran); ``owner`` is then one plane
+    of the ping-pong pair and is OVERWRITTEN."""
+    steps = [int(k) for k in steps]
     if owner.device.type == "cpu":
-        return jfa_pass_plain(owner, ox, oy, step, S, origin_x, origin_y, res)
-    if owner.device.type != "cuda":
-        raise ValueError(f"jfa_pass: unsupported device {owner.device}")
-    if owner.dtype != torch.int32 or ox.dtype != torch.float32 or oy.dtype != torch.float32:
-        raise ValueError("jfa_pass: owner must be int32, ox/oy float32")
-    if owner.dim() != 2 or ox.shape != owner.shape or oy.shape != owner.shape:
-        raise ValueError("jfa_pass: owner, ox, oy must share one 2-D shape")
-    if not (owner.is_contiguous() and ox.is_contiguous() and oy.is_contiguous()):
-        raise ValueError("jfa_pass: planes must be contiguous")
-    if ox.device != owner.device or oy.device != owner.device:
-        raise ValueError("jfa_pass: planes must share one device")
+        out = jfa_flood_plain(owner, table, steps, S, origin_x, origin_y, res)
+        return out if want_positions else out[0]
+    dev = owner.device
+    if dev.type != "cuda":
+        raise ValueError(f"jfa_flood: unsupported device {dev}")
+    if owner.dtype != torch.int32 or owner.dim() != 2 or not owner.is_contiguous():
+        raise ValueError("jfa_flood: owner must be a contiguous 2-D int32 tensor")
+    if (table.dtype != torch.float32 or tuple(table.shape) != (S + 1, 2)
+            or not table.is_contiguous() or table.device != dev):
+        raise ValueError(f"jfa_flood: table must be a contiguous float32 [{S + 1}, 2] tensor "
+                         "on the owner plane's device")
     H, W = owner.shape
-    origin = torch.stack([torch.as_tensor(origin_x, device=owner.device),
-                          torch.as_tensor(origin_y, device=owner.device)]).to(torch.float32)
-    o1 = torch.empty_like(owner)
-    x1 = torch.empty_like(ox)
-    y1 = torch.empty_like(oy)
-    stream = torch.cuda.current_stream(owner.device).cuda_stream
-    rc = _lib()(owner.data_ptr(), ox.data_ptr(), oy.data_ptr(), o1.data_ptr(),
-                x1.data_ptr(), y1.data_ptr(), origin.data_ptr(), H, W, int(step),
-                int(S), float(res), stream)
-    cuda_build.check(rc, "jfa_pass")
-    jfa_pass.launches += 1
-    return o1, x1, y1
+    if W % 4 != 0:
+        raise ValueError(f"jfa_flood: the plane's width {W} must be a multiple of 4")
+    if not 1 <= len(steps) <= MAX_STEPS or any(k < 1 for k in steps):
+        raise ValueError(f"jfa_flood: 1 to {MAX_STEPS} steps, each >= 1: {steps}")
+    gx = cuda_build.device_scalar(origin_x, torch.float32, dev)
+    gy = cuda_build.device_scalar(origin_y, torch.float32, dev)
+    other = torch.empty_like(owner)
+    ox = oy = None
+    if want_positions:
+        ox = torch.empty(owner.shape, dtype=torch.float32, device=dev)
+        oy = torch.empty_like(ox)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib()(owner.data_ptr(), other.data_ptr(), table.data_ptr(), gx.data_ptr(),
+                    gy.data_ptr(), (_int * len(steps))(*steps), len(steps), H, W, int(S),
+                    float(res), ox.data_ptr() if want_positions else None,
+                    oy.data_ptr() if want_positions else None, stream)
+    cuda_build.check(rc, "jfa_flood")
+    jfa_flood.launches += 1
+    jfa_flood.passes += len(steps)
+    result = other if len(steps) % 2 else owner
+    return (result, ox, oy) if want_positions else result
 
 
-jfa_pass.launches = 0
+jfa_flood.launches = 0
+jfa_flood.passes = 0

@@ -3,9 +3,11 @@
 
 The "1+JFA" variant (an extra step-1 pass first) with JACOBI passes: all 8
 directional candidates are read from the pass-start planes and folded with a
-lexicographic (d2, owner) min, ties to the lower seed index. Owner
-positions ride along as separate planes. Every pass runs through kernel K1
-(``jfa_pass_cuda.jfa_pass``).
+lexicographic (d2, owner) min, ties to the lower seed index. The flood
+carries the owner plane alone: a cell's owner position is the seed table's
+row, ``table[owner]``, at the start and after every pass. All passes of a
+flood are one call of kernel K1 (``jfa_pass_cuda.jfa_flood``) with no host
+read in it.
 """
 
 from __future__ import annotations
@@ -33,9 +35,10 @@ def _passes(s: Statics):
 
 
 def _jfa_init(grid: GridWorld, seeds: SeedSet, s: Statics):
-    """Seed scatter -> (owner [H,W] i32 with S = no owner, ox, oy planes).
-    Seeds sharing a cell: the lowest seed index wins (scatter-min), and all
-    of them write the winner's coordinates, so the writes agree."""
+    """Seed scatter -> (owner [H,W] i32 with S = no owner, table [S+1, 2] f32
+    = seeds.xy with the row (1e9, 1e9) of "no owner" appended). Seeds sharing
+    a cell: the lowest valid seed index wins (scatter-min), so every cell's
+    owner position is table[owner]."""
     h, w = grid.occ.shape
     dev = grid.occ.device
     res = f32(s.resolution, dev)
@@ -48,15 +51,8 @@ def _jfa_init(grid: GridWorld, seeds: SeedSet, s: Statics):
     sidx = torch.where(seeds.valid, torch.arange(S, dtype=torch.int32, device=dev), S)
     owner = torch.full((h * w,), S, dtype=torch.int32, device=dev)
     owner = owner.scatter_reduce(0, flat, sidx, reduce="amin", include_self=True)
-    far = torch.full((1,), 1e9, dtype=torch.float32, device=dev)
-    seeds_x = torch.cat([seeds.xy[:, 0], far])
-    seeds_y = torch.cat([seeds.xy[:, 1], far])
-    win = owner[flat].long()
-    ox = torch.full((h * w,), 1e9, dtype=torch.float32, device=dev)
-    oy = torch.full((h * w,), 1e9, dtype=torch.float32, device=dev)
-    ox[flat] = seeds_x[win]
-    oy[flat] = seeds_y[win]
-    return owner.reshape(h, w), ox.reshape(h, w), oy.reshape(h, w)
+    far = torch.full((1, 2), 1e9, dtype=torch.float32, device=dev)
+    return owner.reshape(h, w), torch.cat([seeds.xy.to(torch.float32), far])
 
 
 def jacobi_fold(o0, x0, y0, neighbors, S: int, cellx, celly):
@@ -87,12 +83,9 @@ def jump_flood(grid: GridWorld, seeds: SeedSet, s: Statics):
     """Nearest-seed ownership over the live region. Returns owner [H,W]
     i32: seed index, or -1 outside the live region / with no seeds.
     Distances are measured from cell corners (world = origin + cell*res)."""
-    from .jfa_pass_cuda import jfa_pass
+    from .jfa_pass_cuda import jfa_flood
 
     S = seeds.xy.shape[0]
-    state = _jfa_init(grid, seeds, s)
-    for step in _passes(s):
-        state = jfa_pass(*state, step, S, grid.origin_x, grid.origin_y, s.resolution)
-    owner = state[0]
+    owner, table = _jfa_init(grid, seeds, s)
+    owner = jfa_flood(owner, table, _passes(s), S, grid.origin_x, grid.origin_y, s.resolution)
     return torch.where(live_mask(grid) & (owner < S), owner, -1)
-

@@ -4,8 +4,9 @@ aos_seed_gen_node.cpp:672-705, cv::morphologyEx +
 cv::ximgproc::thinning(THINNING_ZHANGSUEN)).
 
 OpenCV border semantics: erosion treats outside-of-image as 1, dilation as
-0; thinning never modifies the outer 1-pixel ring of the live image. Every
-thinning iteration goes through kernel K2 (``skeleton_cuda``).
+0; thinning never modifies the outer 1-pixel ring of the live image. A whole
+thinning, every iteration up to the fixpoint, is one call of kernel K2
+(``skeleton_cuda.zhang_suen_fixpoint``) with no host read in it.
 """
 
 from __future__ import annotations
@@ -13,10 +14,9 @@ from __future__ import annotations
 import torch
 
 from ..config import Statics
-from ..ops import CHECK_EVERY
 from ..types import GridWorld
 from .raster import iota2, live_mask, shift2d
-from .skeleton_cuda import zhang_suen_iteration
+from .skeleton_cuda import zhang_suen_fixpoint
 
 _CROSS = ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0))
 
@@ -46,19 +46,13 @@ def morph_open(grid: GridWorld) -> GridWorld:
 
 
 def zhang_suen(grid: GridWorld, s: Statics) -> GridWorld:
-    """Thin to fixpoint (both sub-iterations per iteration, stop when
-    unchanged), capped at s.skeleton_max_iters iterations. The host reads
-    the changed-cell count every CHECK_EVERY iterations: an iteration past
-    the fixpoint changes nothing, so reading late only costs launches."""
-    occ = grid.occ.contiguous()
-    it = 0
-    while it < s.skeleton_max_iters:
-        n = min(CHECK_EVERY, s.skeleton_max_iters - it)
-        for _ in range(n):
-            occ, changed = zhang_suen_iteration(occ, grid.h_cells, grid.w_cells)
-        it += n
-        if int(changed) == 0:
-            break
+    """Thin to fixpoint (both sub-iterations per iteration, stop after the
+    first iteration that changes nothing), capped at s.skeleton_max_iters
+    iterations. The stopping rule runs on the device: the host reads
+    nothing, and the live bounds go to the kernel as the grid's own device
+    scalars."""
+    occ, _ = zhang_suen_fixpoint(grid.occ.contiguous(), grid.h_cells, grid.w_cells,
+                                 s.skeleton_max_iters)
     return GridWorld(occ, grid.origin_x, grid.origin_y, grid.h_cells, grid.w_cells)
 
 

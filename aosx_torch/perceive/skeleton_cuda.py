@@ -1,12 +1,22 @@
-"""Kernel K2: one Zhang-Suen thinning iteration (both sub-iterations).
+"""Kernel K2: Zhang-Suen thinning to the fixpoint in one call.
 
 Replaces the TPU kernel ``aosx/perceive/skeleton_pallas.py::zhang_suen_pallas``.
 The CUDA C++ source is ``aosx_torch/csrc/zhang_suen.cu`` (design and bounds in
-its header note); ``zhang_suen_iteration_plain`` is the same computation in
-plain PyTorch, mirroring ``aosx.perceive.skeleton._subiter``.
+its header note): one cooperative launch keeps the plane bit-packed, 32 cells
+of a row to a word, in shared memory for every iteration, and stops on the
+device when an iteration changes nothing.
 
-``zhang_suen_iteration`` takes the plain version only for a tensor on the
-CPU. For a CUDA tensor it launches the kernel or raises.
+Plain PyTorch versions beside it: ``zhang_suen_iteration_plain`` mirrors
+``aosx.perceive.skeleton._subiter`` on the byte plane,
+``zhang_suen_fixpoint_plain`` loops it with the stopping rule of
+``aosx.perceive.skeleton.zhang_suen``, and ``pack_rows`` / ``unpack_rows`` /
+``_subiter_bits_plain`` are the kernel's bit-sliced sub-iteration on packed
+int32 words, so that its boolean circuit is held against the byte stencil
+without a card.
+
+``zhang_suen_fixpoint`` and ``zhang_suen_iteration`` take the plain version
+only for a tensor on the CPU. For a CUDA tensor they launch the kernel or
+raise.
 """
 
 from __future__ import annotations
@@ -18,7 +28,6 @@ import torch
 
 from .. import cuda_build
 from .raster import iota2, shift2d
-
 
 def _neighbors(p):
     """p2..p9 (N, NE, E, SE, S, SW, W, NW) with row y-1 as N."""
@@ -44,50 +53,169 @@ def _subiter(p, phase: int, interior):
     return torch.where(delete, torch.zeros_like(p), p)
 
 
+def _interior(occ, h_cells, w_cells):
+    iy, ix = iota2(occ.shape, occ.device)
+    return (iy >= 1) & (iy < h_cells - 1) & (ix >= 1) & (ix < w_cells - 1)
+
+
 def zhang_suen_iteration_plain(occ, h_cells, w_cells):
     """Both sub-iterations in plain PyTorch. Returns (occ u8 [H,W],
     changed-cell count i32)."""
-    iy, ix = iota2(occ.shape, occ.device)
-    interior = (iy >= 1) & (iy < h_cells - 1) & (ix >= 1) & (ix < w_cells - 1)
+    interior = _interior(occ, h_cells, w_cells)
     q = _subiter(occ, 0, interior)
     q = _subiter(q, 1, interior)
     return q, (q != occ).sum(dtype=torch.int32)
 
 
+def zhang_suen_fixpoint_plain(occ, h_cells, w_cells, max_iters: int):
+    """Iterations until one changes nothing, at most ``max_iters``
+    (``aosx.perceive.skeleton.zhang_suen``'s loop). Returns (occ u8 [H,W],
+    iterations run, changed-cell count of the last iteration); the iteration
+    that finds the fixpoint counts."""
+    it, changed = 0, 0
+    while it < max_iters:
+        occ, n = zhang_suen_iteration_plain(occ, h_cells, w_cells)
+        it, changed = it + 1, int(n)
+        if changed == 0:
+            break
+    return occ, it, changed
+
+
+# ---------------------------------------------------------------------------
+# the kernel's sub-iteration in plain PyTorch: bit-sliced, on packed words
+# ---------------------------------------------------------------------------
+
+
+def pack_rows(occ):
+    """u8 {0,1} [H, W] -> int32 [H, ceil(W / 32)]: bit b of word j of a row is
+    cell x = 32 j + b; bits past W are 0."""
+    H, W = occ.shape
+    wd = -(-W // 32)
+    bits = torch.zeros((H, wd * 32), dtype=torch.int64, device=occ.device)
+    bits[:, :W] = occ
+    bits = bits.reshape(H, wd, 32)
+    weights = 1 << torch.arange(31, dtype=torch.int64, device=occ.device)
+    low = (bits[..., :31] * weights).sum(-1)
+    return (low - (bits[..., 31] << 31)).to(torch.int32)
+
+
+def unpack_rows(words, W: int):
+    """int32 [H, Wd] -> u8 {0,1} [H, W] (``pack_rows``'s inverse)."""
+    H = words.shape[0]
+    b = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[..., None] >> b) & 1
+    return bits.reshape(H, -1)[:, :W].to(torch.uint8)
+
+
+def _east(row):
+    """Per bit, the cell at x + 1: the word shifted down by one bit, bit 31
+    from bit 0 of the next word of the row (0 past the row's end)."""
+    nxt = shift2d(row, 0, -1)
+    return ((row >> 1) & 0x7FFFFFFF) | (nxt << 31)
+
+
+def _west(row):
+    """Per bit, the cell at x - 1: the word shifted up by one bit, bit 0 from
+    bit 31 of the word before (0 before the row's start)."""
+    prv = shift2d(row, 0, 1)
+    return (row << 1) | ((prv >> 31) & 1)
+
+
+def _full_add(a, b, c):
+    ab = a ^ b
+    return ab ^ c, (a & b) | (c & ab)
+
+
+def _subiter_bits_plain(words, phase: int, interior):
+    """One sub-iteration on packed int32 words [H, Wd], 32 cells a step, as
+    kernel K2 computes it. ``interior`` is the packed interior mask."""
+    up, dn = shift2d(words, 1, 0), shift2d(words, -1, 0)
+    p2, p3, p4, p5 = up, _east(up), _east(words), _east(dn)
+    p6, p7, p8, p9 = dn, _west(dn), _west(words), _west(up)
+    # B = p2 + ... + p9 as four bit planes b3 b2 b1 b0
+    s1, c1 = _full_add(p2, p3, p4)
+    s2, c2 = _full_add(p5, p6, p7)
+    s3, c3 = p8 ^ p9, p8 & p9
+    b0, c4 = _full_add(s1, s2, s3)
+    s5, c5 = _full_add(c1, c2, c3)
+    b1, c6 = s5 ^ c4, s5 & c4
+    b2, b3 = c5 ^ c6, c5 & c6
+    b_ok = (b1 | b2) & ~b3 & ~(b2 & b1 & b0)
+    # A == 1: exactly one 0 -> 1 step around the ring p2, p3, ..., p9, p2
+    one = torch.zeros_like(words)
+    two = torch.zeros_like(words)
+    ring = (p2, p3, p4, p5, p6, p7, p8, p9, p2)
+    for a, b in zip(ring[:-1], ring[1:]):
+        t = ~a & b
+        two = two | (one & t)
+        one = one | t
+    if phase == 0:
+        m = ~(p2 & p4 & p6) & ~(p4 & p6 & p8)
+    else:
+        m = ~(p2 & p4 & p8) & ~(p2 & p6 & p8)
+    delete = words & interior & b_ok & one & ~two & m
+    return words & ~delete
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+
 _vp = ctypes.c_void_p
+_int = ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    lib = cuda_build.load("zhang_suen")
-    fn = lib.zhang_suen_iteration
-    fn.argtypes = [_vp, _vp, _vp, _vp, _vp, ctypes.c_int, ctypes.c_int, _vp]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.load("zhang_suen").zhang_suen_fixpoint
+    fn.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _vp]
+    fn.restype = _int
     return fn
 
 
-def zhang_suen_iteration(occ, h_cells, w_cells):
-    """One thinning iteration. Returns (occ u8 [H,W], changed-cell count i32
-    0-d tensor). CPU tensors take the plain version; CUDA tensors launch
-    kernel K2 (counted in ``zhang_suen_iteration.launches``)."""
+def zhang_suen_fixpoint(occ, h_cells, w_cells, max_iters: int):
+    """Thin ``occ`` (u8 [H, W] holding only 0 and 1: ``morph_open``'s output;
+    the precondition is not checked here, a check would be a host read)
+    until an iteration changes nothing, at most ``max_iters`` iterations.
+    Returns (occ u8 [H, W], stats i32 [2] = iterations run and the last
+    iteration's changed-cell count). CPU tensors take the plain version;
+    CUDA tensors launch kernel K2 once, with no host read (counted in
+    ``zhang_suen_fixpoint.launches``): ``h_cells`` and ``w_cells`` are read
+    on the device."""
     if occ.device.type == "cpu":
-        return zhang_suen_iteration_plain(occ, h_cells, w_cells)
+        out, it, changed = zhang_suen_fixpoint_plain(occ, h_cells, w_cells, max_iters)
+        return out, torch.tensor([it, changed], dtype=torch.int32)
     if occ.device.type != "cuda":
-        raise ValueError(f"zhang_suen_iteration: unsupported device {occ.device}")
+        raise ValueError(f"zhang_suen_fixpoint: unsupported device {occ.device}")
     if occ.dtype != torch.uint8 or occ.dim() != 2 or not occ.is_contiguous():
-        raise ValueError("zhang_suen_iteration: occ must be a contiguous 2-D uint8 tensor")
+        raise ValueError("zhang_suen_fixpoint: occ must be a contiguous 2-D uint8 tensor")
+    if not 0 <= max_iters <= 4096:
+        raise ValueError(f"zhang_suen_fixpoint: max_iters {max_iters} outside 0..4096")
     H, W = occ.shape
-    bounds = torch.stack([torch.as_tensor(h_cells, device=occ.device),
-                          torch.as_tensor(w_cells, device=occ.device)]).to(torch.int32)
-    tmp = torch.empty_like(occ)
+    dev = occ.device
+    hc = cuda_build.device_scalar(h_cells, torch.int32, dev)
+    wc = cuda_build.device_scalar(w_cells, torch.int32, dev)
     out = torch.empty_like(occ)
-    changed = torch.empty((), dtype=torch.int32, device=occ.device)
-    stream = torch.cuda.current_stream(occ.device).cuda_stream
-    rc = _lib()(occ.data_ptr(), tmp.data_ptr(), out.data_ptr(), bounds.data_ptr(),
-                changed.data_ptr(), H, W, stream)
-    cuda_build.check(rc, "zhang_suen_iteration")
-    zhang_suen_iteration.launches += 1
-    return out, changed
+    stats = torch.empty(2, dtype=torch.int32, device=dev)
+    # per-iteration changed counts, then the edge rows the bands exchange:
+    # (even, odd iteration) x blocks (at most one an SM) x (first two, last
+    # two rows) x words of a row
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    scratch = torch.empty(max_iters + 8 * sms * -(-W // 32), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib()(occ.data_ptr(), out.data_ptr(), hc.data_ptr(), wc.data_ptr(),
+                    stats.data_ptr(), scratch.data_ptr(), H, W, max_iters, stream)
+    cuda_build.check(rc, "zhang_suen_fixpoint")
+    zhang_suen_fixpoint.launches += 1
+    return out, stats
 
 
-zhang_suen_iteration.launches = 0
+zhang_suen_fixpoint.launches = 0
+
+
+def zhang_suen_iteration(occ, h_cells, w_cells):
+    """One thinning iteration: the fixpoint kernel capped at one. Returns
+    (occ u8 [H,W], changed-cell count i32 0-d tensor)."""
+    out, stats = zhang_suen_fixpoint(occ, h_cells, w_cells, 1)
+    return out, stats[1]

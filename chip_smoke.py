@@ -12,10 +12,17 @@ kernel on them:
   phase 1  build kernels K1 (jfa_pass), K2 (zhang_suen), K3 (ror_counts)
            and P1-P3 (probe_prims) with nvcc, one process each, all started
            together
-  phase 2  K1: a full jump flood at 2000 x 2048, S = 4096, through the
-           kernel and through the plain PyTorch pass; bitwise equal
-  phase 3  K2: Zhang-Suen to the fixpoint on the bench orchard's inflated
-           grid, through the kernel and the plain iteration; bitwise equal
+  phase 2  K1: a full jump flood at 2000 x 2048, S = 4096, and at 384 x 512,
+           S = 256, from one call of the kernel (one cooperative launch) and
+           through the plain PyTorch passes: owner, ox and oy bitwise equal,
+           single passes from a mid-flood state too; ms a flood and a pass
+           at each step value, against the bound
+  phase 3  K2: Zhang-Suen to the fixpoint in one cooperative launch on the
+           bench and the Monte-Carlo orchard's opened grids and on live
+           regions that divide by nothing, against the plain loop: plane,
+           iteration count and changed count bitwise equal, also capped at 3,
+           1 and 0 iterations; ms a thinning (CUDA events, no host read),
+           against the bound
   phase 4  the slice at TEST_STATICS (stage_full + 20 ticks), CUDA against
            the port on the CPU
   phase 5  stage_full at BENCH_STATICS on CUDA: the kernels' launch counts,
@@ -82,6 +89,8 @@ OWNER_CELL_BOUND = 32
 TEST_TICKS = 20
 TEST_V_DT = 0.5
 REPS = 5
+# about 0.25 ms of torch.cuda._sleep ahead of a timed launch (cuda_ms_fresh)
+SLEEP_CYCLES = 500_000
 # K3 runs the fused multiply-add chains XLA:CPU runs for the JAX reference
 # (aosx_torch/perceive/ror_cuda.py), so the frame-0 counts should agree
 # exactly; a contraction that XLA chose differently in some context would
@@ -194,6 +203,37 @@ def host_ms(fn):
     return out, 1e3 * (time.perf_counter() - t0)
 
 
+def zero_counts(kernels):
+    """Set every launch count of the wrappers to 0."""
+    for k in kernels:
+        k.launches = 0
+        if hasattr(k, "passes"):
+            k.passes = 0
+
+
+def read_counts(kernels):
+    """The wrappers' launch counts by name; K1's passes beside its launches
+    (a launch is a whole flood)."""
+    out = {k.__name__: k.launches for k in kernels}
+    for k in kernels:
+        if hasattr(k, "passes"):
+            out[f"{k.__name__}.passes"] = k.passes
+    return out
+
+
+def assert_one_world(counts, worlds, statics, what):
+    """A world build launches K2 once (a whole thinning) and K1's flood once,
+    with every pass of the preset."""
+    from aosx_torch.gvd import voronoi
+
+    npass = len(voronoi._passes(statics))
+    want = {"zhang_suen_fixpoint": worlds, "jfa_flood": worlds,
+            "jfa_flood.passes": worlds * npass}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: kernel counts {counts}, expected {want}")
+
+
 def cloud(statics, spec, seed, device):
     """make_orchard_np's cloud padded to statics.max_points, and its polygon."""
     from aosx_torch.orchards import make_orchard_np
@@ -286,21 +326,46 @@ def phase_build():
     log(f"# phase 1: all kernels built in {time.time() - t0:.2f} s")
 
 
-def flood_passes(init, grid, S, s, pass_fn):
-    """The passes of voronoi.jump_flood from its initial planes, through the
-    pass function given (kernel or plain)."""
-    from aosx_torch.gvd import voronoi
-
-    state = init
-    for step in voronoi._passes(s):
-        state = pass_fn(*state, step, S, grid.origin_x, grid.origin_y, s.resolution)
-    return state
-
-
-def phase_k1(device):
+def cuda_ms_fresh(setup, fn, reps):
+    """cuda_ms for a function that consumes its input: (fn(setup())'s warm-up
+    result, median and least ms over reps of fn on a fresh setup() each, the
+    setup outside the timed window)."""
     import torch
-    from aosx_torch.config import BENCH_STATICS as S
-    from aosx_torch.gvd import jfa_pass_cuda, voronoi
+
+    out = fn(setup())
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        x = setup()
+        # keep the card busy while the host enqueues, so that the events time
+        # the card's work and not the host's launch latency (a cooperative
+        # launch alone takes the host some 20-40 us)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(x)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return out, float(np.median(times)), float(np.min(times))
+
+
+def assert_under_bound(name, ms, bound_ms):
+    """A kernel never beats its bound: if it does, the bound is wrong."""
+    if ms < bound_ms:
+        raise AssertionError(f"{name}: {ms:.5f} ms is under its bound of {bound_ms:.5f} ms "
+                             f"({100 * bound_ms / ms:.0f} %): the bound is wrong")
+
+
+K1_SINGLE_STEPS = (1, 2, 7, 128, 1024)
+K1_STEP_REPEATS = 16
+
+
+def k1_case(S, device):
+    """A full grid of the preset with max_seeds random valid seeds: (grid,
+    seeds)."""
+    import torch
     from aosx_torch.types import GridWorld, SeedSet
 
     rng = np.random.default_rng(0)
@@ -315,66 +380,248 @@ def phase_k1(device):
     seeds = SeedSet(xy=torch.from_numpy(xy).to(device) + torch.tensor([-3.25, 1.5], **f32),
                     valid=torch.ones(n, dtype=torch.bool, device=device),
                     kind=torch.zeros(n, dtype=torch.int8, device=device))
-    npass = len(voronoi._passes(S))
-    init = voronoi._jfa_init(grid, seeds, S)
-    st_k, ms_k = cuda_ms(lambda: flood_passes(init, grid, n, S, jfa_pass_cuda.jfa_pass), REPS)
-    st_p, ms_p = cuda_ms(lambda: flood_passes(init, grid, n, S, jfa_pass_cuda.jfa_pass_plain), REPS)
-    err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(st_k, st_p))
-    equal = all(torch.equal(a, b) for a, b in zip(st_k, st_p))
-    log(f"# phase 2: K1 jump flood {S.grid_h}x{S.grid_w} S={n} ({npass} passes): "
-        f"kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, bitwise equal {equal}, "
-        f"owned cells {int((st_k[0] < n).sum())}")
-    if not equal:
-        raise AssertionError(f"K1 differs from its plain version (max abs err {err})")
-    # one pass reads the owner/ox/oy planes once and writes them once (24 B a
-    # cell); per cell 4 FP32 ops for the coordinates, 6 for each of the 9
-    # candidates (2 sub, 2 mul, 1 add, 1 compare) and an INT32 tie compare each
+    return grid, seeds
+
+
+def phase_k1_shape(name, S, device):
+    """K1 at one preset's shape: the flood and single passes against the plain
+    versions, bitwise; times of the flood and of a pass at each step value;
+    the bound."""
+    import torch
+    from aosx_torch.gvd import jfa_pass_cuda, voronoi
+    from aosx_torch.perceive.raster import shift2d
+
+    grid, seeds = k1_case(S, device)
+    n = S.max_seeds
+    steps = voronoi._passes(S)
+    npass = len(steps)
+    owner0, table = voronoi._jfa_init(grid, seeds, S)
+    args = (n, grid.origin_x, grid.origin_y, S.resolution)
+
+    # the plain flood, keeping the state before every pass
+    def plain_flood():
+        return jfa_pass_cuda.jfa_flood_plain(owner0, table, steps, *args)
+
+    ref, ms_p = cuda_ms(plain_flood, 2 if S.grid_h > 1000 else REPS)
+    pos = table[owner0.long()]
+    state, before = (owner0, pos[..., 0].contiguous(), pos[..., 1].contiguous()), []
+    for step in steps:
+        before.append(state)
+        state = jfa_pass_cuda.jfa_pass_plain(*state, step, *args)
+    if not all(torch.equal(a, b) for a, b in zip(state, ref)):
+        raise AssertionError("jfa_flood_plain differs from the loop of jfa_pass_plain")
+    if not (torch.equal(ref[1], table[ref[0].long()][..., 0])
+            and torch.equal(ref[2], table[ref[0].long()][..., 1])):
+        raise AssertionError("ox, oy != table[owner] after the flood")
+
+    # the flood: owner, and ox/oy with want_positions
+    got = jfa_pass_cuda.jfa_flood(owner0.clone(), table, steps, *args, want_positions=True)
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, ref))
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"K1 flood at {name} differs from its plain version (max abs "
+                             f"err {err})")
+    got, ms_k, _ = cuda_ms_fresh(
+        owner0.clone, lambda o: jfa_pass_cuda.jfa_flood(o, table, steps, *args), REPS)
+    if not torch.equal(got, ref[0]):
+        raise AssertionError("K1 flood without positions differs")
+    # single passes from a mid-flood state (the state before the flood's
+    # fifth pass), also at steps the flood does not use
+    mid = before[4]
+    for step in K1_SINGLE_STEPS:
+        want = jfa_pass_cuda.jfa_pass_plain(*mid, step, *args)
+        got = jfa_pass_cuda.jfa_flood(mid[0].clone(), table, [step], *args, want_positions=True)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"K1 single pass at step {step} ({name}) differs from "
+                                 "jfa_pass_plain")
+    # a pass's time at each step value of the flood, from the state the flood
+    # has there: K1_STEP_REPEATS passes at that step from one call
+    by_step = {}
+    for k, step in enumerate(steps):
+        if step in by_step:
+            continue
+        _, ms, _ = cuda_ms_fresh(before[k][0].clone, lambda o: jfa_pass_cuda.jfa_flood(
+            o, table, [step] * K1_STEP_REPEATS, *args), 3)
+        by_step[step] = ms / K1_STEP_REPEATS
+    # the same flood over a plane without any owner: every fold is skipped, so
+    # what is left is the loads, the stores and the barriers
+    _, ms_empty, _ = cuda_ms_fresh(lambda: torch.full_like(owner0, n),
+                                   lambda o: jfa_pass_cuda.jfa_flood(o, table, steps, *args), REPS)
+    # Bound. The flood must read the owner plane once and write it once
+    # through device memory (8 B a cell) and read the table; from pass to pass
+    # the two planes can stay in L2. A pass costs, per cell, 4 FP32
+    # operations for the coordinates, 5 (2 sub, 2 mul, 1 add) for the distance
+    # to the cell's own owner, and 6 (a compare more) for every other distinct
+    # owner among its 8 candidates: one without an owner needs no distance,
+    # and neither does an owner seen before. Counted on this run's states.
     cells = S.grid_h * S.grid_w
-    b_ms, b_by = bound(24 * cells, fp32_ops=58 * cells, int32_ops=9 * cells)
-    return dict(max_abs_err=err, ms=ms_k / npass, plain_ms=ms_p / npass,
-                flood_ms=ms_k, flood_plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
+    ops_by_pass = []
+    for (o, _, _), step in zip(before, steps):
+        nine = torch.stack([shift2d(o, dys * step, dxs * step, n)
+                            for dys in (-1, 0, 1) for dxs in (-1, 0, 1)]).sort(0).values
+        distinct = int((nine[0] < n).sum()) + int(((nine[1:] != nine[:-1]) & (nine[1:] < n)).sum())
+        own = int((o < n).sum())
+        ops_by_pass.append(bound(0, fp32_ops=4 * cells + 5 * own + 6 * (distinct - own))[0])
+        del nine
+    ops_ms = float(np.sum(ops_by_pass))
+    bytes_ms, _ = bound(8 * cells + 8 * (n + 1))
+    flood_bound = max(bytes_ms, ops_ms)
+    b_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    old_ms, _ = bound(24 * cells)
+    full_ms, _ = bound(0, fp32_ops=(4 + 5 + 6 * 8) * cells)
+    log(f"# phase 2: K1 jump flood {name} {S.grid_h}x{S.grid_w} S={n} ({npass} passes): one "
+        f"call, one cooperative launch, {ms_k:.4f} ms ({ms_empty:.4f} ms over a plane "
+        f"without owners, where no candidate is folded); plain {ms_p:.3f} ms; owner, "
+        f"ox and oy bitwise equal, single passes at steps {list(K1_SINGLE_STEPS)} too; owned "
+        f"cells {int((ref[0] < n).sum())}")
+    log(f"# phase 2: K1 {name} ms a pass by step: "
+        f"{json.dumps({str(k): round(v, 5) for k, v in by_step.items()})}")
+    log(f"# phase 2: K1 {name} bound {flood_bound:.4f} ms a flood ({b_by}), "
+        f"{flood_bound / npass:.5f} ms a pass: the larger of the owner plane once in and once "
+        f"out of device memory plus the table ({bytes_ms:.4f} ms) and {npass} passes of 4 FP32 "
+        f"operations a cell + 5 for its own owner + 6 for each other distinct owner among its "
+        f"candidates ({ops_ms:.4f} ms in all; a pass in which all nine are distinct: "
+        f"{full_ms:.5f} ms); the share refers to it: {100 * flood_bound / ms_k:.1f} %. For scale, 8 B a "
+        f"cell from device memory in every pass: {bytes_ms:.4f} ms a pass; the three carried "
+        f"planes' 24 B: {old_ms:.4f} ms")
+    assert_under_bound(f"K1 flood {name}", ms_k, flood_bound)
+    for k, step in enumerate(steps):
+        if steps.index(step) == k:
+            assert_under_bound(f"K1 pass at step {step} {name}", by_step[step], ops_by_pass[k])
+    return dict(max_abs_err=err, ms=ms_k / npass, plain_ms=ms_p / npass, flood_ms=ms_k,
+                flood_plain_ms=ms_p, flood_no_owner_ms=ms_empty, passes=npass,
+                ms_by_step={str(k): v for k, v in by_step.items()},
+                bound_ms=flood_bound / npass, bound_by=b_by)
 
 
-def thin(grid, s, iteration):
-    """skeleton.zhang_suen with the iteration function given. Returns (occ,
-    iterations run)."""
-    occ = grid.occ
-    for it in range(1, s.skeleton_max_iters + 1):
-        occ, changed = iteration(occ, grid.h_cells, grid.w_cells)
-        if int(changed) == 0:
-            return occ, it
-    return occ, s.skeleton_max_iters
+def phase_k1(device):
+    from aosx_torch.config import BENCH_STATICS, MC_STATICS
+
+    bench = phase_k1_shape("BENCH_STATICS", BENCH_STATICS, device)
+    mc = phase_k1_shape("MC_STATICS", MC_STATICS, device)
+    return dict(bench,
+                mc={k: mc[k] for k in ("ms", "plain_ms", "flood_ms", "flood_plain_ms",
+                                       "flood_no_owner_ms", "passes",
+                                       "ms_by_step", "bound_ms", "bound_by")},
+                max_abs_err=max(bench["max_abs_err"], mc["max_abs_err"]))
+
+
+# logic operations of K2's circuit for a word of 32 cells and a sub-iteration,
+# counted with three-input logic operations and funnel shifts as the card has
+# them: 6 shifted planes, 2 each for 4 full adders, 2 for the half adder, 4
+# for b1..b3, 2 for B in 2..6, 3 x 8 for the ring's counter, 3 for m1 and m2,
+# 2 to combine and delete, 1 population count
+K2_OPS_PER_WORD = 50
+
+
+def opened_grid(S, spec, device):
+    """morph_open of the inflated occupancy grid of an orchard: the thinning's
+    input on the main path."""
+    import torch
+    from aosx_torch.config import AosParams, params_as_f32
+    from aosx_torch.perceive import points, raster, skeleton
+
+    pc, poly = cloud(S, spec, 0, device)
+    params = params_as_f32(AosParams(), device)
+    excl = torch.zeros((S.max_exclusions, 3), device=device)
+    xy, keep, bounds, _ = points.preprocess(pc, poly, params, excl, S, ror_method="sorted")
+    return skeleton.morph_open(raster.inflate(raster.generate_grid(xy, keep, bounds, S), S))
+
+
+def thick_mask(h, w, live_h, live_w, seed):
+    """Random blobs and thick bars inside the live region, up to its last
+    interior cells."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((h, w), np.uint8)
+    out[1:live_h - 1, 1:live_w - 1] = rng.random((live_h - 2, live_w - 2)) < 0.3
+    out[live_h // 8:live_h // 3, live_w // 8:live_w - 1] = 1
+    out[live_h // 2:live_h - 1, live_w // 4:live_w // 4 + live_w // 6] = 1
+    return out
+
+
+def check_k2(name, occ, h_cells, w_cells, max_iters_list):
+    """The fixpoint kernel against the plain loop in plane, iteration count
+    and last changed count. Returns (the most iterations run, max abs err)."""
+    import torch
+    from aosx_torch.perceive import skeleton_cuda
+
+    if int(occ.max()) > 1:
+        raise AssertionError(f"{name}: the plane holds values other than 0 and 1")
+    its, err = 0, 0.0
+    for max_iters in max_iters_list:
+        ref, it, changed = skeleton_cuda.zhang_suen_fixpoint_plain(occ, h_cells, w_cells,
+                                                                   max_iters)
+        its = max(its, it)
+        got, stats = skeleton_cuda.zhang_suen_fixpoint(occ, h_cells, w_cells, max_iters)
+        err = max(err, float((got.int() - ref.int()).abs().max()))
+        if not torch.equal(got, ref) or stats.tolist() != [it, changed]:
+            raise AssertionError(
+                f"K2 {name} max_iters={max_iters}: kernel {stats.tolist()} iterations/changed, "
+                f"plain {[it, changed]}; {int((got != ref).sum())} cells differ")
+    ref, changed = skeleton_cuda.zhang_suen_iteration_plain(occ, h_cells, w_cells)
+    got, n = skeleton_cuda.zhang_suen_iteration(occ, h_cells, w_cells)
+    if not torch.equal(got, ref) or int(n) != int(changed):
+        raise AssertionError(f"K2 {name}: one iteration differs from zhang_suen_iteration_plain")
+    return its, err
+
+
+def phase_k2_shape(name, S, spec, device):
+    """K2 at one preset's shape, on an orchard's opened grid: against the
+    plain loop, bitwise; the fixpoint's time by CUDA events with no host
+    read inside; the bound."""
+    from aosx_torch.perceive import skeleton_cuda
+
+    opened = opened_grid(S, spec, device)
+    occ, hc, wc = opened.occ.contiguous(), opened.h_cells, opened.w_cells
+    H, W = occ.shape
+    it_k, err = check_k2(name, occ, hc, wc, (S.skeleton_max_iters, 3))
+    (skeleton, stats), ms_k, _ = cuda_ms_fresh(
+        lambda: occ, lambda o: skeleton_cuda.zhang_suen_fixpoint(o, hc, wc, S.skeleton_max_iters),
+        REPS)
+    assert int(stats[0]) == it_k
+    (_, it_p, _), ms_p = cuda_ms(lambda: skeleton_cuda.zhang_suen_fixpoint_plain(
+        occ, hc, wc, S.skeleton_max_iters), REPS)
+    # Bound, a thinning: the larger of the u8 plane once in and once out of
+    # device memory, and, for every iteration, two sub-iterations of the
+    # circuit over the words that still hold a cell (at least the skeleton's)
+    # at the INT32 rate. It charges nothing for the dependency of an iteration
+    # on the one before (a grid barrier and a round trip through L2), which
+    # is what the kernel's time is made of.
+    cells = H * W
+    words = int((skeleton_cuda.pack_rows(skeleton) != 0).sum())
+    bytes_ms, _ = bound(2 * cells)
+    ops_ms, _ = bound(0, int32_ops=it_k * 2.0 * K2_OPS_PER_WORD * words)
+    b_ms, b_by = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"# phase 3: K2 Zhang-Suen {name} {H}x{W} (live {int(hc)}x{int(wc)}, "
+        f"{int(occ.sum())} set cells -> {int(skeleton.sum())}): {it_k} iterations in one "
+        f"cooperative launch: {ms_k:.4f} ms a thinning, {ms_k / it_k:.5f} ms an iteration (CUDA "
+        f"events, no host read); plain {ms_p:.3f} ms; plane, iteration count and changed count "
+        f"bitwise equal, also capped at 3 and at 1")
+    log(f"# phase 3: K2 {name} bound {b_ms:.5f} ms a thinning ({b_by}): the larger of the plane "
+        f"in and out, {bytes_ms:.5f} ms, and {it_k} iterations x {K2_OPS_PER_WORD} logic "
+        f"operations x 2 sub-iterations x {words} words, {ops_ms:.6f} ms; "
+        f"the kernel is at {100 * b_ms / ms_k:.1f} % of it")
+    assert_under_bound(f"K2 {name}", ms_k, b_ms)
+    return dict(max_abs_err=err, ms=ms_k / it_k, plain_ms=ms_p / it_p, fixpoint_ms=ms_k,
+                fixpoint_plain_ms=ms_p, iterations=it_k, bound_ms=b_ms / it_k, bound_by=b_by)
 
 
 def phase_k2(device, bench_spec):
     import torch
-    from aosx_torch.config import BENCH_STATICS as S, AosParams, params_as_f32
-    from aosx_torch.perceive import points, raster, skeleton, skeleton_cuda
+    from aosx_torch.config import BENCH_STATICS, MC_STATICS
+    from aosx_torch.orchards import OrchardSpec
 
-    pc, poly = cloud(S, bench_spec, 0, device)
-    params = params_as_f32(AosParams(), device)
-    excl = torch.zeros((S.max_exclusions, 3), device=device)
-    xy, keep, bounds, _ = points.preprocess(pc, poly, params, excl, S, ror_method="sorted")
-    opened = skeleton.morph_open(raster.inflate(raster.generate_grid(xy, keep, bounds, S), S))
-    (occ_k, it_k), ms_k = cuda_ms(lambda: thin(opened, S, skeleton_cuda.zhang_suen_iteration), REPS)
-    (occ_p, it_p), ms_p = cuda_ms(
-        lambda: thin(opened, S, skeleton_cuda.zhang_suen_iteration_plain), REPS)
-    equal = torch.equal(occ_k, occ_p) and it_k == it_p
-    err = float((occ_k.int() - occ_p.int()).abs().max())
-    log(f"# phase 3: K2 Zhang-Suen on the bench inflated grid {S.grid_h}x{S.grid_w}: "
-        f"{it_k} iterations, kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, bitwise equal {equal}, "
-        f"skeleton cells {int(occ_k.sum())}")
-    if not equal:
-        raise AssertionError(f"K2 differs from its plain version ({it_k} vs {it_p} iterations)")
-    # one iteration reads the u8 plane once and writes it once (2 B a cell);
-    # only set cells run the stencil, at most 2 x 49 INT32 ops each (A: 8 x
-    # 4, B: 7, the products and the tests: 10), counted on the first
-    # iteration's input, which has the most
-    cells = S.grid_h * S.grid_w
-    b_ms, b_by = bound(2 * cells, int32_ops=98 * int(opened.occ.sum()))
-    return dict(max_abs_err=err, ms=ms_k / it_k, plain_ms=ms_p / it_p,
-                fixpoint_ms=ms_k, fixpoint_plain_ms=ms_p, iterations=it_k,
-                bound_ms=b_ms, bound_by=b_by)
+    # live regions that are not multiples of 32 columns or of a band's height
+    for h, w, live_h, live_w in ((192, 256, 184, 232), (40, 75, 37, 70), (384, 512, 301, 499)):
+        occ = torch.from_numpy(thick_mask(h, w, live_h, live_w, seed=3)).to(device)
+        i32 = dict(dtype=torch.int32, device=device)
+        it, _ = check_k2(f"{live_h}x{live_w} inside {h}x{w}", occ, torch.tensor(live_h, **i32),
+                         torch.tensor(live_w, **i32), (64, 3, 0))
+        log(f"# phase 3: K2 live region {live_h}x{live_w} inside {h}x{w}: {it} iterations, "
+            f"bitwise equal to the plain loop uncapped, capped at 3, 1 and 0")
+    bench = phase_k2_shape("BENCH_STATICS", BENCH_STATICS, bench_spec, device)
+    mc_spec = OrchardSpec(**json.loads(MC_REFERENCE.read_text())["spec"])
+    mc = phase_k2_shape("MC_STATICS", MC_STATICS, mc_spec, device)
+    return dict(bench, mc={k: v for k, v in mc.items() if k != "max_abs_err"})
 
 
 def run_test_slice(device):
@@ -425,7 +672,7 @@ def phase_bench_slice(device, bench_spec):
     pc, poly = cloud(S, bench_spec, 0, device)
     params = params_as_f32(AosParams(), device)
     excl = torch.zeros((S.max_exclusions, 3), device=device)
-    kernels = (jfa_pass_cuda.jfa_pass, skeleton_cuda.zhang_suen_iteration)
+    kernels = (jfa_pass_cuda.jfa_flood, skeleton_cuda.zhang_suen_fixpoint)
 
     def stage_full():
         out = perceive(pc, poly, params, excl, S, ror_method="sorted")
@@ -433,14 +680,13 @@ def phase_bench_slice(device, bench_spec):
         _, metrics = engine.step(engine.initial_state(world, S), world, params, S)
         return out, world, metrics
 
-    for k in kernels:
-        k.launches = 0
+    zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.time()
     out, world, metrics = stage_full()
     torch.cuda.synchronize()
     first_s = time.time() - t0
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = read_counts(kernels)
     log(f"# phase 5: BENCH_STATICS stage_full (first run {first_s:.2f} s host wall): "
         f"launches {launches}")
 
@@ -473,9 +719,7 @@ def phase_bench_slice(device, bench_spec):
     assert got["waypoints"] >= 4 and got["plan_len"] > 0
     if int(world.guards) != 0:
         raise AssertionError(f"world guard bits {int(world.guards)}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    assert_one_world(launches, 1, S, "stage_full")
 
     # per-stage medians; a stage's time includes its host synchronisations
     _, t_perceive = cuda_ms(lambda: perceive(pc, poly, params, excl, S), REPS)
@@ -731,7 +975,7 @@ def phase_serving(device):
     from aosx_torch import serving
     from aosx_torch.config import BENCH_STATICS as S, AosParams, params_as_f32
     from aosx_torch.engine import stack_metrics
-    from aosx_torch.gvd import jfa_pass_cuda
+    from aosx_torch.gvd import jfa_pass_cuda, voronoi
     from aosx_torch.perceive import ror_cuda, skeleton_cuda
     from aosx_torch.plan import plancache
 
@@ -739,15 +983,14 @@ def phase_serving(device):
     frames, poly = serving_frames(ref, S, device)
     params = params_as_f32(AosParams(), device)
     excl = torch.zeros((S.max_exclusions, 3), device=device)
-    kernels = (jfa_pass_cuda.jfa_pass, skeleton_cuda.zhang_suen_iteration, ror_cuda.ror_counts)
+    kernels = (jfa_pass_cuda.jfa_flood, skeleton_cuda.zhang_suen_fixpoint, ror_cuda.ror_counts)
     ticks, v_dt = ref["ticks"], ref["v_dt"]
     torch.cuda.reset_peak_memory_stats()
 
     # the main path: serve_init, then per map frame serve_map_frame and the
     # control ticks (incremental.serve_frames written out, to keep the state
     # each frame's ticks start from)
-    for k in kernels:
-        k.launches = 0
+    zero_counts(kernels)
     sv, init_ms = host_ms(lambda: serving.serve_init(frames[0], poly, params, excl, S,
                                                      ror_method="pallas"))
     sv0 = sv
@@ -769,7 +1012,7 @@ def phase_serving(device):
         m["adopted"] = st.adopted.expand(ticks)
         per_frame_metrics.append(m)
     torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = read_counts(kernels)
     levels = [f["level"] for f in got_frames]
     log(f"# phase 7: serving {len(frames)} frames x {ticks} ticks, ror_method='pallas': levels "
         f"{levels}, launches {launches}")
@@ -780,6 +1023,11 @@ def phase_serving(device):
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the serving path")
+    # every world build of the loop: one thinning, one flood of all its passes
+    n_worlds = launches["zhang_suen_fixpoint"]
+    if (launches["jfa_flood"] != n_worlds
+            or launches["jfa_flood.passes"] != n_worlds * len(voronoi._passes(S))):
+        raise AssertionError(f"serving: {n_worlds} thinnings against floods {launches}")
 
     # the last frame again through serve_control_tick, fed the replay's poses
     m_last, m_prev = per_frame_metrics[-1], per_frame_metrics[-2]
@@ -985,7 +1233,7 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
     ref = json.loads(MC_REFERENCE.read_text())
     spec = OrchardSpec(**ref["spec"])
     params = params_as_f32(AosParams(), device)
-    kernels = (jfa_pass_cuda.jfa_pass, skeleton_cuda.zhang_suen_iteration, ror_cuda.ror_counts)
+    kernels = (jfa_pass_cuda.jfa_flood, skeleton_cuda.zhang_suen_fixpoint, ror_cuda.ror_counts)
     on_card = device.type == "cuda"
 
     def sync():
@@ -1003,11 +1251,10 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
         torch.cuda.reset_peak_memory_stats()
 
     # one world build alone: its kernel launches, and where begin's time goes
-    for k in kernels:
-        k.launches = 0
+    zero_counts(kernels)
     world, world_ms = timed(lambda: batch._world(make_orchard_np(spec, seed=0), params, S,
                                                  "sorted", device))
-    per_world = {k.__name__: k.launches for k in kernels}
+    per_world = read_counts(kernels)
     cache, cache_ms = timed(lambda: plancache.build_plan_cache(world, params, S))
     tour = int(world.waypoints.count)
     W = S.max_waypoints
@@ -1045,12 +1292,11 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
         started.append(i)
         return make_orchard_np(spec, seed=i)
 
-    for k in kernels:
-        k.launches = 0
+    zero_counts(kernels)
     (res, stats), wall_ms = timed(lambda: batch.sustained_rollouts(
         total, lanes, spec, params, S, budget, chunk_steps=chunk, refill=refill,
         ror_method="sorted", cached=True, clouds=clouds, device=device))
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = read_counts(kernels)
     n_groups = stats["begin_calls"]
     lane_ticks = stats["chunk_calls"] * lanes * chunk
     log(f"# phase 9: sustained_rollouts total={total} lanes={lanes} refill={refill} "
@@ -1069,15 +1315,11 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
     if n_groups != lanes // refill + (total - lanes) // refill:
         raise AssertionError(f"begin_calls {n_groups}")
     if on_card:
-        if launches["jfa_pass"] != total * per_world["jfa_pass"]:
-            raise AssertionError(f"K1 launches {launches['jfa_pass']} for {total} worlds of "
-                                 f"{per_world['jfa_pass']} passes")
-        if launches["zhang_suen_iteration"] <= 0:
-            raise AssertionError("K2 was not launched on the Monte-Carlo path")
-        log(f"# phase 9: a world build launches K1 {launches['jfa_pass'] / total:.1f} times "
-            f"(alone: {per_world['jfa_pass']}) and K2 "
-            f"{launches['zhang_suen_iteration'] / total:.2f} times (alone: "
-            f"{per_world['zhang_suen_iteration']}; it ends on the data)")
+        assert_one_world(per_world, 1, S, "a Monte-Carlo world build alone")
+        assert_one_world(launches, total, S, "the Monte-Carlo path")
+        log(f"# phase 9: each of the {total} world builds launches K2 once (one thinning to "
+            f"the fixpoint) and K1's flood once ({launches['jfa_flood.passes'] // total} "
+            f"passes in one kernel launch)")
 
     # every record against the JAX reference
     differ, worst, bad = [], 0.0, []
@@ -1169,27 +1411,48 @@ def main():
 
     device = torch.device("cuda", 0)
     bench_spec = OrchardSpec(**json.loads(REFERENCE.read_text())["spec"])
+    started = time.time()
+
+    def phase(n, fn, *args):
+        # the script is mostly host-bound: each phase's wall time, so that a
+        # slow run shows where it was slow
+        t0 = time.time()
+        out = fn(*args)
+        log(f"# phase {n}: took {time.time() - t0:.1f} s of host wall "
+            f"({time.time() - started:.1f} s since the start)")
+        return out
+
     phase_environment()
-    phase_build()
-    k1 = phase_k1(device)
-    k2 = phase_k2(device, bench_spec)
-    phase_test_slice(device)
-    launches, stages = phase_bench_slice(device, bench_spec)
-    k3 = phase_k3(device, bench_spec)
-    serve_launches, serve_stats = phase_serving(device)
-    probe_rows = phase_probes(device)
-    mc_launches, mc_stats = phase_monte_carlo(device)
+    phase(1, phase_build)
+    k1 = phase(2, phase_k1, device)
+    k2 = phase(3, phase_k2, device, bench_spec)
+    phase(4, phase_test_slice, device)
+    launches, stages = phase(5, phase_bench_slice, device, bench_spec)
+    k3 = phase(6, phase_k3, device, bench_spec)
+    serve_launches, serve_stats = phase(7, phase_serving, device)
+    probe_rows = phase(8, phase_probes, device)
+    mc_launches, mc_stats = phase(9, phase_monte_carlo, device)
 
     def row(name, source, replaces, k):
         # launches: on the serving path (phase 7); launches_stage_full: on
         # stage_full (phase 5); launches_mc: on the Monte-Carlo path (phase
         # 9). No single PyTorch call computes any of the three functions,
         # hence library_ms null
+        # K1: ms, plain_ms and bound_ms are a pass's share of a flood
+        # (launches: whole floods; the passes they ran beside them); K2: an
+        # iteration's share of a thinning (launches: whole thinnings); both
+        # at BENCH_STATICS, with MC_STATICS under "mc"
+        core = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+        extra = {key: v for key, v in k.items() if key not in core}
+        for path, counts in (("", serve_launches), ("_stage_full", launches),
+                             ("_mc", mc_launches)):
+            if f"{name}.passes" in counts:
+                extra[f"passes{path}"] = counts[f"{name}.passes"]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=serve_launches[name], launches_stage_full=launches.get(name, 0),
                     launches_mc=mc_launches[name],
                     max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
-                    bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None)
+                    bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None, **extra)
 
     def probe_row(name, line, k):
         # launches: on the probe entry point (phase 8). P1 and P2 are bound by
@@ -1198,8 +1461,8 @@ def main():
                     replaces=f"benchmarks/probe_pallas_prims.py:{line}", **k)
 
     kernels = [
-        row("jfa_pass", "aosx_torch/csrc/jfa_pass.cu", "aosx/gvd/jfa_pass_pallas.py:189", k1),
-        row("zhang_suen_iteration", "aosx_torch/csrc/zhang_suen.cu",
+        row("jfa_flood", "aosx_torch/csrc/jfa_pass.cu", "aosx/gvd/jfa_pass_pallas.py:189", k1),
+        row("zhang_suen_fixpoint", "aosx_torch/csrc/zhang_suen.cu",
             "aosx/perceive/skeleton_pallas.py:146", k2),
         row("ror_counts", "aosx_torch/csrc/ror_counts.cu", "aosx/perceive/ror_pallas.py:51", k3),
         probe_row("chase_rw", 57, probe_rows["chase_rw"]),
