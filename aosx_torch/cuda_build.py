@@ -1,4 +1,4 @@
-"""Build and load the hand-written CUDA kernels of ``aosx_torch/csrc``.
+"""Build, load and time the hand-written CUDA kernels of ``aosx_torch/csrc``.
 
 Each ``csrc/<name>.cu`` has a plain C entry point that returns
 ``cudaGetLastError()``. It is compiled with ``nvcc`` for ``sm_90a`` (Hopper)
@@ -15,7 +15,9 @@ import hashlib
 import os
 import pathlib
 import shutil
+import statistics
 import subprocess
+import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
@@ -28,6 +30,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# about 0.25 ms of torch.cuda._sleep queued ahead of a timed call, so that
+# CUDA events time the card's work and not the host's launch latency (a
+# cooperative launch alone takes the host some 20-40 us)
+BUSY_CYCLES = 500_000
 
 
 def _nvcc() -> str:
@@ -83,3 +89,36 @@ def check(rc: int, what: str) -> None:
     """Raise when a C entry point returned a non-zero cudaError_t."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def timed_ms(fn, device, reps: int = 3, setup=None):
+    """(warm-up result, median ms of ``reps`` timed calls) of ``fn()``, or of
+    ``fn(setup())`` with a fresh ``setup()`` a call made outside the timed
+    window (for a function that consumes its input). CUDA events on the
+    card, each call behind BUSY_CYCLES of queued sleep; the host clock on the
+    CPU."""
+    import torch
+
+    def args():
+        return () if setup is None else (setup(),)
+
+    out = fn(*args())
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    times = []
+    for _ in range(reps):
+        a = args()
+        if cuda:
+            torch.cuda._sleep(BUSY_CYCLES)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn(*a)
+            end.record()
+            torch.cuda.synchronize(device)
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn(*a)
+            times.append(1e3 * (time.perf_counter() - t0))
+    return out, statistics.median(times)

@@ -8,10 +8,12 @@ On Hopper both are ordinary, so the probes measure their price: what one
 dependent scalar step and one data-dependent gather cost, which a union-find
 or a crossing-filter kernel needs to know.
 
-  P1  chase_rw      one thread, N = 65,536-entry i32 table (global memory):
+  P1  chase_rw      one thread, N = 65,536-entry i32 table:
                     parent[i] = i, then 65,536 dependent steps
                     j = (c*1103515245 + 12345) & (N-1); v = parent[j];
                     parent[(j+1) & (N-1)] = v; c = v ^ i   (i32, wrapping)
+                    The kernel keeps the table in shared memory as u16 (N <=
+                    65,536), or in global memory with ``shared=False``
   P2  chase_ro      one thread, a 4,096-entry table (shared memory), 8,192
                     dependent reads c = tab[j] ^ i
   P3  gather_rows   64 rounds of acc += take_along_axis(x, (idx+acc) & 2047)
@@ -22,10 +24,17 @@ or a crossing-filter kernel needs to know.
 
 The kernels are CUDA C++ (``aosx_torch/csrc/probe_prims.cu``). Each wrapper
 takes the plain version only for a tensor on the CPU; for a CUDA tensor it
-launches its kernel (counted in ``<wrapper>.launches``) or raises.
+launches its kernel (counted in ``<wrapper>.launches``) or raises. Beside
+the plain versions stand plain mirrors of the kernels' own schemes (P1's
+chain with each load ahead of the store before it, P3's staged-row layout),
+which the CPU tests hold against the plain versions, and the count of
+shared-memory wavefronts that a run's indices force on P3's loads.
+``shared_load_clocks`` measures the shared-memory load-to-use latency on the
+card, the latency in P1's and P2's bounds.
 
 Run: ``python3 -m aosx_torch.probes [p1 p2 p3 p3b p4] [--device cpu]``
-prints one line per probe; on the card the times are CUDA-event medians.
+prints one line per probe; on the card the times are CUDA-event medians,
+with the card kept busy ahead of each timed call.
 """
 
 from __future__ import annotations
@@ -33,7 +42,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import sys
-import time
 
 import torch
 
@@ -45,11 +53,20 @@ U32 = 0xFFFFFFFF
 
 P1_N = 65536
 P1_STEPS = 65536
+# the largest table the shared-memory kernel holds (u16 entries, 128 KB)
+P1_SMEM_MAX = 65536
 P2_N = 4096
 P2_STEPS = 8192
 P3_ROWS = 512
 P3_COLS = 2048
 P3_ROUNDS = 64
+# the kernel's block (a thread owns 4 columns) and staged row (xs, 4-byte words)
+P3_THREADS = 512
+P3_SMEM_WORDS = 2048
+# shared_load_clocks' table: entry i points at entry (i + 97) & 1023
+LAT_N = 1024
+LAT_STRIDE = 97
+LAT_LOADS = 8192
 P4_CELLS = 2000 * 2048
 P4_N = 262144
 P4_ROUNDS = 16
@@ -114,6 +131,100 @@ def flat_gather_plain(occ, idx, rounds: int = P4_ROUNDS):
 
 
 # ---------------------------------------------------------------------------
+# plain mirrors of the kernels' schemes (csrc/probe_prims.cu)
+# ---------------------------------------------------------------------------
+
+
+def chase_rw_pipelined_plain(seed, n: int = P1_N, steps: int = P1_STEPS):
+    """P1 as the shared-memory kernel runs it (``chase_smem_chain``), in
+    Python ints: byte offsets into a u16 table, step i+1's load ahead of
+    step i's store, and the forward folded into the xor through the mask m.
+    Returns (c i32 [1], table i32 [n], forwards), c and table as
+    ``chase_rw_plain`` gives them; forwards counts the steps whose load read
+    the entry that the step before wrote."""
+    a2, c2, mask2 = (2 * LCG_A) & U32, 2 * LCG_C, 2 * (n - 1)
+    tab = list(range(n))
+    c = int(seed.reshape(())) & U32
+    forwards = 0
+    if steps > 0:
+        jb = (c * a2 + c2) & U32 & mask2
+        vl = tab[jb >> 1]
+        m = w = 0
+        for i in range(steps - 1):
+            c = (vl & ~m & U32) ^ w
+            v = c ^ i
+            sb = (jb + 2) & mask2
+            jb = (c * a2 + c2) & U32 & mask2
+            vl = tab[jb >> 1]
+            tab[sb >> 1] = v & 0xFFFF
+            m = U32 if jb == sb else 0
+            forwards += jb == sb
+            w = (v & m) ^ (i + 1)
+        c = (vl & ~m & U32) ^ w
+        tab[((jb + 2) & mask2) >> 1] = (c ^ (steps - 1)) & 0xFFFF
+    table = torch.tensor(tab, dtype=torch.int64)
+    return _to_i32(torch.tensor([c])), _to_i32(table), forwards
+
+
+def gather_layout(a):
+    """P3's staged-row layout, the word of xs that holds column a < 2048:
+    bits 5-10 kept, bits 0-4 xored with bits 6-10 (a bijection). In the
+    identity layout columns a multiple of 32 apart share a bank, so indices
+    with a power-of-two stride serialise a warp's load; the xor spreads
+    them."""
+    return a ^ (a >> 6)
+
+
+def gather_lanes(device=None):
+    """[64, 32] columns of a row: for each warp-wide load of a round (4
+    chains of a thread, 16 warps), the columns its 32 lanes gather for.
+    Thread q = 32w + l owns columns 4q + j, j < 4."""
+    j, w, lane = torch.meshgrid(*(torch.arange(k, device=device) for k in (4, 16, 32)),
+                                indexing="ij")
+    return (4 * (32 * w + lane) + j).reshape(-1, 32)
+
+
+def gather_rows_layout_plain(x, idx, rounds: int = P3_ROUNDS):
+    """P3 as the kernel computes it: x staged through ``gather_layout``,
+    t = idx + acc carried (a round is t += xs[layout(t & 2047)]), acc = t -
+    idx at the end; i32 wrapping."""
+    mask = x.shape[1] - 1
+    xs = torch.empty_like(x)
+    xs[:, gather_layout(torch.arange(x.shape[1], device=x.device))] = x
+    t = idx.clone()
+    for _ in range(rounds):
+        t = t + torch.gather(xs, 1, gather_layout(t & mask).long())
+    return t - idx
+
+
+def bank_wavefronts(words):
+    """Shared-memory wavefronts of warp-wide 4-byte loads: words [..., 32]
+    holds each lane's word address. A bank (word % 32) serves one distinct
+    word a wavefront; lanes that read one word share it. Returns [...]."""
+    w = torch.sort(words.long(), dim=-1).values
+    first = torch.ones_like(w, dtype=torch.int32)
+    first[..., 1:] = (w[..., 1:] != w[..., :-1]).int()
+    counts = torch.zeros(w.shape[:-1] + (32,), dtype=torch.int32, device=w.device)
+    counts.scatter_add_(-1, w & 31, first)
+    return counts.amax(-1)
+
+
+def gather_wavefronts(x, idx, rounds: int = P3_ROUNDS, *, layout=gather_layout, lanes=None):
+    """Mean wavefronts a warp-wide load of P3 over all rounds, counted from
+    the plain version's indices of each round through ``layout``, with the
+    lanes of ``gather_lanes`` (or [k, 32] columns ``lanes``)."""
+    lanes = gather_lanes(x.device) if lanes is None else lanes
+    mask = x.shape[1] - 1
+    acc = torch.zeros_like(x)
+    total = 0
+    for _ in range(rounds):
+        a = (idx + acc) & mask
+        total += int(bank_wavefronts(layout(a)[:, lanes]).sum(dtype=torch.int64))
+        acc = acc + torch.gather(x, 1, a.long())
+    return total / (rounds * x.shape[0] * lanes.shape[0])
+
+
+# ---------------------------------------------------------------------------
 # inputs of the TPU script
 # ---------------------------------------------------------------------------
 
@@ -126,6 +237,15 @@ def gather_rows_inputs(device, rows: int = P3_ROWS):
     """x = iota & 1023, idx = (x*7 + 13) & 2047 on i32 [rows, 2048]."""
     x = torch.arange(rows * P3_COLS, dtype=torch.int32, device=device).reshape(rows, P3_COLS) & 1023
     return x, (x * 7 + 13) & (P3_COLS - 1)
+
+
+def gather_rows_random_inputs(device, rows: int = P3_ROWS, seed: int = 0):
+    """x and idx on i32 [rows, 2048], both over the whole i32 range (so sums
+    wrap), from a seeded torch.Generator on the CPU: unstructured indices."""
+    g = torch.Generator().manual_seed(seed)
+    x, idx = (torch.randint(-2**31, 2**31, (rows, P3_COLS), dtype=torch.int32, generator=g)
+              for _ in range(2))
+    return x.to(device), idx.to(device)
 
 
 def flat_gather_inputs(device):
@@ -151,8 +271,9 @@ def _lib():
     lib.probe_chase_rw_smem.argtypes = [_vp, _vp, _int, _int, _vp, _vp]
     lib.probe_chase_ro.argtypes = [_vp, _int, _vp, _vp]
     lib.probe_gather_rows.argtypes = [_vp, _vp, _vp, _int, _int, _vp]
+    lib.probe_smem_latency.argtypes = [_vp, _int, _int, _int, _int, _vp]
     for fn in (lib.probe_chase_rw, lib.probe_chase_rw_smem, lib.probe_chase_ro,
-               lib.probe_gather_rows):
+               lib.probe_gather_rows, lib.probe_smem_latency):
         fn.restype = _int
     return lib
 
@@ -164,14 +285,16 @@ def _check_seed(seed, what):
         raise ValueError(f"{what}: seed must be one int32 value")
 
 
-def chase_rw(seed, n: int = P1_N, steps: int = P1_STEPS, *, shared: bool = False):
+def chase_rw(seed, n: int = P1_N, steps: int = P1_STEPS, *, shared: bool = True):
     """P1 from ``seed`` (i32 [1]). Returns (c i32 [1], table i32 [n]). A
     CPU seed takes the plain version; a CUDA seed launches the kernel, with
-    the table in global memory or, ``shared=True``, in shared memory as u16
-    (n <= 65,536): the same entry, timed a second way."""
+    the table in shared memory as u16 (n <= 65,536) or, with
+    ``shared=False``, in global memory (any n)."""
     if seed.device.type == "cpu":
         return chase_rw_plain(seed, n, steps)
     _check_seed(seed, "chase_rw")
+    if shared and n > P1_SMEM_MAX:
+        raise ValueError(f"chase_rw: a shared-memory table holds at most {P1_SMEM_MAX} entries")
     table = torch.empty(n, dtype=torch.int32, device=seed.device)
     out = torch.empty(1, dtype=torch.int32, device=seed.device)
     fn = _lib().probe_chase_rw_smem if shared else _lib().probe_chase_rw
@@ -209,9 +332,9 @@ def gather_rows(x, idx, rounds: int = P3_ROUNDS):
         raise ValueError(f"gather_rows: unsupported devices {x.device}, {idx.device}")
     for t in (x, idx):
         if (t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != P3_COLS
-                or t.shape != x.shape or not t.is_contiguous()):
-            raise ValueError(f"gather_rows: x and idx must be contiguous [rows, {P3_COLS}] "
-                             "int32 tensors of one shape")
+                or t.shape != x.shape or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"gather_rows: x and idx must be contiguous, 16-byte aligned "
+                             f"[rows, {P3_COLS}] int32 tensors of one shape")
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     cuda_build.check(_lib().probe_gather_rows(x.data_ptr(), idx.data_ptr(), out.data_ptr(),
@@ -224,54 +347,52 @@ def gather_rows(x, idx, rounds: int = P3_ROUNDS):
 gather_rows.launches = 0
 
 
+def shared_load_clocks(device, *, wide: bool = False, loads: int = LAT_LOADS) -> float:
+    """SM clocks from a shared-memory load's issue to the next load that
+    takes its value as the address, measured on the card: one thread chases
+    through a table of u16 (u32 with ``wide``) shared-window addresses with
+    no operation between two loads. A latency has no plain version, so a
+    device other than the card raises."""
+    if device.type != "cuda":
+        raise ValueError(f"shared_load_clocks: measures the card, not {device}")
+    out = torch.zeros(2, dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    cuda_build.check(_lib().probe_smem_latency(out.data_ptr(), LAT_N, LAT_STRIDE, loads,
+                                               int(wide), stream),
+                     "probe_smem_latency")
+    clocks, last = out.tolist()
+    if last != loads * LAT_STRIDE % LAT_N:
+        raise RuntimeError(f"shared_load_clocks: the chase ended at entry {last}")
+    return clocks / loads
+
+
 # ---------------------------------------------------------------------------
 # the probe entry point
 # ---------------------------------------------------------------------------
 
 
-def timed_ms(fn, device, reps: int = 3):
-    """(fn()'s result, median ms of reps calls): CUDA events on the card, the
-    host clock on the CPU."""
-    out = fn()
-    times = []
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize(device)
-            times.append(a.elapsed_time(b))
-    else:
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            times.append(1e3 * (time.perf_counter() - t0))
-    return out, sorted(times)[len(times) // 2]
-
-
 def p1(device):
-    (c, _), ms = timed_ms(lambda: chase_rw(seed_tensor(device)), device)
-    line = (f"P1 scalar read+write chase, global table: c = {int(c)}, {ms:.3f} ms, "
-            f"{ms * 1e6 / P1_STEPS:.1f} ns/step ({P1_N} stores + {P1_STEPS} steps)")
+    seed = seed_tensor(device)
+    (c, _), ms = cuda_build.timed_ms(lambda: chase_rw(seed), device)
+    line = (f"P1 scalar read+write chase: c = {int(c)}, {ms:.3f} ms, "
+            f"{ms * 1e6 / P1_STEPS:.1f} ns/step ({P1_N} entries, {P1_STEPS} steps)")
     if device.type == "cuda":
-        (c2, _), ms2 = timed_ms(lambda: chase_rw(seed_tensor(device), shared=True), device)
-        line += (f"; shared-memory table (u16): c = {int(c2)}, {ms2:.3f} ms, "
+        (c2, _), ms2 = cuda_build.timed_ms(lambda: chase_rw(seed, shared=False), device)
+        line += (f"; global-memory table: c = {int(c2)}, {ms2:.3f} ms, "
                  f"{ms2 * 1e6 / P1_STEPS:.1f} ns/step")
     return line
 
 
 def p2(device):
-    c, ms = timed_ms(lambda: chase_ro(seed_tensor(device)), device)
+    seed = seed_tensor(device)
+    c, ms = cuda_build.timed_ms(lambda: chase_ro(seed), device)
     return (f"P2 scalar read-only chase, shared-memory table: c = {int(c)}, {ms:.3f} ms, "
             f"{ms * 1e6 / P2_STEPS:.1f} ns/step ({P2_N} stores + {P2_STEPS} steps)")
 
 
 def _p3_line(name, fn, device):
     x, idx = gather_rows_inputs(device)
-    out, ms = timed_ms(lambda: fn(x, idx), device)
+    out, ms = cuda_build.timed_ms(lambda: fn(x, idx), device)
     n = x.numel() * P3_ROUNDS
     return (f"{name}: sum = {int(out.sum(dtype=torch.int64))}, {ms:.3f} ms, "
             f"{ms * 1e6 / n:.4f} ns/element ({n} gathered)")
@@ -287,7 +408,7 @@ def p3b(device):
 
 def p4(device):
     occ, idx = flat_gather_inputs(device)
-    out, ms = timed_ms(lambda: flat_gather_plain(occ, idx), device)
+    out, ms = cuda_build.timed_ms(lambda: flat_gather_plain(occ, idx), device)
     n = P4_N * P4_ROUNDS
     return (f"P4 flat gather, plain PyTorch, 262k x {P4_ROUNDS}: sum = "
             f"{int(out.sum(dtype=torch.int64))}, {ms:.3f} ms, {ms * 1e6 / n:.4f} ns/element")

@@ -39,13 +39,18 @@ kernel on them:
            differs from JAX's excused only by an f32 regression split that
            is not the exact (f64) one; launches of K1, K2 and K3, and the
            serving latencies
-  phase 8  the probes P1 (scalar read+write chase), P2 (scalar read-only
-           chase) and P3 (row gather) through the kernels and their plain
-           versions, bitwise equal, and against the constants of the TPU
-           probe bodies (tests/torch_reference/probes.json); ns a step and
-           a gathered element, torch.gather's time for P3, the bounds; then
-           the probe entry point (python3 -m aosx_torch.probes) for the
-           launch counts
+  phase 8  the probes P1 (scalar read+write chase, its table in shared and
+           in global memory), P2 (scalar read-only chase) and P3 (row gather,
+           on the probe's input and on random i32 input) through the kernels
+           and their plain versions, bitwise equal, and against the constants
+           of the TPU probe bodies (tests/torch_reference/probes.json); ms
+           with the card kept busy ahead of each launch, torch.gather's time
+           for P3, the bounds (the run fails if a kernel beats its bound; P1's
+           and P2's latency term is the shared-memory load-to-use latency,
+           measured here), the bank wavefronts P3's indices force in its
+           layout and in the identity layout, as a diagnostic of the log;
+           then the probe entry point (python3 -m
+           aosx_torch.probes) for the launch counts
   phase 9  Monte-Carlo at MC_STATICS: 128 rollouts of 1,200 ticks through 64
            lanes with refill groups of 32 (plan-cached), each record held
            against the JAX package's (tests/torch_reference/mc_np_seed0.json);
@@ -89,8 +94,6 @@ OWNER_CELL_BOUND = 32
 TEST_TICKS = 20
 TEST_V_DT = 0.5
 REPS = 5
-# about 0.25 ms of torch.cuda._sleep ahead of a timed launch (cuda_ms_fresh)
-SLEEP_CYCLES = 500_000
 # K3 runs the fused multiply-add chains XLA:CPU runs for the JAX reference
 # (aosx_torch/perceive/ror_cuda.py), so the frame-0 counts should agree
 # exactly; a contraction that XLA chose differently in some context would
@@ -143,14 +146,13 @@ INT32_OPS_PER_S = FP32_OPS_PER_S / 2
 SM_CLOCK_HZ = 1.98e9
 DISPATCH_OPS_PER_S = 132 * 128 * SM_CLOCK_HZ
 # shared memory: 32 banks of 4 bytes a clock on each of 132 SMs
-SMEM_BYTES_PER_S = 32 * 4 * 132 * SM_CLOCK_HZ
-# load-to-use latencies in SM clocks, assumed from Luo et al., "Benchmarking
-# and Dissecting the Nvidia Hopper GPU Architecture via Microbenchmarking"
-# (2024), H100: L1 hit 40.7, shared memory 29.0 (L2 hit 263, for scale); a
-# dependent integer operation (multiply-add, logic) issues after 4 clocks
-L1_HIT_CLOCKS = 40.7
-SMEM_CLOCKS = 29.0
-INT_DEP_CLOCKS = 4.0
+SM_SMEM_BYTES_PER_S = 32 * 4 * SM_CLOCK_HZ
+SMEM_BYTES_PER_S = 132 * SM_SMEM_BYTES_PER_S
+# The load-to-use latency of shared memory is measured in phase 8
+# (probes.shared_load_clocks). A dependent integer operation (xor,
+# multiply-add, mask) is charged its one issue clock, which no dependent
+# instruction undercuts; what it takes on the chain is not measured
+DEP_OP_CLOCKS = 1.0
 
 
 def log(msg):
@@ -326,31 +328,6 @@ def phase_build():
     log(f"# phase 1: all kernels built in {time.time() - t0:.2f} s")
 
 
-def cuda_ms_fresh(setup, fn, reps):
-    """cuda_ms for a function that consumes its input: (fn(setup())'s warm-up
-    result, median and least ms over reps of fn on a fresh setup() each, the
-    setup outside the timed window)."""
-    import torch
-
-    out = fn(setup())
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        x = setup()
-        # keep the card busy while the host enqueues, so that the events time
-        # the card's work and not the host's launch latency (a cooperative
-        # launch alone takes the host some 20-40 us)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn(x)
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return out, float(np.median(times)), float(np.min(times))
-
-
 def assert_under_bound(name, ms, bound_ms):
     """A kernel never beats its bound: if it does, the bound is wrong."""
     if ms < bound_ms:
@@ -388,6 +365,7 @@ def phase_k1_shape(name, S, device):
     versions, bitwise; times of the flood and of a pass at each step value;
     the bound."""
     import torch
+    from aosx_torch.cuda_build import timed_ms
     from aosx_torch.gvd import jfa_pass_cuda, voronoi
     from aosx_torch.perceive.raster import shift2d
 
@@ -420,8 +398,8 @@ def phase_k1_shape(name, S, device):
     if not all(torch.equal(a, b) for a, b in zip(got, ref)):
         raise AssertionError(f"K1 flood at {name} differs from its plain version (max abs "
                              f"err {err})")
-    got, ms_k, _ = cuda_ms_fresh(
-        owner0.clone, lambda o: jfa_pass_cuda.jfa_flood(o, table, steps, *args), REPS)
+    got, ms_k = timed_ms(lambda o: jfa_pass_cuda.jfa_flood(o, table, steps, *args), device,
+                         REPS, owner0.clone)
     if not torch.equal(got, ref[0]):
         raise AssertionError("K1 flood without positions differs")
     # single passes from a mid-flood state (the state before the flood's
@@ -439,13 +417,13 @@ def phase_k1_shape(name, S, device):
     for k, step in enumerate(steps):
         if step in by_step:
             continue
-        _, ms, _ = cuda_ms_fresh(before[k][0].clone, lambda o: jfa_pass_cuda.jfa_flood(
-            o, table, [step] * K1_STEP_REPEATS, *args), 3)
+        _, ms = timed_ms(lambda o: jfa_pass_cuda.jfa_flood(
+            o, table, [step] * K1_STEP_REPEATS, *args), device, 3, before[k][0].clone)
         by_step[step] = ms / K1_STEP_REPEATS
     # the same flood over a plane without any owner: every fold is skipped, so
     # what is left is the loads, the stores and the barriers
-    _, ms_empty, _ = cuda_ms_fresh(lambda: torch.full_like(owner0, n),
-                                   lambda o: jfa_pass_cuda.jfa_flood(o, table, steps, *args), REPS)
+    _, ms_empty = timed_ms(lambda o: jfa_pass_cuda.jfa_flood(o, table, steps, *args), device,
+                           REPS, lambda: torch.full_like(owner0, n))
     # Bound. The flood must read the owner plane once and write it once
     # through device memory (8 B a cell) and read the table; from pass to pass
     # the two planes can stay in L2. A pass costs, per cell, 4 FP32
@@ -568,15 +546,15 @@ def phase_k2_shape(name, S, spec, device):
     """K2 at one preset's shape, on an orchard's opened grid: against the
     plain loop, bitwise; the fixpoint's time by CUDA events with no host
     read inside; the bound."""
+    from aosx_torch.cuda_build import timed_ms
     from aosx_torch.perceive import skeleton_cuda
 
     opened = opened_grid(S, spec, device)
     occ, hc, wc = opened.occ.contiguous(), opened.h_cells, opened.w_cells
     H, W = occ.shape
     it_k, err = check_k2(name, occ, hc, wc, (S.skeleton_max_iters, 3))
-    (skeleton, stats), ms_k, _ = cuda_ms_fresh(
-        lambda: occ, lambda o: skeleton_cuda.zhang_suen_fixpoint(o, hc, wc, S.skeleton_max_iters),
-        REPS)
+    (skeleton, stats), ms_k = timed_ms(
+        lambda: skeleton_cuda.zhang_suen_fixpoint(occ, hc, wc, S.skeleton_max_iters), device, REPS)
     assert int(stats[0]) == it_k
     (_, it_p, _), ms_p = cuda_ms(lambda: skeleton_cuda.zhang_suen_fixpoint_plain(
         occ, hc, wc, S.skeleton_max_iters), REPS)
@@ -1088,11 +1066,13 @@ def cuda_ms_once(fn):
     return out, a.elapsed_time(b)
 
 
-def chain_bound_ms(stores, steps, load_clocks):
-    """Least ms of a one-thread chase: ``stores`` independent table stores at
-    one a clock, then ``steps`` dependent steps of one load-to-use latency
-    plus three dependent integer operations (multiply-add, mask, xor)."""
-    return 1e3 * (stores + steps * (load_clocks + 3 * INT_DEP_CLOCKS)) / SM_CLOCK_HZ
+def chain_bound_ms(table_bytes, steps, load_clocks):
+    """Least ms of a one-thread chase: ``steps`` dependent steps of one
+    load-to-use latency plus three dependent integer operations (xor,
+    multiply-add, mask), and ``table_bytes`` into and out of one SM's shared
+    memory at its bank rate."""
+    return 1e3 * (steps * (load_clocks + 3 * DEP_OP_CLOCKS) / SM_CLOCK_HZ
+                  + table_bytes / SM_SMEM_BYTES_PER_S)
 
 
 def phase_probes(device):
@@ -1101,6 +1081,7 @@ def phase_probes(device):
 
     import torch
     from aosx_torch import probes
+    from aosx_torch.cuda_build import timed_ms
 
     ref = json.loads(PROBES_REFERENCE.read_text())
     seed = probes.seed_tensor(device, ref["seed"])
@@ -1114,59 +1095,91 @@ def phase_probes(device):
             raise AssertionError(f"{name}: kernel == plain {equal}; differs from "
                                  f"tests/torch_reference/probes.json in {bad}")
 
-    # P1: table in global memory, then the same chain from shared memory
-    (c_k, tab_k), ms1 = cuda_ms(lambda: probes.chase_rw(seed), REPS)
-    (c_s, tab_s), ms1s = cuda_ms(lambda: probes.chase_rw(seed, shared=True), REPS)
+    def max_err(pairs):
+        return float(max((a.double() - b.double()).abs().max() for a, b in pairs))
+
+    # the shared-memory load-to-use latency of P1's u16 and P2's i32 loads,
+    # the least of REPS measurements: the latency term of their bounds
+    lat16, lat32 = (min(probes.shared_load_clocks(device, wide=wide) for _ in range(REPS))
+                    for wide in (False, True))
+    log(f"# phase 8: shared-memory load-to-use latency, a dependent chase of "
+        f"{probes.LAT_LOADS} loads: u16 {lat16:.3f} clocks, u32 {lat32:.3f} clocks")
+
+    # P1: the table in shared memory (the design chase_rw launches), then the
+    # global-memory form; each call behind a busy card
+    (c_k, tab_k), ms1 = timed_ms(lambda: probes.chase_rw(seed), device, REPS)
+    (c_g, tab_g), ms1g = timed_ms(lambda: probes.chase_rw(seed, shared=False), device, REPS)
     (c_p, tab_p), ms1p = cuda_ms_once(lambda: probes.chase_rw_plain(seed))
-    eq1 = (torch.equal(c_k, c_p) and torch.equal(tab_k, tab_p) and torch.equal(c_s, c_p)
-           and torch.equal(tab_s, tab_p))
-    err1 = float(max((c_k.double() - c_p.double()).abs().max(),
-                     (tab_k.double() - tab_p.double()).abs().max(),
-                     (tab_s.double() - tab_p.double()).abs().max()))
+    pairs1 = ((c_k, c_p), (tab_k, tab_p), (c_g, c_p), (tab_g, tab_p))
+    eq1 = all(torch.equal(a, b) for a, b in pairs1)
     check("P1", eq1, p1_c=int(c_k), p1_table_sha256=sha(tab_k))
-    b1 = chain_bound_ms(probes.P1_N, probes.P1_STEPS, L1_HIT_CLOCKS)
-    b1s = chain_bound_ms(probes.P1_N, probes.P1_STEPS, SMEM_CLOCKS)
+    # u16 iota into shared memory, the u16 table out of it
+    b1 = chain_bound_ms(2 * 2 * probes.P1_N, probes.P1_STEPS, lat16)
+    assert_under_bound("P1 chase_rw", ms1, b1)
+    assert_under_bound("P1 chase_rw, global table", ms1g, b1)
     log(f"# phase 8: P1 chase_rw N={probes.P1_N}, {probes.P1_STEPS} steps: c = {int(c_k)}, "
-        f"kernel {ms1:.3f} ms ({1e6 * ms1 / probes.P1_STEPS:.1f} ns/step, global table; bound "
-        f"{b1:.3f} ms at an L1 hit a step), shared-memory u16 table {ms1s:.3f} ms "
-        f"({1e6 * ms1s / probes.P1_STEPS:.1f} ns/step; bound {b1s:.3f} ms), plain {ms1p:.1f} ms, "
-        f"c and table bitwise equal {eq1}")
+        f"shared-memory u16 table {ms1:.4f} ms ({1e6 * ms1 / probes.P1_STEPS:.2f} ns/step, "
+        f"{SM_CLOCK_HZ * 1e-3 * ms1 / probes.P1_STEPS:.1f} clocks at 1.98 GHz), global table "
+        f"{ms1g:.4f} ms ({1e6 * ms1g / probes.P1_STEPS:.2f} ns/step); bound {b1:.4f} ms (a "
+        f"u16 shared load of {lat16:.3f} clocks + 3 x {DEP_OP_CLOCKS:g} a step): "
+        f"{100 * b1 / ms1:.1f} % and {100 * b1 / ms1g:.1f} %; plain {ms1p:.1f} ms; c and "
+        f"table bitwise equal {eq1}")
 
     # P2
-    c2, ms2 = cuda_ms(lambda: probes.chase_ro(seed), REPS)
+    c2, ms2 = timed_ms(lambda: probes.chase_ro(seed), device, REPS)
     c2p, ms2p = cuda_ms_once(lambda: probes.chase_ro_plain(seed))
     eq2 = torch.equal(c2, c2p)
     check("P2", eq2, p2_c=int(c2))
-    b2 = chain_bound_ms(probes.P2_N, probes.P2_STEPS, SMEM_CLOCKS)
+    b2 = chain_bound_ms(4 * probes.P2_N, probes.P2_STEPS, lat32)
+    assert_under_bound("P2 chase_ro", ms2, b2)
     log(f"# phase 8: P2 chase_ro {probes.P2_N}-entry shared table, {probes.P2_STEPS} steps: "
-        f"c = {int(c2)}, kernel {ms2:.3f} ms ({1e6 * ms2 / probes.P2_STEPS:.1f} ns/step; bound "
-        f"{b2:.3f} ms), plain {ms2p:.1f} ms, bitwise equal {eq2}")
+        f"c = {int(c2)}, kernel {ms2:.4f} ms ({1e6 * ms2 / probes.P2_STEPS:.2f} ns/step; bound "
+        f"{b2:.4f} ms, {100 * b2 / ms2:.1f} %), plain {ms2p:.1f} ms, bitwise equal {eq2}")
 
-    # P3, and torch.gather alone for its 64 rounds (the library call)
+    # P3 on the probe's input and on random i32 input, and torch.gather
+    # alone for the probe's 64 rounds (the library call)
+    def p3(name, x, idx):
+        out_k, ms = timed_ms(lambda: probes.gather_rows(x, idx), device, REPS)
+        out_p, ms_p = cuda_ms(lambda: probes.gather_rows_plain(x, idx), REPS)
+        n_gather = x.numel() * probes.P3_ROUNDS
+        # x and idx read once, acc written once; per gathered element an add
+        # and a mask (INT32: with t = idx + acc carried, the index add and the
+        # accumulate are one add) and one 4-byte word from the banks,
+        # conflict-free
+        b_ops, _ = bound(3 * 4 * x.numel(), int32_ops=2.0 * n_gather)
+        b_banks = 1e3 * 4 * n_gather / SMEM_BYTES_PER_S
+        b = max(b_ops, b_banks)
+        assert_under_bound(f"P3 gather_rows, {name}", ms, b)
+        # diagnostic, not the bound: the wavefronts a warp-wide load takes on
+        # these indices (from the plain version's rounds) in the kernel's
+        # layout and in the identity layout, and the bank time they force
+        wf = probes.gather_wavefronts(x, idx)
+        wf_id = probes.gather_wavefronts(x, idx, layout=lambda a: a)
+        log(f"# phase 8: P3 gather_rows {name} {tuple(x.shape)} x {probes.P3_ROUNDS} rounds: "
+            f"kernel {ms:.4f} ms ({1e6 * ms / n_gather:.5f} ns/element), plain {ms_p:.3f} ms, "
+            f"bound {b:.4f} ms ({100 * b / ms:.1f} %; INT32 {b_ops:.4f}, conflict-free banks "
+            f"{b_banks:.4f}); wavefronts a warp-load {wf:.4f} in the kernel's layout "
+            f"({wf * b_banks:.4f} ms of banks), {wf_id:.4f} in the identity layout "
+            f"({wf_id * b_banks:.4f} ms); all {out_k.numel()} outputs bitwise equal "
+            f"{torch.equal(out_k, out_p)}")
+        if not torch.equal(out_k, out_p):
+            raise AssertionError(f"P3 {name}: kernel != plain")
+        return out_k, out_p, ms, ms_p, b
+
     x, idx = probes.gather_rows_inputs(device)
-    out_k, ms3 = cuda_ms(lambda: probes.gather_rows(x, idx), REPS)
-    out_p, ms3p = cuda_ms(lambda: probes.gather_rows_plain(x, idx), REPS)
+    out_k, out_p, ms3, ms3p, b3 = p3("probe input", x, idx)
+    check("P3", True, p3_sum=int(out_k.sum(dtype=torch.int64)), p3_first4=out_k[0, :4].tolist(),
+          p3_sha256=sha(out_k))
+    xr, idxr = probes.gather_rows_random_inputs(device)
+    out_r, out_rp, ms3r, ms3rp, _ = p3("random input", xr, idxr)
     index = ((idx + out_p) & (probes.P3_COLS - 1)).long()
 
     def gathers():
         for _ in range(probes.P3_ROUNDS):
             torch.gather(x, 1, index)
 
-    _, ms3lib = cuda_ms(gathers, REPS)
-    eq3 = torch.equal(out_k, out_p)
-    err3 = float((out_k.double() - out_p.double()).abs().max())
-    check("P3", eq3, p3_sum=int(out_k.sum(dtype=torch.int64)), p3_first4=out_k[0, :4].tolist(),
-          p3_sha256=sha(out_k))
-    n_gather = x.numel() * probes.P3_ROUNDS
-    # x and idx read once, acc written once; per gathered element an index
-    # add, a mask and the accumulate (INT32) and one 4-byte shared-memory read
-    b3_ops, _ = bound(3 * 4 * x.numel(), int32_ops=3.0 * n_gather)
-    b3 = max(b3_ops, 1e3 * 4 * n_gather / SMEM_BYTES_PER_S)
-    log(f"# phase 8: P3 gather_rows {tuple(x.shape)} x {probes.P3_ROUNDS} rounds: kernel "
-        f"{ms3:.4f} ms ({1e6 * ms3 / n_gather:.5f} ns/element), plain {ms3p:.3f} ms, "
-        f"torch.gather x {probes.P3_ROUNDS} {ms3lib:.3f} ms, bound {b3:.4f} ms (INT32 "
-        f"{b3_ops:.4f}, shared-memory banks {1e3 * 4 * n_gather / SMEM_BYTES_PER_S:.4f}), "
-        f"all {out_k.numel()} outputs bitwise equal {eq3}")
+    _, ms3lib = timed_ms(gathers, device, REPS)
+    log(f"# phase 8: P3 library call torch.gather x {probes.P3_ROUNDS} {ms3lib:.4f} ms")
 
     # the probe entry point, with the counts set to 0 just before it
     wrappers = (probes.chase_rw, probes.chase_ro, probes.gather_rows)
@@ -1184,16 +1197,16 @@ def phase_probes(device):
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched by the probe entry point")
     return dict(
-        chase_rw=dict(launches=launches["chase_rw"], max_abs_err=err1, ms=ms1, plain_ms=ms1p,
-                      bound_ms=b1, bound_by="operations", library_ms=None, shared_ms=ms1s,
-                      shared_bound_ms=b1s, ns_per_step=1e6 * ms1 / probes.P1_STEPS),
-        chase_ro=dict(launches=launches["chase_ro"],
-                      max_abs_err=float((c2.double() - c2p.double()).abs().max()), ms=ms2,
-                      plain_ms=ms2p, bound_ms=b2, bound_by="operations", library_ms=None,
-                      ns_per_step=1e6 * ms2 / probes.P2_STEPS),
-        gather_rows=dict(launches=launches["gather_rows"], max_abs_err=err3, ms=ms3,
+        chase_rw=dict(launches=launches["chase_rw"], max_abs_err=max_err(pairs1), ms=ms1,
+                      plain_ms=ms1p, bound_ms=b1, bound_by="operations", library_ms=None,
+                      global_ms=ms1g, ns_per_step=1e6 * ms1 / probes.P1_STEPS),
+        chase_ro=dict(launches=launches["chase_ro"], max_abs_err=max_err(((c2, c2p),)),
+                      ms=ms2, plain_ms=ms2p, bound_ms=b2, bound_by="operations",
+                      library_ms=None, ns_per_step=1e6 * ms2 / probes.P2_STEPS),
+        gather_rows=dict(launches=launches["gather_rows"],
+                         max_abs_err=max_err(((out_k, out_p), (out_r, out_rp))), ms=ms3,
                          plain_ms=ms3p, bound_ms=b3, bound_by="operations", library_ms=ms3lib,
-                         ns_per_element=1e6 * ms3 / n_gather))
+                         random_ms=ms3r, random_plain_ms=ms3rp))
 
 
 MC_INT_FIELDS = ("completed", "steps_to_complete", "final_status", "waypoints", "guards",

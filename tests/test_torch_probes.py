@@ -6,8 +6,12 @@ subprocess: the probe module sets JAX_COMPILATION_CACHE_DIR (setdefault) and
 two jax.config cache options when it is imported, so the variable points at
 the test's temporary directory and neither the repository's cache nor this
 worker's jax config is touched. Every comparison is bitwise (all values are
-32-bit integers)."""
+32-bit integers). Beside them, the plain mirrors of the kernels' schemes
+(P1's chain with each load ahead of the store before it, P3's staged-row
+layout and carried index) against the plain versions, and the count of
+bank wavefronts that P3's indices force."""
 
+import functools
 import hashlib
 import json
 import os
@@ -19,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from aosx_torch import probes
+from aosx_torch import cuda_build, probes
 from torch_helpers import cuda_device, one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -133,6 +137,26 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
                       probes.gather_rows.launches)
 
 
+def test_shared_load_clocks_measures_only_the_card():
+    with pytest.raises(ValueError):
+        probes.shared_load_clocks(CPU)
+
+
+def test_timed_ms_takes_a_fresh_input_outside_the_window():
+    """The timing helper of the probes and of chip_smoke.py: the warm-up
+    call's result, and one fresh setup() for each call."""
+    made, seen = [], []
+
+    def setup():
+        made.append(len(made))
+        return made[-1]
+
+    out, ms = cuda_build.timed_ms(lambda k: seen.append(k) or k * 10, CPU, 3, setup)
+    assert out == 0 and seen == made == [0, 1, 2, 3] and ms >= 0
+    out, _ = cuda_build.timed_ms(lambda: "once", CPU, 1)
+    assert out == "once"
+
+
 def test_probe_entry_point_on_the_cpu(capsys):
     probes.main(["p2", "p3b", "p4", "--device", "cpu"])
     lines = capsys.readouterr().out.strip().splitlines()
@@ -144,19 +168,135 @@ def test_probe_entry_point_on_the_cpu(capsys):
 
 
 # ---------------------------------------------------------------------------
+# the kernels' schemes, mirrored in plain code
+# ---------------------------------------------------------------------------
+
+SEEDS = [3, 0, -7, 2**31 - 1, -2**31]
+
+
+@pytest.mark.parametrize("n", [16, 64, 1024])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_p1_pipelined_chain_matches_plain(seed, n):
+    """P1's shared-memory chain (each load ahead of the store before it, the
+    forward folded into the xor) equals the plain loop bitwise, on tables
+    small enough that a step often reads the entry the step before wrote."""
+    s = probes.seed_tensor(CPU, seed)
+    c, table, forwards = probes.chase_rw_pipelined_plain(s, n=n, steps=4096)
+    c_p, table_p = probes.chase_rw_plain(s, n=n, steps=4096)
+    assert forwards > 0
+    assert torch.equal(c, c_p) and torch.equal(table, table_p)
+
+
+def test_p1_pipelined_chain_on_the_probe():
+    """The full probe: the Pallas body's constants, and the 2 forwards of
+    seed 3 over 65,536 steps."""
+    ref = json.loads((REF_DIR / "probes.json").read_text())
+    c, table, forwards = probes.chase_rw_pipelined_plain(probes.seed_tensor(CPU, ref["seed"]))
+    assert int(c) == ref["p1_c"] and _sha(table.numpy()) == ref["p1_table_sha256"]
+    assert forwards == 2
+
+
+def test_p3_layout_is_a_bijection_of_the_staged_row():
+    words = probes.gather_layout(torch.arange(probes.P3_COLS))
+    assert int(words.min()) >= 0 and int(words.max()) < probes.P3_SMEM_WORDS
+    assert torch.unique(words).numel() == probes.P3_COLS
+    lanes = probes.gather_lanes()
+    assert torch.equal(torch.sort(lanes.flatten()).values, torch.arange(probes.P3_COLS))
+
+
+@pytest.mark.parametrize("words, want", [
+    ([5] * 32, 1),                       # one address: a broadcast
+    ([32 * k for k in range(32)], 32),   # stride 32: one bank
+    (list(range(32)), 1),                # stride 1: 32 banks
+    ([2 * k for k in range(32)], 2),     # stride 2: 16 banks, two words each
+    ([7] * 16 + [39] * 16, 2),           # two words of one bank
+])
+def test_bank_wavefronts_hand_cases(words, want):
+    assert probes.bank_wavefronts(torch.tensor([words])).tolist() == [want]
+
+
+def test_gather_wavefronts_on_the_probe_input():
+    """Rows of the probe input are all equal, so one row gives the mean of
+    512: 3.4697 wavefronts a warp-load with consecutive columns in a warp and
+    the identity layout; with the kernel's lanes 3.4985 there and 1.125 in
+    its layout. On random input the layout cannot help."""
+    x, idx = probes.gather_rows_inputs(CPU, rows=1)
+
+    def identity(a):
+        return a
+
+    consecutive = torch.arange(probes.P3_COLS).reshape(-1, 32)
+    assert probes.gather_wavefronts(x, idx, layout=identity, lanes=consecutive) == 3.4697265625
+    assert probes.gather_wavefronts(x, idx, layout=identity) == 3.49853515625
+    assert probes.gather_wavefronts(x, idx) == 1.125
+    xr, idxr = probes.gather_rows_random_inputs(CPU, rows=4)
+    assert 2.5 < probes.gather_wavefronts(xr, idxr) < 3.5
+
+
+@pytest.mark.parametrize("inputs", ["probe", "random"])
+def test_p3_layout_mirror_matches_plain(inputs):
+    """The kernel's scheme (staged row through the layout, carried index)
+    equals the plain rounds bitwise, wrapping sums included."""
+    if inputs == "probe":
+        x, idx = probes.gather_rows_inputs(CPU, rows=2)
+    else:
+        x, idx = probes.gather_rows_random_inputs(CPU, rows=8)
+    assert torch.equal(probes.gather_rows_layout_plain(x, idx), probes.gather_rows_plain(x, idx))
+
+
+def test_p3_pallas_body_on_random_input(pallas):
+    """taa_kernel in interpret mode on 8 rows of random i32 x and idx
+    (negative values, wrapping sums) equals the plain version."""
+    _, arrays = pallas
+    x, idx = (torch.from_numpy(arrays[k]) for k in ("p3_random_x", "p3_random_idx"))
+    assert (x < 0).any()
+    assert np.array_equal(probes.gather_rows_plain(x, idx).numpy(), arrays["p3_random"])
+
+
+# ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version, bitwise
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _chase_reference(seed, n, steps):
+    return _chase_numpy(n, steps, seed, write=True)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shared", [False, True])
-def test_p1_kernel_matches_plain(cuda_device, shared):
-    seed = probes.seed_tensor(cuda_device)
+@pytest.mark.parametrize("n", [16, 1024, 65536])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_p1_kernel_matches_plain(cuda_device, shared, n, seed):
+    """Both table forms against the numpy transcription, which the CPU tests
+    hold equal to chase_rw_plain."""
     n0 = probes.chase_rw.launches
-    c, table = probes.chase_rw(seed, shared=shared)
-    c_p, table_p = probes.chase_rw_plain(seed)
+    c, table = probes.chase_rw(probes.seed_tensor(cuda_device, seed), n=n, shared=shared)
+    c_p, table_p = _chase_reference(seed, n, probes.P1_STEPS)
     assert probes.chase_rw.launches == n0 + 1
-    assert torch.equal(c, c_p) and torch.equal(table, table_p)
+    assert int(c) == int(c_p) and np.array_equal(table.cpu().numpy(), table_p)
+
+
+@pytest.mark.cuda
+def test_p1_table_form_by_size(cuda_device):
+    """A table over 65,536 entries runs in global memory; in shared memory,
+    the default, it raises."""
+    seed = probes.seed_tensor(cuda_device)
+    c, table = probes.chase_rw(seed, n=2**17, steps=4096, shared=False)
+    c_p, table_p = _chase_reference(probes.SEED, 2**17, 4096)
+    assert int(c) == int(c_p) and np.array_equal(table.cpu().numpy(), table_p)
+    with pytest.raises(ValueError):
+        probes.chase_rw(seed, n=2**17)
+    c, _ = probes.chase_rw(seed)
+    assert torch.equal(c, probes.chase_rw_plain(seed.cpu())[0].to(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+def test_shared_load_clocks(cuda_device, wide):
+    """The chase ends where the table says, at a load-to-use latency of tens
+    of clocks."""
+    assert 10 < probes.shared_load_clocks(cuda_device, wide=wide) < 100
 
 
 @pytest.mark.cuda
@@ -175,3 +315,12 @@ def test_p3_kernel_matches_plain(cuda_device):
     assert probes.gather_rows.launches == n0 + 1
     with pytest.raises(ValueError):
         probes.gather_rows(x[:, :1024].contiguous(), idx[:, :1024].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 7, 512])
+def test_p3_kernel_on_random_input(cuda_device, rows):
+    x, idx = probes.gather_rows_random_inputs(cuda_device, rows=rows)
+    n0 = probes.gather_rows.launches
+    assert torch.equal(probes.gather_rows(x, idx), probes.gather_rows_plain(x, idx))
+    assert probes.gather_rows.launches == n0 + 1

@@ -9,7 +9,9 @@ output sum, first four values and sha256, P4's sum and sha256, and the
 sha256 of P1's final table. The Pallas body does not return that table, so
 it comes from a numpy transcription of the body, which must reproduce the
 body's ``c``. ``chip_smoke.py`` and ``tests/test_torch_probes.py`` hold the
-port's kernels and plain versions to these constants.
+port's kernels and plain versions to these constants. With ``--npz`` the
+full arrays go to a file, and beside them P3's body on a small random input
+(8 rows, x and idx over the whole i32 range, from numpy's seed 5).
 
 The probe module sets ``JAX_COMPILATION_CACHE_DIR`` with ``setdefault`` when
 it is imported: set the variable first to keep the cache elsewhere.
@@ -118,8 +120,16 @@ def main():
     )
     pathlib.Path(args.out).write_text(json.dumps(ref, indent=1) + "\n")
     if args.npz:
+        rng = np.random.default_rng(5)
+        x8, idx8 = (rng.integers(-2**31, 2**31, (8, 2048), dtype=np.int64).astype(np.int32)
+                    for _ in range(2))
+        p3_small = pl.pallas_call(
+            probe.taa_kernel, out_shape=jax.ShapeDtypeStruct((8, 2048), jnp.int32),
+            in_specs=[vmem, vmem], out_specs=vmem, interpret=True)
+        out8 = np.asarray(jax.jit(p3_small)(jnp.asarray(x8), jnp.asarray(idx8)))
         np.savez_compressed(args.npz, p1_c=c1, p1_table=table, p2_c=c2, p3=out3, p4=out4,
-                            p4_idx=np.asarray(idx4))
+                            p4_idx=np.asarray(idx4), p3_random_x=x8, p3_random_idx=idx8,
+                            p3_random=out8)
     print(json.dumps(ref))
 
 
