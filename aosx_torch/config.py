@@ -253,3 +253,40 @@ def params_as_f32(p: AosParams, device) -> AosParams:
 
     return AosParams(**{f.name: conv(getattr(p, f.name))
                         for f in dataclasses.fields(p)})
+
+
+# YAML keys of the reference's aos_planner_params.yaml and the AosParams
+# fields they set (same names where they exist)
+_YAML_TO_FIELD = {
+    "clipping_minz": "clipping_minz",
+    "clipping_maxz": "clipping_maxz",
+    "clipping_minx": "clipping_minx",
+    "clipping_maxx": "clipping_maxx",
+    "clipping_miny": "clipping_miny",
+    "clipping_maxy": "clipping_maxy",
+    "cluster_min_length": "cluster_min_length",
+}
+# ... and the shape-determining ones, returned apart for a Statics
+_YAML_TO_STATIC = {
+    "grid_resolution": "resolution",
+    "inflation_radius": "inflation_radius",
+}
+
+
+def load_yaml(path: str, node: str = "aos_seed_gen_node"):
+    """Load the reference's aos_planner_params.yaml schema: the global
+    ``/**`` section, then the node's overrides (as ``aosx.config.load_yaml``).
+
+    Returns (params: AosParams, static_overrides: dict): resolution and
+    inflation radius determine shapes, so they come back apart for the
+    caller to fold into a Statics."""
+    import yaml
+
+    with open(path) as f:
+        doc = yaml.safe_load(f)
+    merged: dict = {}
+    merged.update(doc.get("/**", {}).get("ros__parameters", {}))
+    merged.update(doc.get(f"/{node}", {}).get("ros__parameters", {}))
+    params = {fk: float(merged[yk]) for yk, fk in _YAML_TO_FIELD.items() if yk in merged}
+    statics = {fk: float(merged[yk]) for yk, fk in _YAML_TO_STATIC.items() if yk in merged}
+    return AosParams(**params), statics

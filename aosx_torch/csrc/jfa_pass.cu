@@ -10,7 +10,9 @@
 // (y - dys*step, x - dxs*step), in the (dys, dxs) order of
 // voronoi.jacobi_fold, with a lexicographic min on (d2, owner index).
 // Neighbours outside the grid read owner S; owners >= S never win (their d2 is
-// 3.4e38). Cell coordinates are origin + (float)index * res.
+// 3.4e38). Cell coordinates are fma((float)index, res, origin) and d2 is
+// fma(dx, dx, dy * dy): each rounded once, as XLA:CPU fuses the reference's
+// expressions.
 //
 // Bound on the H100. The carried positions are redundant: the flood starts
 // with (ox, oy) = table[owner] for table = seeds.xy with a row (1e9, 1e9)
@@ -18,10 +20,11 @@
 // pass. Carrying the owner alone, a pass has to read and write 8 bytes a cell
 // (24 with the positions), and the two planes of the ping-pong pair (32.8 MB at
 // 2000 x 2048) stay in the 50 MB L2 from pass to pass, so a flood's compulsory
-// device-memory traffic is the plane once in and once out. Its arithmetic is 4
-// FP32 operations a cell for the coordinates and 5 or 6 for each distinct owner
-// among a cell's nine candidates. Both together bound a flood of 12 passes at
-// 2000 x 2048 at a few hundredths of a millisecond. The kernel takes 0.45 ms
+// device-memory traffic is the plane once in and once out. Its arithmetic is an
+// FP32 FMA for each row's and each column's coordinate (H + W a pass; this
+// kernel forms cy once a 4-cell thread and cx once a cell) and 4 or 5 for each
+// distinct owner among a cell's nine candidates. Both together bound a flood
+// of 12 passes at 2000 x 2048 at a few hundredths of a millisecond. The kernel takes 0.45 ms
 // there (measured on an H100), and 0.27 ms of it over a plane without owners,
 // where every fold is skipped: what it pays for is mostly the nine owner reads
 // a cell, 16-byte loads from L2 (about 150 MB a pass), with their index
@@ -41,10 +44,11 @@
 //   - One call runs every pass of a flood: one cooperative launch with a grid
 //     barrier between passes (a launch a pass from the same call measured 7 %
 //     slower at 2000 x 2048 and 19 % at 384 x 512 on an H100).
-//   - Built with -fmad=false and written with __fsub_rn/__fmul_rn/__fadd_rn so
-//     that no multiply-add is contracted: d2 rounds exactly as the plain
-//     version's separate operations, and owners agree bit for bit at
-//     near-ties.
+//   - Built with -fmad=false and written with __fsub_rn/__fmul_rn/__fmaf_rn so
+//     that the compiler contracts nothing on its own: the cell coordinates and
+//     d2 round exactly as the plain version's (ops.fma where the reference
+//     is fused, separate operations elsewhere), and owners agree bit for bit
+//     at near-ties.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -63,10 +67,12 @@ struct Steps {
   int v[kMaxSteps];
 };
 
+// fma(dx, dx, dy * dy): the fused multiply-add XLA:CPU makes of the
+// reference's (px - cx)^2 + (py - cy)^2, and the plain version's ops.fma
 __device__ __forceinline__ float dist2(float2 p, float cx, float cy) {
   const float dx = __fsub_rn(p.x, cx);
   const float dy = __fsub_rn(p.y, cy);
-  return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+  return __fmaf_rn(dx, dx, __fmul_rn(dy, dy));
 }
 
 // Fold candidate owner `no` into the state (o, d2) of the cell at (cx, cy).
@@ -124,12 +130,12 @@ __device__ __forceinline__ void pass(const int32_t* src, int32_t* dst,
         ++n;
       }
     }
-    const float cy = __fadd_rn(oy0, __fmul_rn((float)iy, res));
+    const float cy = __fmaf_rn((float)iy, res, oy0);
     float cx[4], d2[4];
     int o[4] = {own.x, own.y, own.z, own.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      cx[k] = __fadd_rn(ox0, __fmul_rn((float)(x0 + k), res));
+      cx[k] = __fmaf_rn((float)(x0 + k), res, ox0);
       d2[k] = (o[k] < S) ? dist2(table[o[k]], cx[k], cy) : kInf;
     }
 #pragma unroll

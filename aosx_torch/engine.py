@@ -20,8 +20,9 @@ import torch
 from .config import AosParams, Statics
 from .geom import atan2, cos, sin, wrap_angle
 from .guards import GUARD_NONFINITE, GUARD_PLAN_CAP
-from .ops import lanes, take_row
-from .gvd.graph import build_gvd_graph
+from .ops import lanes, sqrt, take_row
+from .gvd.graph import build_gvd_graph, merge_seeds
+from .gvd.voronoi import jump_flood
 from .perceive.pipeline import PerceiveOut, perceive
 from .plan.astar import CsrCosts, cost_matrix
 from .plan.control import control_tick, on_path
@@ -83,11 +84,19 @@ class EngineState:
 
 
 def prepare_world_full(pc: PointCloud, poly: Polygon, params: AosParams, exclusions,
-                       s: Statics, *, ror_method: str = "sorted"):
-    """One full perception + graph pass over a static map. Returns
-    (World, PerceiveOut)."""
+                       s: Statics, *, ror_method: str = "sorted", with_owner: bool = False):
+    """One full perception + graph pass over a static map. Returns (World,
+    PerceiveOut, owner plane or None); the extras feed the renderer's seed,
+    tree-row and Voronoi-cell overlays (io/render.py)."""
     out = perceive(pc, poly, params, exclusions, s, ror_method=ror_method)
-    return world_from_perceive(out, params, s), out
+    world = world_from_perceive(out, params, s)
+    return world, out, owner_plane(out, params, s) if with_owner else None
+
+
+def owner_plane(out: PerceiveOut, params: AosParams, s: Statics):
+    """The Voronoi ownership plane (i32 [H, W], seed index or -1) of the
+    merged seeds over the skeleton: the renderer's cell overlay."""
+    return jump_flood(out.skeleton, merge_seeds(out.seeds, params, s), s)
 
 
 def world_from_perceive(out: PerceiveOut, params: AosParams, s: Statics) -> World:
@@ -148,7 +157,7 @@ def _move_robot(robot: Robot, mod, plan: Path, goal_xy, goal_yaw, v_dt=0.12, yaw
     far = torch.tensor(3.4e38, dtype=torch.float32, device=dev)
     idx = torch.arange(Q, device=dev)
     dp = plan.xy - robot.xy[..., None, :]
-    d = torch.sqrt(dp[..., 0] * dp[..., 0] + dp[..., 1] * dp[..., 1])
+    d = sqrt(dp[..., 0] * dp[..., 0] + dp[..., 1] * dp[..., 1])
     # monotone window; the global search when the window is empty
     live_g = idx < plan.count[..., None]
     live_w = live_g & (idx >= robot.follow_i[..., None])
@@ -159,7 +168,7 @@ def _move_robot(robot: Robot, mod, plan: Path, goal_xy, goal_yaw, v_dt=0.12, yaw
 
     tgt = torch.where(lanes(mod == 0, goal_xy), follow_tgt, goal_xy)
     delta = tgt - robot.xy
-    dist = torch.sqrt(delta[..., 0] * delta[..., 0] + delta[..., 1] * delta[..., 1])
+    dist = sqrt(delta[..., 0] * delta[..., 0] + delta[..., 1] * delta[..., 1])
     step = torch.minimum(v_dt, dist)
     move = torch.where((dist > 1e-6)[..., None],
                        delta / torch.clamp(dist, min=1e-6)[..., None] * step[..., None],

@@ -25,17 +25,21 @@ import torch
 
 from .. import cuda_build
 from . import voronoi as _voronoi
+from ..ops import fma
 from ..perceive.raster import iota2, shift2d
 
 FAR = 1e9
 MAX_STEPS = 32
 
 def cell_coords(shape, origin_x, origin_y, res: float, device):
-    """(cellx, celly) f32 planes: origin + f32(index) * res."""
+    """(cellx, celly) f32 planes: origin + f32(index) * res rounded once, as
+    the fused multiply-add XLA:CPU makes of ``aosx/gvd/voronoi.py``'s
+    cell coordinates."""
     iy, ix = iota2(shape, device)
     resf = torch.tensor(res, dtype=torch.float32, device=device)
-    return (origin_x + ix.to(torch.float32) * resf,
-            origin_y + iy.to(torch.float32) * resf)
+    ox = torch.as_tensor(origin_x, dtype=torch.float32, device=device)
+    oy = torch.as_tensor(origin_y, dtype=torch.float32, device=device)
+    return fma(ix.to(torch.float32), resf, ox), fma(iy.to(torch.float32), resf, oy)
 
 
 def jfa_pass_plain(owner, ox, oy, step: int, S: int, origin_x, origin_y, res: float):

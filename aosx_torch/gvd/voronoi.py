@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..config import Statics
+from ..ops import fma
 from ..perceive.raster import f32, live_mask
 from ..types import GridWorld, SeedSet
 
@@ -58,13 +59,14 @@ def _jfa_init(grid: GridWorld, seeds: SeedSet, s: Statics):
 def jacobi_fold(o0, x0, y0, neighbors, S: int, cellx, celly):
     """One Jacobi JFA update: fold the 8 pass-start neighbour triples
     (owner, x, y) into the state with a lexicographic (d2, owner) min.
-    d2 = (px - cellx)^2 + (py - celly)^2 with each operation rounded
-    separately (the CUDA kernel does the same)."""
+    d2 = fma(dx, dx, dy * dy) for dx = px - cellx, dy = py - celly: the
+    fused multiply-add XLA:CPU makes of ``aosx``'s squared distance (the
+    CUDA kernel does the same)."""
 
     def dist2(px, py):
         dx = px - cellx
         dy = py - celly
-        return dx * dx + dy * dy
+        return fma(dx, dx, dy * dy)
 
     inf = torch.tensor(INF, dtype=torch.float32, device=o0.device)
     d2 = torch.where(o0 < S, dist2(x0, y0), inf)

@@ -6,12 +6,14 @@ the leaves. ``save_state`` writes ``<path>.npz`` with one array per leaf,
 key, None skipped): the order in which the JAX package flattens the same
 state, so that a checkpoint written by either package loads in the other.
 ``<path>.tree`` lists the leaf paths for a reader. ``load_state`` takes the
-structure, dtypes and devices from a ``like`` state.
+structure, dtypes and devices from a ``like`` state. ``save_cluster_info``
+persists a graph and its tree rows for the map-save chain.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import numpy as np
 import torch
@@ -78,3 +80,30 @@ def load_state(path: str, like):
         else:
             out.append(np.asarray(arr, dtype=np.asarray(ref).dtype))
     return _rebuild(like, iter(out))
+
+
+def _np(t):
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def save_cluster_info(path: str, graph, rows_sorted) -> None:
+    """The /gvd/save_cluster_info service the reference declares clients
+    for (aos_path_gen_node.cpp:106, panel) but never implements: the graph
+    and the cluster/label tables as <path>.json + <path>.npz, the same keys
+    and arrays as ``aosx.io.checkpoint.save_cluster_info``."""
+    n = int(graph.num_nodes)
+    e = int(graph.num_edges)
+    with open(path + ".json", "w") as f:
+        json.dump(dict(num_nodes=n, num_edges=e), f)
+    np.savez_compressed(
+        path + ".npz",
+        nodes=_np(graph.nodes)[:n],
+        node_labels=_np(graph.node_labels)[:n],
+        label_node=_np(graph.label_node),
+        edges=_np(graph.edges)[:e],
+        edge_lengths=_np(graph.edge_lengths)[:e],
+        row_centers=_np(rows_sorted.center),
+        row_ep1=_np(rows_sorted.ep1),
+        row_ep2=_np(rows_sorted.ep2),
+        row_valid=_np(rows_sorted.valid),
+    )

@@ -38,6 +38,7 @@ import torch
 from .. import engine, tree
 from ..config import AosParams, Statics
 from ..convert import to_numpy
+from ..ops import sqrt
 from ..orchards import OrchardSpec, make_orchard_np
 from ..plan import plancache
 from ..types import PointCloud, Polygon
@@ -74,7 +75,7 @@ def _i32(v, device):
 
 
 def _norm(xy):
-    return torch.sqrt(xy[..., 0] * xy[..., 0] + xy[..., 1] * xy[..., 1])
+    return sqrt(xy[..., 0] * xy[..., 0] + xy[..., 1] * xy[..., 1])
 
 
 def _invalidate_flagged(summary, s: Statics):

@@ -20,6 +20,7 @@ import torch
 from ..config import AosParams, Statics
 from ..geom import active_bounds
 from ..guards import GUARD_ROR_SPAN
+from ..ops import sqrt
 from ..types import PointCloud, Polygon
 from . import ror_cuda
 
@@ -114,7 +115,7 @@ def _ror_counts_sorted(pts, n, r2, W: int = 2048):
     first_x = blocks[:, 0, 0]
     last_x = blocks[:, -1, 0]
     if Nb > 2:
-        violated = (first_x[2:] - last_x[:-2] < torch.sqrt(r2)).any()
+        violated = (first_x[2:] - last_x[:-2] < sqrt(r2)).any()
     else:
         violated = torch.zeros((), dtype=torch.bool, device=dev)
     return cnt[:n], violated

@@ -35,6 +35,7 @@ from ..ops import (
     segment_max,
     segment_min,
     segment_sum,
+    sqrt,
     while_loop,
 )
 from ..types import GridWorld, Polygon, TreeRows
@@ -299,7 +300,7 @@ def cluster_grid(skel: GridWorld, poly: Polygon, params: AosParams, s: Statics):
         same = rc[:, :, None] == tc[:, None, :]
         row_max = torch.where(same, d2, -1.0).max(dim=2).values
         best = torch.maximum(best, segment_max(row_max.reshape(-1), rc.reshape(-1), K + 1))
-    length = torch.where(valid, torch.sqrt(torch.clamp(best[:K], min=0.0)) * res, 0.0)
+    length = torch.where(valid, sqrt(torch.clamp(best[:K], min=0.0)) * res, 0.0)
 
     n_cells_true = mask0.sum(dtype=torch.int32)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
@@ -366,11 +367,11 @@ def rows_from_clusters(clusters: dict, skel: GridWorld, poly: Polygon,
     max_d2, arg1 = seg_argmax(d2m)
     arg1 = torch.clamp(arg1[:K], max=M - 1).long()
     ep1x, ep1y = cwx[arg1], cwy[arg1]
-    n1 = torch.sqrt(torch.clamp(max_d2[:K], min=1e-30))
+    n1 = sqrt(torch.clamp(max_d2[:K], min=1e-30))
     f_dirx = (ep1x - center_wx) / n1
     f_diry = (ep1y - center_wy) / n1
 
-    nrm = torch.sqrt(torch.clamp(d2, min=1e-30))
+    nrm = sqrt(torch.clamp(d2, min=1e-30))
     dot = (dx / nrm) * f_dirx[cidc] + (dy / nrm) * f_diry[cidc]
     not_first = ar != arg1[cidc]
     opp_ok = (dot < 0.0) & not_first & (ccid < K) & (d2 > 0)

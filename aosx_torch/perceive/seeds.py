@@ -20,7 +20,7 @@ import torch
 
 from ..config import AosParams, Statics
 from ..geom import point_in_polygon
-from ..ops import fma, while_loop
+from ..ops import fma, sqrt, while_loop
 from ..types import GridWorld, Polygon, SeedSet, TreeRows
 from .raster import edge_replicated, f32, shift2d
 
@@ -102,7 +102,7 @@ def raycast_bounded(grid: GridWorld, start, direction, active, max_dist, min_dis
     occ01 = (occ_ext == 1).to(torch.uint8)
     dil = dilate_chebyshev(occ01, 3)
 
-    dnorm = torch.sqrt(direction[:, 0] * direction[:, 0] + direction[:, 1] * direction[:, 1])
+    dnorm = sqrt(direction[:, 0] * direction[:, 0] + direction[:, 1] * direction[:, 1])
 
     def cells(px, py):
         gx = torch.clamp(torch.floor((px - grid.origin_x) / res).to(torch.int32), 0, W - 1)
@@ -171,7 +171,7 @@ def cast_rays_unbounded(grid: GridWorld, start, direction, active, min_dist,
     maxy = grid.origin_y + grid.h_cells.to(torch.float32) * res
     gw = grid.w_cells.to(torch.float32) * res
     gh = grid.h_cells.to(torch.float32) * res
-    abs_max = torch.sqrt(gw * gw + gh * gh) * diag_mult
+    abs_max = sqrt(gw * gw + gh * gh) * diag_mult
 
     def clamp(p):
         return torch.stack([torch.minimum(torch.maximum(p[:, 0], minx), maxx),
@@ -192,8 +192,9 @@ def cast_rays_unbounded(grid: GridWorld, start, direction, active, min_dist,
     def body(st):
         dist, done, result = st
         dk = dist[:, None] + k * step
-        px = start[:, 0:1] + direction[:, 0:1] * dk
-        py = start[:, 1:2] + direction[:, 1:2] * dk
+        # start + direction * dk rounded once: XLA:CPU fuses it
+        px = fma(direction[:, 0:1], dk, start[:, 0:1])
+        py = fma(direction[:, 1:2], dk, start[:, 1:2])
         inb = (px >= minx) & (px <= maxx) & (py >= miny) & (py <= maxy)
         # C-truncation cast toward zero (cpp:1821-1822)
         mx = ((px - grid.origin_x) / res).to(torch.int32)
@@ -219,7 +220,7 @@ def cast_rays_unbounded(grid: GridWorld, start, direction, active, min_dist,
 
 def _row_dirs(rows: TreeRows):
     d = rows.ep2 - rows.ep1
-    dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+    dist = sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
     safe = torch.clamp(dist, min=1e-6)
     return d, dist, d / safe[:, None]
 
@@ -285,14 +286,14 @@ def endpoint_ray_candidates(rows: TreeRows, skel: GridWorld, poly: Polygon,
 
     def ray_dir(ep, other, angle_deg):
         d = other - ep
-        n = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+        n = sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
         fwd = torch.where(n[:, None] > 1e-6, d / torch.clamp(n, min=1e-6)[:, None], unit_x)
         outward = -fwd
         perp = torch.stack([-fwd[:, 1], fwd[:, 0]], dim=1)
         ca, sa = _cos_sin_f32(angle_deg)
         side = perp if angle_deg > 0 else -perp
         rd = ca * outward + sa * side
-        rn = torch.sqrt(rd[:, 0] * rd[:, 0] + rd[:, 1] * rd[:, 1])
+        rn = sqrt(rd[:, 0] * rd[:, 0] + rd[:, 1] * rd[:, 1])
         return rd / torch.clamp(rn, min=1e-12)[:, None]
 
     starts, dirs = [], []

@@ -15,7 +15,7 @@ import torch
 
 from ..config import AosParams, Statics
 from ..guards import GUARD_DEGREE_CAP
-from ..ops import while_loop
+from ..ops import sqrt, while_loop
 from ..types import GvdGraph
 
 INF = 3.4e38
@@ -66,7 +66,7 @@ def cost_matrix(graph: GvdGraph, s: Statics) -> CsrCosts:
 
 
 def _norm2(v):
-    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
+    return sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
 
 
 def astar(costs: CsrCosts, nodes, node_valid, start, goal, weight, s: Statics,

@@ -8,6 +8,7 @@ import torch
 
 from ..config import AosParams
 from ..geom import normalized_angle
+from ..ops import sqrt
 from ..types import ControlState, Path
 
 
@@ -41,7 +42,7 @@ def control_tick(state: ControlState, pose_xy, pose_yaw, params: AosParams):
     cnt = torch.where(fire, 0, cnt).to(torch.int32)
 
     dxy = state.goal_xy - pose_xy
-    dist = torch.sqrt(dxy[..., 0] * dxy[..., 0] + dxy[..., 1] * dxy[..., 1])
+    dist = sqrt(dxy[..., 0] * dxy[..., 0] + dxy[..., 1] * dxy[..., 1])
     yaw_diff = torch.abs(normalized_angle(state.goal_yaw - pose_yaw))
 
     m = state.mode

@@ -13,7 +13,7 @@ import torch
 
 from ..config import AosParams, Statics
 from ..geom import atan2
-from ..ops import scatter_set, while_loop
+from ..ops import scatter_set, sqrt, while_loop
 from ..types import Path
 
 SEG_CAP = 1024  # interpolated points cap per segment (51 m at 5 cm)
@@ -218,7 +218,7 @@ def linearize(path: Path, params: AosParams, s: Statics) -> Path:
     p1 = xy[torch.clamp(s_idx, min=0).long()]
     p2 = xy[torch.clamp(e_idx, min=0).long()]
     d = p2 - p1
-    dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+    dist = sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
     yaw = atan2(d[:, 1], d[:, 0])
     degen = dist < 1e-6
     num_mid = torch.floor(dist / spacing).to(torch.int32)

@@ -8,8 +8,8 @@
 - plan_current_path(...)    <- planAndPublishPath (cpp:976-1567) +
                                trimPathNearOccupiedRegions (cpp:1570-1630)
 - rebuild_waypoints(...)    <- graphCallback's tour rebuild (cpp:456-560)
+- force_next_waypoint(...)  <- the /aos/next_waypoint service (cpp:349-416)
 
-``force_next_waypoint`` is not ported yet.
 Status codes: 0 Success, 1 Failed, 2 Returning..., 3 Exploration Complete.
 """
 
@@ -22,14 +22,14 @@ import torch
 
 from ..config import AosParams, Statics
 from ..geom import atan2
-from ..ops import lanes, put_row, scatter_set, take_row
+from ..ops import fma, lanes, put_row, scatter_set, sqrt, take_row
 from ..perceive.raster import f32, shift2d
 from ..types import GridWorld, GvdGraph, MissionState, Path, Waypoints
 from .astar import INF, plan_between
 
 
 def _norm2(v):
-    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
+    return sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
 
 
 # ---------------------------------------------------------------------------
@@ -216,6 +216,43 @@ def rebuild_waypoints(state: MissionState, old_wp: Waypoints, graph: GvdGraph,
     return dataclasses.replace(state, target_wp=new_target), wp
 
 
+def force_next_waypoint(state: MissionState, wp: Waypoints, params: AosParams):
+    """The /aos/next_waypoint Empty service (cpp:349-416): the manual escape
+    hatch that clears the docking freeze and force-advances the target,
+    appending the origin and completing exploration at the last waypoint.
+    Returns (state, wp, plan_from_current_position bool)."""
+    not_ready = ~state.initial_reached
+    ready = ~not_ready
+    target = state.target_wp
+    at_last = (target >= 0) & (target >= wp.count - 1)
+    mid = (target >= 0) & (target < wp.count - 1)
+    unstarted = (target < 0) & (wp.count > 0)
+
+    wp2 = _append_origin(wp, params)
+    use_append = ready & at_last
+    wp = Waypoints(xy=torch.where(use_append, wp2.xy, wp.xy),
+                   node_idx=torch.where(use_append, wp2.node_idx, wp.node_idx),
+                   count=torch.where(use_append, wp2.count, wp.count))
+    minus1 = torch.full_like(state.prev_wp, -1)
+    new_prev = torch.where(ready & (at_last | mid), target,
+                           torch.where(ready & unstarted, minus1, state.prev_wp))
+    new_target = torch.where(
+        not_ready, target,
+        torch.where(at_last, wp.count - 1,
+                    torch.where(mid, target + 1,
+                                torch.where(unstarted, torch.zeros_like(target), target))))
+    out = MissionState(
+        target_wp=new_target.to(torch.int32),
+        prev_wp=new_prev.to(torch.int32),
+        initial_reached=state.initial_reached,
+        exploration_completed=state.exploration_completed | use_append,
+        waiting_for_docking=torch.zeros_like(state.waiting_for_docking),
+        status=torch.where(use_append, torch.full_like(state.status, 2), state.status),
+        origin_appended=state.origin_appended | use_append,
+    )
+    return out, wp, ready & (at_last | mid | unstarted)
+
+
 # ---------------------------------------------------------------------------
 # path planning
 # ---------------------------------------------------------------------------
@@ -283,11 +320,12 @@ def _trim(xy, yaw, count, skel: GridWorld, params: AosParams, s: Statics, trim_p
 
 def plan_current_path(state: MissionState, wp: Waypoints, graph: GvdGraph, costmat,
                       skel: GridWorld, params: AosParams, s: Statics, *, trim_plane,
-                      astar_enabled=None):
+                      use_current_position=None, astar_enabled=None):
     """planAndPublishPath (cpp:976-1567) with the trim distance plane.
-    Returns (Path, success bool). astar_enabled (bool tensor): False skips
-    the graph search (plan_between's ``enabled``; build_plan_cache's dead
-    rows)."""
+    Returns (Path, success bool). use_current_position (f32 [2]): the
+    robot's position as the start, for the next_waypoint service's plan.
+    astar_enabled (bool tensor): False skips the graph search
+    (plan_between's ``enabled``; build_plan_cache's dead rows)."""
     dev = graph.nodes.device
     P = s.max_path
     init_wp = torch.stack([params.initial_waypoint_x, params.initial_waypoint_y])
@@ -310,6 +348,8 @@ def plan_current_path(state: MissionState, wp: Waypoints, graph: GvdGraph, costm
     target_node = wp.node_idx[tw]
     prev_ok = (state.prev_wp >= 0) & (state.prev_wp < wp.count)
     start_point = torch.where(prev_ok, wp.xy[torch.clamp(state.prev_wp, 0, Wn - 1).long()], init_wp)
+    if use_current_position is not None:
+        start_point = torch.as_tensor(use_current_position, dtype=torch.float32, device=dev)
 
     origin_return = target_node < 0
     d_to_nodes = _norm2(graph.nodes - target[None, :])
@@ -335,7 +375,8 @@ def plan_current_path(state: MissionState, wp: Waypoints, graph: GvdGraph, costm
     tail_num = torch.ceil(_norm2(dtail) / params.path_step).to(torch.int32)
     it = arP.to(torch.float32) + 1.0
     tt = it / torch.clamp(tail_num.to(torch.float32), min=1.0)
-    tail_xy = last_node_xy[None, :] + tt[:, None] * dtail[None, :]
+    # last_node + t * dtail rounded once: XLA:CPU fuses it
+    tail_xy = fma(tt[:, None], dtail[None, :], last_node_xy[None, :])
     tail_ok = (arP < tail_num) & origin_return
     target_point_ok = ~origin_return & (_norm2(last_node_xy - target) > 0.01)
     tail_xy = torch.where((arP == 0)[:, None] & ~origin_return, target[None, :], tail_xy)

@@ -33,7 +33,7 @@ import torch
 from ..config import AosParams, Statics
 from ..engine import Robot, _move_robot, initial_state, stack_metrics
 from ..guards import GUARD_NONFINITE, GUARD_PLAN_CAP
-from ..ops import lanes, take_row
+from ..ops import lanes, sqrt, take_row
 from ..types import ControlState, MissionState, Path, Waypoints
 from .control import control_tick
 from .linearize import linearize
@@ -198,7 +198,7 @@ def tour_feasibility(cache: PlanCache, wp: Waypoints, params: AosParams, s: Stat
     tgt = torch.where(is_origin_row[:, None], origin_tgt[None, :], tgt)
 
     dp = cache.plan_xy - tgt[:, None, :]
-    d = torch.sqrt(dp[..., 0] * dp[..., 0] + dp[..., 1] * dp[..., 1])
+    d = sqrt(dp[..., 0] * dp[..., 0] + dp[..., 1] * dp[..., 1])
     valid = (torch.arange(cache.plan_xy.shape[1], device=dev)[None, :]
              < cache.plan_count[:, None])
     far = torch.tensor(3.4e38, dtype=torch.float32, device=dev)
@@ -210,7 +210,7 @@ def tour_feasibility(cache: PlanCache, wp: Waypoints, params: AosParams, s: Stat
     legs_ok = torch.where(live, dockable, True)
     init_wp = torch.stack([params.initial_waypoint_x, params.initial_waypoint_y])
     d0 = cache.goal_xy[0] - init_wp
-    row0_ok = torch.sqrt(d0[0] * d0[0] + d0[1] * d0[1]) <= params.initial_arrive_dist
+    row0_ok = sqrt(d0[0] * d0[0] + d0[1] * d0[1]) <= params.initial_arrive_dist
     first_bad = torch.where(legs_ok, R, rows).min().to(torch.int32)
     return dict(
         feasible=row0_ok & legs_ok.all() & (wp.count > 0),

@@ -10,8 +10,8 @@ kernel on them:
 
   phase 0  environment: the card's name and power limit, torch and CUDA
   phase 1  build kernels K1 (jfa_pass), K2 (zhang_suen), K3 (ror_counts)
-           and P1-P3 (probe_prims) with nvcc, one process each, all started
-           together
+           and P1-P3 (probe_prims) with nvcc and the native host library
+           with g++, one process each, all started together
   phase 2  K1: a full jump flood at 2000 x 2048, S = 4096, and at 384 x 512,
            S = 256, from one call of the kernel (one cooperative launch) and
            through the plain PyTorch passes: owner, ox and oy bitwise equal,
@@ -57,6 +57,21 @@ kernel on them:
            8 of them again alone, bitwise equal to their lane's record; a
            2 x 2 parameter sweep whose first configuration equals the unswept
            records; launches of K1 and K2 per world build; rollouts/s
+  phase 10 the operator's surface. (a) At BENCH_STATICS on the bench orchard:
+           make_orchard on the card against the CPU port and the JAX
+           package's (bitwise); the bench cloud through save_pcd / load_pcd
+           (the native reader and numpy) bitwise; build_gvd_graph with
+           clearances (the distance field on the card == the CPU port's ==
+           JAX's, its ms), the ROS messages against JAX's, msg_to_gvd_graph
+           back to the graph, and the next-waypoint service with plans from
+           the robot's position (tests/torch_reference/host_np_seed0.json,
+           .npz). (b) The dashboard at TEST_STATICS: python -m
+           aosx_torch.dashboard --steps 300 --seed 1 as a process of its own,
+           then main(argv) on the verify recipe's PCD map and on its growing
+           snapshots with --cached and --serve (2,400 ticks each), each
+           report against the JAX package's
+           (tests/torch_reference/dashboard_np.json), the launches of K1
+           and K2 against the worlds built, episode_state.npz loaded back
 
 Every phase raises on failure, so the exit code is not 0 and no result is
 printed. There is no CPU fallback: without a CUDA device the run fails.
@@ -69,6 +84,7 @@ Run from the repository root: python3 chip_smoke.py
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import pathlib
@@ -83,13 +99,12 @@ REFERENCE = ROOT / "tests" / "torch_reference" / "bench_np_seed0.json"
 SERVING_REFERENCE = REFERENCE.with_name("serving_np_seed0.json")
 # CPU parity tests state this bound for float leaves (tests/test_torch_slice.py)
 ULP_BOUND = 4
-# The JAX reference's XLA:CPU build contracts the flood's cell coordinate
-# and squared distance into fused multiply-adds; K1 and its plain version
-# round each operation (and agree bitwise). Near-ties then resolve
-# differently, and a flip can change a later pass's propagation: 5 of the
-# 4,096,000 owner cells differ on the bench orchard, measured against the
-# port on the CPU (the JAX package's own Pallas-interpret and dynamic-shift
-# lowerings differ in 12). Node, edge and waypoint counts agree exactly.
+# K1 and its plain version round the flood's cell coordinates and squared
+# distance once, as the fused multiply-adds of the JAX reference's XLA:CPU
+# build, yet 3 of the 4,096,000 owner cells still differ on the bench orchard
+# (measured on the H100 and on the CPU; 5 before the FMAs; the JAX package's
+# own Pallas-interpret and dynamic-shift lowerings differ in 12). The graph
+# and its message agree exactly (phase 10).
 OWNER_CELL_BOUND = 32
 TEST_TICKS = 20
 TEST_V_DT = 0.5
@@ -310,16 +325,23 @@ def phase_build():
 
     from aosx_torch import cuda_build
 
-    names = ("jfa_pass", "zhang_suen", "ror_counts", "probe_prims")
+    from aosx_torch.native import binding
+
+    names = ("jfa_pass", "zhang_suen", "ror_counts", "probe_prims", "native")
 
     def one(name):
         t0 = time.time()
-        return cuda_build.build(name), time.time() - t0
+        so = binding.build() if name == "native" else cuda_build.build(name)
+        return so, time.time() - t0
 
     t0 = time.time()
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(one, names)))
     for name, (so, seconds) in built.items():
+        if name == "native":
+            log(f"# phase 1: built the native host library with g++ in {seconds:.2f} s "
+                f"({so.name})")
+            continue
         cuda_build.load(name)
         report = so.with_suffix(".log")
         regs = [ln.strip() for ln in report.read_text().splitlines()
@@ -426,26 +448,29 @@ def phase_k1_shape(name, S, device):
                            REPS, lambda: torch.full_like(owner0, n))
     # Bound. The flood must read the owner plane once and write it once
     # through device memory (8 B a cell) and read the table; from pass to pass
-    # the two planes can stay in L2. A pass costs, per cell, 4 FP32
-    # operations for the coordinates, 5 (2 sub, 2 mul, 1 add) for the distance
-    # to the cell's own owner, and 6 (a compare more) for every other distinct
-    # owner among its 8 candidates: one without an owner needs no distance,
-    # and neither does an owner seen before. Counted on this run's states.
+    # the two planes can stay in L2. A pass costs H + W FP32 instructions for
+    # the coordinates (an FMA for each row's y and each column's x, which every
+    # cell of that row or column shares), 4 a cell (2 sub, 1 mul, 1 FMA) for
+    # the distance to the cell's own owner, and 5 (a compare more) for every
+    # other distinct owner among its 8 candidates: one without an owner needs
+    # no distance, and neither does an owner seen before. Counted on this
+    # run's states.
     cells = S.grid_h * S.grid_w
+    coords = S.grid_h + S.grid_w
     ops_by_pass = []
     for (o, _, _), step in zip(before, steps):
         nine = torch.stack([shift2d(o, dys * step, dxs * step, n)
                             for dys in (-1, 0, 1) for dxs in (-1, 0, 1)]).sort(0).values
         distinct = int((nine[0] < n).sum()) + int(((nine[1:] != nine[:-1]) & (nine[1:] < n)).sum())
         own = int((o < n).sum())
-        ops_by_pass.append(bound(0, fp32_ops=4 * cells + 5 * own + 6 * (distinct - own))[0])
+        ops_by_pass.append(bound(0, fp32_ops=coords + 4 * own + 5 * (distinct - own))[0])
         del nine
     ops_ms = float(np.sum(ops_by_pass))
     bytes_ms, _ = bound(8 * cells + 8 * (n + 1))
     flood_bound = max(bytes_ms, ops_ms)
     b_by = "bytes" if bytes_ms >= ops_ms else "operations"
     old_ms, _ = bound(24 * cells)
-    full_ms, _ = bound(0, fp32_ops=(4 + 5 + 6 * 8) * cells)
+    full_ms, _ = bound(0, fp32_ops=coords + (4 + 5 * 8) * cells)
     log(f"# phase 2: K1 jump flood {name} {S.grid_h}x{S.grid_w} S={n} ({npass} passes): one "
         f"call, one cooperative launch, {ms_k:.4f} ms ({ms_empty:.4f} ms over a plane "
         f"without owners, where no candidate is folded); plain {ms_p:.3f} ms; owner, "
@@ -455,8 +480,9 @@ def phase_k1_shape(name, S, device):
         f"{json.dumps({str(k): round(v, 5) for k, v in by_step.items()})}")
     log(f"# phase 2: K1 {name} bound {flood_bound:.4f} ms a flood ({b_by}), "
         f"{flood_bound / npass:.5f} ms a pass: the larger of the owner plane once in and once "
-        f"out of device memory plus the table ({bytes_ms:.4f} ms) and {npass} passes of 4 FP32 "
-        f"operations a cell + 5 for its own owner + 6 for each other distinct owner among its "
+        f"out of device memory plus the table ({bytes_ms:.4f} ms) and {npass} passes of H + W FP32 "
+        f"instructions for the coordinates + 4 a cell for its own owner + 5 for each other "
+        f"distinct owner among its "
         f"candidates ({ops_ms:.4f} ms in all; a pass in which all nine are distinct: "
         f"{full_ms:.5f} ms); the share refers to it: {100 * flood_bound / ms_k:.1f} %. For scale, 8 B a "
         f"cell from device memory in every pass: {bytes_ms:.4f} ms a pass; the three carried "
@@ -1412,6 +1438,309 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
         sweep_s=sweep_ms / 1e3, peak_allocated_gib=mem, launches_per_world=per_world)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the operator's surface
+# ---------------------------------------------------------------------------
+
+HOST_REFERENCE = REFERENCE.with_name("host_np_seed0.json")
+DASHBOARD_REFERENCE = REFERENCE.with_name("dashboard_np.json")
+# scratch files of phase 10 (maps, dashboard outputs), removed at its end
+WORK = ROOT / "_archive" / "chip_smoke_phase10"
+# The dashboard's reports on the card against the JAX package's on the CPU:
+# every key equal, position and travel included (the report rounds them to
+# 1 mm and 1 cm), as tests/test_torch_dashboard.py requires on the CPU
+
+
+def msg_from_arrays(a, prefix, origin, resolution):
+    """A graph message dict from its saved arrays (make_host_reference.py)."""
+    nodes = a[f"{prefix}nodes"]
+    return dict(resolution=resolution, origin_x=origin[0], origin_y=origin[1],
+                num_nodes=len(nodes), num_edges=len(a[f"{prefix}edge_lengths"]),
+                nodes=[dict(x=float(x), y=float(y), z=0.0) for x, y in nodes],
+                **{k: a[f"{prefix}{k}"].reshape(-1).tolist() for k in
+                   ("node_labels", "node_cluster_indices", "node_label_clusters",
+                    "node_label_types", "node_label_counts", "edges", "edge_lengths",
+                    "edge_clearances")})
+
+
+def phase_host_surface(device, bench_spec):
+    """Phase 10 (a), at BENCH_STATICS on the bench orchard: make_orchard,
+    the PCD round trip through the native reader, clearances, the ROS
+    messages and the next-waypoint service, against the CPU port and the JAX
+    package's references (tests/torch_reference/host_np_seed0.json, .npz)."""
+    import torch
+    from aosx_torch import prng
+    from aosx_torch.config import BENCH_STATICS as S, AosParams, params_as_f32
+    from aosx_torch.gvd import jfa_pass_cuda
+    from aosx_torch.gvd.clearance import edge_clearances, obstacle_distance_field
+    from aosx_torch.gvd.graph import build_gvd_graph
+    from aosx_torch.io import pcd, ros_msgs
+    from aosx_torch.native import binding
+    from aosx_torch.orchards import make_orchard, make_orchard_np
+    from aosx_torch.perceive import perceive, skeleton_cuda
+    from aosx_torch.plan.astar import cost_matrix
+    from aosx_torch.plan.mission import (build_waypoints, force_next_waypoint,
+                                         plan_current_path, trim_distance_plane)
+    from aosx_torch.types import MissionState
+
+    ref = json.loads(HOST_REFERENCE.read_text())
+    arrays = np.load(HOST_REFERENCE.with_suffix(".npz"))
+    stats = {}
+    t_phase = time.time()
+
+    # make_orchard on the card, on the CPU, and the JAX package's on the CPU:
+    # the same bits (its transcendentals are XLA:CPU's, emulated in f32math)
+    t0 = time.time()
+    card, card_poly = make_orchard(prng.prng_key(0, device), bench_spec, S)
+    cpu, cpu_poly = make_orchard(prng.prng_key(0, "cpu"), bench_spec, S)
+    if not all(torch.equal(a.cpu(), b) for a, b in ((card.xyz, cpu.xyz), (card.valid, cpu.valid),
+                                                     (card_poly.pts, cpu_poly.pts))):
+        raise AssertionError("make_orchard: the card's cloud differs from the CPU port's")
+    jo = ref["make_orchard"]
+    got = (int(card.valid.sum()),
+           hashlib.sha256(card.xyz.cpu().numpy().tobytes()).hexdigest(),
+           hashlib.sha256(card.valid.cpu().numpy().tobytes()).hexdigest())
+    if got != (jo["valid"], jo["xyz_sha256"], jo["valid_sha256"]):
+        raise AssertionError(f"make_orchard differs from the JAX package's: {got} vs {jo}")
+    _, stats["make_orchard_ms"] = cuda_ms(
+        lambda: make_orchard(prng.prng_key(0, device), bench_spec, S), REPS)
+    log(f"# phase 10: make_orchard at BENCH_STATICS ({got[0]} points): the card's cloud == the "
+        f"CPU port's == the JAX package's (sha256 of xyz and mask); "
+        f"{stats['make_orchard_ms']:.3f} ms (CUDA events, median of {REPS}); "
+        f"{time.time() - t0:.1f} s")
+
+    # the bench cloud through a PCD file, read by the native reader and by numpy
+    t0 = time.time()
+    WORK.mkdir(parents=True, exist_ok=True)
+    xyz_np = make_orchard_np(bench_spec, seed=0)[0].astype(np.float32)
+    path = str(WORK / "bench.pcd")
+    pcd.save_pcd(path, xyz_np)
+    calls = binding.load_pcd_xyz.calls
+    back = pcd.load_pcd(path)
+    if binding.load_pcd_xyz.calls != calls + 1:
+        raise AssertionError("load_pcd did not take the native reader")
+    def load_numpy(path):
+        # the reader load_pcd takes where the native library cannot be built
+        available = binding.available
+        binding.available = lambda: False
+        try:
+            return pcd.load_pcd(path)
+        finally:
+            binding.available = available
+
+    back_np = load_numpy(path)
+    if not (np.array_equal(back, xyz_np) and np.array_equal(back_np, xyz_np)):
+        raise AssertionError("PCD round trip differs")
+    native_ms = float(np.median([host_ms(lambda: pcd.load_pcd(path))[1] for _ in range(REPS)]))
+    numpy_ms = float(np.median([host_ms(lambda: load_numpy(path))[1]
+                                for _ in range(REPS)]))
+    stats.update(pcd_native_ms=native_ms, pcd_numpy_ms=numpy_ms)
+    log(f"# phase 10: save_pcd + load_pcd of {len(xyz_np)} points bitwise through the native "
+        f"reader ({native_ms:.3f} ms host wall, median of {REPS}) and numpy ({numpy_ms:.3f} "
+        f"ms); {time.time() - t0:.1f} s")
+
+    # clearances: the graph with compute_clearances on the card
+    t0 = time.time()
+    params = params_as_f32(AosParams(), device)
+    pc, poly = cloud(S, bench_spec, 0, device)
+    excl = torch.zeros((S.max_exclusions, 3), device=device)
+    out = perceive(pc, poly, params, excl, S, ror_method="sorted")
+    skel = out.skeleton
+    skel_sha = hashlib.sha256(skel.occ.cpu().numpy().tobytes()).hexdigest()
+    if skel_sha != ref["skeleton_sha256"]:
+        raise AssertionError("bench skeleton differs from the JAX reference")
+    kernels = (jfa_pass_cuda.jfa_flood, skeleton_cuda.zhang_suen_fixpoint)
+    zero_counts(kernels)
+    graph = build_gvd_graph(out.seeds, out.rows_sorted, skel, params, S, compute_clearances=True)
+    counts = read_counts(kernels)
+    if counts["jfa_flood"] != 1 or counts["zhang_suen_fixpoint"] != 0:
+        raise AssertionError(f"build_gvd_graph launched {counts}")
+    field, stats["distance_field_ms"] = cuda_ms(lambda: obstacle_distance_field(skel, S), REPS)
+    skel_cpu = grid_on_cpu(skel)
+    field_cpu = obstacle_distance_field(skel_cpu, S)
+    if not torch.equal(field.cpu(), field_cpu):
+        raise AssertionError("distance field: card differs from the CPU port")
+    field_sha = hashlib.sha256(field.cpu().numpy().tobytes()).hexdigest()
+    if field_sha != ref["distance_field"]["sha256"]:
+        raise AssertionError("distance field differs from the JAX reference")
+    args = (graph.nodes.cpu(), graph.edges.cpu(), graph.edge_valid.cpu())
+    if not torch.equal(graph.edge_clearances.cpu(),
+                       edge_clearances(field_cpu, skel_cpu, *args, S)):
+        raise AssertionError("edge clearances: card differs from the CPU port")
+    # JAX's clearances, on JAX's graph (its message) and the card's field
+    jn, je = arrays["msg_nodes"], arrays["msg_edges"].reshape(-1, 2)
+    N, E = S.max_nodes, S.max_edges
+    pos = torch.zeros((N, 2), dtype=torch.float32)
+    pos[:len(jn)] = torch.from_numpy(jn)
+    edges = torch.full((E, 2), -1, dtype=torch.int32)
+    edges[:len(je)] = torch.from_numpy(je)
+    ev = torch.arange(E) < len(je)
+    jc = edge_clearances(field, skel, pos.to(device), edges.to(device), ev.to(device), S)
+    differ = int((jc[:len(je)].cpu().numpy() != arrays["msg_edge_clearances"]).sum())
+    if differ:
+        raise AssertionError(f"clearances of JAX's graph differ from JAX's on {differ} edges")
+    stats["clearance_edges"] = int(graph.num_edges)
+    log(f"# phase 10: build_gvd_graph(compute_clearances=True) at BENCH_STATICS: 1 flood; "
+        f"distance field {stats['distance_field_ms']:.3f} ms (CUDA events, plain PyTorch), "
+        f"card == CPU port == JAX's (sha256); the card's {int(graph.num_edges)} clearances == "
+        f"the CPU port's; on JAX's graph, JAX's {len(je)} clearances bitwise; "
+        f"{time.time() - t0:.1f} s")
+
+    # the ROS messages
+    t0 = time.time()
+    origin = ref["graph"]["origin"]
+    msg = ros_msgs.gvd_graph_to_msg(graph, S.resolution, float(skel.origin_x),
+                                    float(skel.origin_y))
+    if [msg["origin_x"], msg["origin_y"]] != origin or \
+            (msg["num_nodes"], msg["num_edges"]) != (ref["graph"]["nodes"], ref["graph"]["edges"]):
+        raise AssertionError("graph message header differs from JAX's")
+    jmsg = msg_from_arrays(arrays, "msg_", origin, S.resolution)
+    differ = {k: int(np.sum(np.asarray(msg[k]) != np.asarray(jmsg[k]))) for k in
+              ("node_labels", "node_cluster_indices", "node_label_clusters", "node_label_types",
+               "node_label_counts", "edges")}
+    same_nodes = np.array_equal(arrays["msg_nodes"], np.array(
+        [[p["x"], p["y"]] for p in msg["nodes"]], np.float32).reshape(-1, 2))
+    len_ulp = ulp_distance(arrays["msg_edge_lengths"], np.asarray(msg["edge_lengths"], np.float32))
+    if any(differ.values()) or not same_nodes or len_ulp > ULP_BOUND:
+        raise AssertionError(f"graph message differs from JAX's: {differ}, nodes equal "
+                             f"{same_nodes}, lengths {len_ulp} ulp")
+    omsg = ros_msgs.occupancy_grid_to_msg(out.occupancy, S.resolution)
+    osha = hashlib.sha256(np.asarray(omsg["data"], np.int8).tobytes()).hexdigest()
+    if (omsg["info"]["width"], omsg["info"]["height"], osha) != (
+            ref["occupancy_msg"]["width"], ref["occupancy_msg"]["height"],
+            ref["occupancy_msg"]["data_sha256"]):
+        raise AssertionError("occupancy message differs from JAX's")
+    back = ros_msgs.msg_to_gvd_graph(msg, S, device)
+    e = int(graph.num_edges)
+    same = all(torch.equal(getattr(back, f), getattr(graph, f)) for f in
+               ("nodes", "node_valid", "node_labels", "label_node", "edges", "edge_valid",
+                "num_nodes", "num_edges"))
+    if not (same and torch.equal(back.edge_lengths[:e], graph.edge_lengths[:e])):
+        raise AssertionError("msg_to_gvd_graph does not give back the graph")
+    log(f"# phase 10: gvd_graph_to_msg ({msg['num_nodes']} nodes, {e} edges) == JAX's (ints "
+        f"bitwise, lengths within {len_ulp:g} ulp), occupancy_grid_to_msg == JAX's (sha256), "
+        f"msg_to_gvd_graph gives the graph back; {time.time() - t0:.1f} s")
+
+    # the next-waypoint service on JAX's graph, from its message
+    t0 = time.time()
+    jgraph = ros_msgs.msg_to_gvd_graph(jmsg, S, device)
+    costmat, wp = cost_matrix(jgraph, S), build_waypoints(jgraph, params, S)
+    trim = trim_distance_plane(skel, S)
+    st = dataclasses.replace(MissionState.initial(device),
+                             initial_reached=torch.tensor(True, device=device))
+    worst = 0.0
+    for i, want in enumerate(ref["service"]["calls"]):
+        here = torch.tensor(want["here"], dtype=torch.float32, device=device)
+        st, wp, from_here = force_next_waypoint(st, wp, params)
+        path, ok = plan_current_path(st, wp, jgraph, costmat, skel, params, S, trim_plane=trim,
+                                     use_current_position=here)
+        got = dict(here=want["here"], from_here=bool(from_here), ok=bool(ok),
+                   path_count=int(path.count), wp_count=int(wp.count),
+                   mission={f.name: int(getattr(st, f.name)) for f in dataclasses.fields(st)})
+        if got != want:
+            raise AssertionError(f"service call {i}: {got} != JAX's {want}")
+        n = got["path_count"]
+        for k, a in (("xy", path.xy), ("yaw", path.yaw)):
+            d = ulp_distance(arrays[f"path{i}_{k}"][:n], a.cpu().numpy()[:n])
+            worst = max(worst, d)
+            if d > ULP_BOUND:
+                raise AssertionError(f"service call {i}: path {k} {d} ulp from JAX's")
+        pmsg = ros_msgs.path_to_msg(path)
+        if len(pmsg["poses"]) != n:
+            raise AssertionError("path message length")
+    log(f"# phase 10: force_next_waypoint + plan_current_path(use_current_position=) x "
+        f"{len(ref['service']['calls'])} on JAX's graph: states, flags and counts == JAX's, paths "
+        f"within {worst:g} ulp <= {ULP_BOUND}; {time.time() - t0:.1f} s")
+    stats["host_surface_s"] = time.time() - t_phase
+    return stats
+
+
+def grid_on_cpu(grid):
+    """A GridWorld's copy on the CPU."""
+    from aosx_torch.types import GridWorld
+
+    return GridWorld(**{f: getattr(grid, f).cpu() for f in
+                        ("occ", "origin_x", "origin_y", "h_cells", "w_cells")})
+
+
+def phase_dashboard(device):
+    """Phase 10 (b): the dashboard at TEST_STATICS on the card, as an operator
+    runs it, against the JAX package's reports
+    (tests/torch_reference/dashboard_np.json)."""
+    import shutil
+
+    import torch
+    from aosx_torch import dashboard
+    from aosx_torch.gvd import jfa_pass_cuda
+    from aosx_torch.io.checkpoint import load_state
+    from aosx_torch.io.pcd import save_pcd
+    from aosx_torch.orchards import OrchardSpec, make_orchard_np
+    from aosx_torch.perceive import skeleton_cuda
+    from aosx_torch.tree import leaves
+    from torch_reference.make_dashboard_reference import RUNS, expand, write_maps
+
+    ref = json.loads(DASHBOARD_REFERENCE.read_text())["runs"]
+    WORK.mkdir(parents=True, exist_ok=True)
+    paths = write_maps(WORK, make_orchard_np, OrchardSpec, save_pcd)
+    kernels = (jfa_pass_cuda.jfa_flood, skeleton_cuda.zhang_suen_fixpoint)
+    walls, reports = {}, {}
+
+    def check(name, report):
+        want = ref[name]["report"]
+        if report != want:
+            raise AssertionError(f"dashboard {name}: {report} != JAX's {want}")
+        reports[name] = report
+
+    # 1. the operator's own command, in a process of its own
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "aosx_torch.dashboard",
+                        *expand(RUNS["orchard_seed1_300"], paths), "--out",
+                        str(WORK / "orchard")], cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"python -m aosx_torch.dashboard failed:\n{r.stderr[-4000:]}")
+    check("orchard_seed1_300", json.JSONDecoder().raw_decode(r.stdout[r.stdout.index("{"):])[0])
+    if "render skipped: matplotlib is not installed" not in r.stdout and \
+            not (WORK / "orchard" / "episode.png").exists():
+        raise AssertionError("dashboard wrote no figure and did not say it skipped it")
+    walls["orchard_seed1_300"] = time.time() - t0
+
+    # 2-3. in process: the PCD map, then the growing map through both
+    # serving loops, counting the kernels' launches
+    for name in ("pcd_300", "seq_cached_2400", "seq_serve_2400"):
+        t0 = time.time()
+        zero_counts(kernels)
+        out = WORK / name
+        report, final = dashboard.main([*expand(RUNS[name], paths), "--out", str(out)])
+        torch.cuda.synchronize()
+        walls[name] = time.time() - t0
+        counts = read_counts(kernels)
+        levels = report.get("incremental_levels")
+        if levels is None:   # one world and its owner plane for the figure
+            want = {"zhang_suen_fixpoint": 1, "jfa_flood": 2}
+        else:                # the first frame's world, then each frame's rebuilds
+            want = {"zhang_suen_fixpoint": 1 + sum(v >= 1 for v in levels),
+                    "jfa_flood": 1 + sum(v >= 2 for v in levels)}
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"dashboard {name}: launches {counts}, worlds built want {want}")
+        check(name, report)
+        back = load_state(str(out / "episode_state"), final)
+        if not all(torch.equal(a, b) for a, b in zip(leaves(final), leaves(back))):
+            raise AssertionError(f"dashboard {name}: episode_state.npz does not load back")
+        log(f"# phase 10: dashboard {name}: {json.dumps(reports[name])}; launches "
+            f"{ {k: counts[k] for k in want} }; {walls[name]:.1f} s host wall")
+    a, b = reports["seq_cached_2400"], reports["seq_serve_2400"]
+    if not (a["status"] == b["status"] == "Exploration Complete"
+            and (a["exploration_completed"], a["travel_distance"])
+            == (b["exploration_completed"], b["travel_distance"])):
+        raise AssertionError(f"--cached and --serve disagree: {a} vs {b}")
+    log(f"# phase 10: python -m aosx_torch.dashboard --steps 300 --seed 1: "
+        f"{json.dumps(reports['orchard_seed1_300'])}; {walls['orchard_seed1_300']:.1f} s "
+        f"host wall (a process of its own); every report == JAX's, key for key")
+    shutil.rmtree(WORK)
+    return {f"dashboard_{k}_s": v for k, v in walls.items()}
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tests"))
@@ -1445,6 +1774,8 @@ def main():
     serve_launches, serve_stats = phase(7, phase_serving, device)
     probe_rows = phase(8, phase_probes, device)
     mc_launches, mc_stats = phase(9, phase_monte_carlo, device)
+    host_stats = phase(10, phase_host_surface, device, bench_spec)
+    host_stats.update(phase(10, phase_dashboard, device))
 
     def row(name, source, replaces, k):
         # launches: on the serving path (phase 7); launches_stage_full: on
@@ -1485,6 +1816,7 @@ def main():
     log(f"# stages: {json.dumps(stages)}")
     log(f"# serving: {json.dumps(serve_stats)}")
     log(f"# monte carlo: {json.dumps(mc_stats)}")
+    log(f"# operator's surface: {json.dumps(host_stats)}")
     log(f"# K3 uniform cloud: kernel {k3['uniform_ms']:.3f} ms, plain {k3['uniform_plain_ms']:.3f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports with jax blocked, names neither jax nor
+"""The port stands alone: it imports with jax blocked (and with pyyaml and
+matplotlib blocked, which the card's machine lacks), names neither jax nor
 the JAX package, and its GPU smoke run refuses to run without a card."""
 
 import ast
@@ -37,7 +38,25 @@ def test_port_imports_with_jax_blocked():
             "aosx_torch.incremental", "aosx_torch.plan.plancache",
             "aosx_torch.perceive.ror_cuda", "aosx_torch.io.checkpoint",
             "aosx_torch.parallel.batch", "aosx_torch.parallel.sweep", "aosx_torch.probes",
-            "aosx_torch.tree"} <= set(MODULES)
+            "aosx_torch.tree", "aosx_torch.dashboard", "aosx_torch.geo",
+            "aosx_torch.profiling", "aosx_torch.prng", "aosx_torch.f32math",
+            "aosx_torch.gvd.clearance",
+            "aosx_torch.io.pcd", "aosx_torch.io.ros_msgs", "aosx_torch.io.render",
+            "aosx_torch.native.binding", "aosx_torch.native.build"} <= set(MODULES)
+
+
+def test_port_imports_with_yaml_and_matplotlib_blocked():
+    """The card's machine has neither pyyaml nor matplotlib: the modules that
+    use them (config, io.render, dashboard) import them only when called."""
+    code = ("import sys, importlib\n"
+            "for m in ('jax', 'aosx', 'yaml', 'matplotlib'):\n"
+            "    sys.modules[m] = None\n"
+            f"for m in {MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'aosx_torch.dashboard' in sys.modules\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))

@@ -4,6 +4,8 @@ Inputs are made with numpy from a seed and handed to both packages;
 outputs are compared leaf for leaf through ``aosx_torch.convert.to_numpy``,
 which walks JAX and port dataclasses alike."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,13 @@ from aosx_torch.orchards import OrchardSpec, make_orchard_np
 # the test_episode.py orchard: near the origin, so that the (8, 0) initial
 # waypoint and the origin return are reachable
 SPEC = OrchardSpec(n_rows=3, row_len=12.0, origin=(6.0, 4.0), noise_pts=64)
+# the specs of the world-parity orchards (tests/test_torch_world_parity.py)
+WORLD_SPECS = {
+    "test": SPEC,
+    "curved": dataclasses.replace(SPEC, row_curve=0.6),
+    "4x14": OrchardSpec(n_rows=4, row_len=14.0, row_spacing=3.5, noise_pts=128),
+    "5x16": OrchardSpec(n_rows=5, row_len=16.0, row_spacing=3.0),
+}
 
 
 def orchard_buffers(statics, seed=0, spec=SPEC):
