@@ -84,12 +84,17 @@ class EngineState:
 
 
 def prepare_world_full(pc: PointCloud, poly: Polygon, params: AosParams, exclusions,
-                       s: Statics, *, ror_method: str = "sorted", with_owner: bool = False):
+                       s: Statics, *, ror_method: str = "sorted", with_owner: bool = False,
+                       stencil_mesh=None, stencil_axis: str = "space"):
     """One full perception + graph pass over a static map. Returns (World,
     PerceiveOut, owner plane or None); the extras feed the renderer's seed,
-    tree-row and Voronoi-cell overlays (io/render.py)."""
-    out = perceive(pc, poly, params, exclusions, s, ror_method=ror_method)
-    world = world_from_perceive(out, params, s)
+    tree-row and Voronoi-cell overlays (io/render.py). stencil_mesh:
+    optional ``parallel.spatial.Mesh``, over whose devices the grid stencils
+    and the flood run on row bands (bitwise equal)."""
+    out = perceive(pc, poly, params, exclusions, s, ror_method=ror_method,
+                   stencil_mesh=stencil_mesh, stencil_axis=stencil_axis)
+    world = world_from_perceive(out, params, s, stencil_mesh=stencil_mesh,
+                                stencil_axis=stencil_axis)
     return world, out, owner_plane(out, params, s) if with_owner else None
 
 
@@ -99,9 +104,11 @@ def owner_plane(out: PerceiveOut, params: AosParams, s: Statics):
     return jump_flood(out.skeleton, merge_seeds(out.seeds, params, s), s)
 
 
-def world_from_perceive(out: PerceiveOut, params: AosParams, s: Statics) -> World:
+def world_from_perceive(out: PerceiveOut, params: AosParams, s: Statics, *,
+                        stencil_mesh=None, stencil_axis: str = "space") -> World:
     """Graph + costmat + waypoints + trim plane from a PerceiveOut."""
-    graph = build_gvd_graph(out.seeds, out.rows_sorted, out.skeleton, params, s)
+    graph = build_gvd_graph(out.seeds, out.rows_sorted, out.skeleton, params, s,
+                            stencil_mesh=stencil_mesh, stencil_axis=stencil_axis)
     costmat = cost_matrix(graph, s)
     return World(
         skeleton=out.skeleton,
@@ -115,9 +122,11 @@ def world_from_perceive(out: PerceiveOut, params: AosParams, s: Statics) -> Worl
 
 
 def prepare_world(pc: PointCloud, poly: Polygon, params: AosParams, exclusions,
-                  s: Statics, *, ror_method: str = "sorted") -> World:
+                  s: Statics, *, ror_method: str = "sorted", stencil_mesh=None,
+                  stencil_axis: str = "space") -> World:
     """One full perception + graph pass over a static map."""
-    return prepare_world_full(pc, poly, params, exclusions, s, ror_method=ror_method)[0]
+    return prepare_world_full(pc, poly, params, exclusions, s, ror_method=ror_method,
+                              stencil_mesh=stencil_mesh, stencil_axis=stencil_axis)[0]
 
 
 def initial_state(world: World, s: Statics) -> EngineState:

@@ -578,12 +578,21 @@ def assign_labels(pos, node_valid, label_points, label_valid, params, s: Statics
 
 def build_gvd_graph(seeds: SeedSet, rows_sorted: TreeRows, skel: GridWorld,
                     params: AosParams, s: Statics, *,
-                    compute_clearances: bool = False) -> GvdGraph:
+                    compute_clearances: bool = False, stencil_mesh=None,
+                    stencil_axis: str = "space") -> GvdGraph:
     """processGraph (cpp:255-318). Edge clearances are 0, as the reference
     publishes them (aos_gvd_node.cpp:856), unless ``compute_clearances``:
-    then each edge's least distance to the skeleton (gvd/clearance.py)."""
+    then each edge's least distance to the skeleton (gvd/clearance.py).
+    stencil_mesh: optional ``parallel.spatial.Mesh``; the ownership flood
+    then runs on row bands over its devices
+    (``parallel.spatial.jump_flood_sharded``, bitwise equal)."""
     merged = merge_seeds(seeds, params, s)
-    owner = jump_flood(skel, merged, s)
+    if stencil_mesh is not None:
+        from ..parallel.spatial import jump_flood_sharded
+
+        owner = jump_flood_sharded(skel, merged, s, stencil_mesh, stencil_axis)
+    else:
+        owner = jump_flood(skel, merged, s)
     pos, owners, node_valid = extract_vertices(skel, owner, s)
     ea, eb, ev, lengths, n_edges, edge_guards = build_edges(
         pos, owners, node_valid, skel, merged, params, s)

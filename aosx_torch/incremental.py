@@ -22,7 +22,10 @@ Every level gives the same state as ``perceive_init`` on the same frame.
 The gates are Python branches on the same predicates, in the same order, as
 the JAX package's ``lax.cond`` nest; the delta cross pass uses the
 elementwise (a-b)^2 formula of ``points.ror_counts(method='exact')``.
-``aosx``'s row-sharded ``stencil_mesh`` option is not ported.
+With ``stencil_mesh`` (a ``parallel.spatial.Mesh``) the inflation, the
+skeletonization and the flood run on row bands over the mesh's devices,
+bitwise equal to the single-device stages, so every gate compares the same
+planes and takes the same level.
 """
 
 from __future__ import annotations
@@ -77,23 +80,44 @@ def _level(v: int, device):
     return torch.tensor(v, dtype=torch.int32, device=device)
 
 
-def _downstream(skel, inflated, poly, params: AosParams, s: Statics, pre_guards):
+def _downstream(skel, inflated, poly, params: AosParams, s: Statics, pre_guards,
+                stencil_mesh=None, stencil_axis: str = "space"):
     """The perceive tail + world assembly, identical by construction to
     perceive composed with engine.prepare_world_full."""
     occupancy = _raster.mark_borders(inflated)
     out = perceive_tail(skel, occupancy, poly, params, s, pre_guards)
-    return out, engine.world_from_perceive(out, params, s)
+    return out, engine.world_from_perceive(out, params, s, stencil_mesh=stencil_mesh,
+                                           stencil_axis=stencil_axis)
+
+
+def _inflate(grid, s: Statics, stencil_mesh, stencil_axis):
+    if stencil_mesh is None:
+        return _raster.inflate(grid, s)
+    from .parallel.spatial import inflate_sharded
+
+    return inflate_sharded(grid, s, stencil_mesh, stencil_axis)
+
+
+def _skeletonize(inflated, s: Statics, stencil_mesh, stencil_axis):
+    if stencil_mesh is None:
+        return _skeleton.skeletonize(inflated, s)
+    from .parallel.spatial import skeletonize_sharded
+
+    return skeletonize_sharded(inflated, s, stencil_mesh, stencil_axis)
 
 
 def perceive_init(pc: PointCloud, poly: Polygon, params: AosParams, exclusions,
-                  s: Statics, *, ror_method: str = "exact") -> IncrementalState:
-    """Full from-scratch pass, keeping the incremental intermediates."""
+                  s: Statics, *, ror_method: str = "exact", stencil_mesh=None,
+                  stencil_axis: str = "space") -> IncrementalState:
+    """Full from-scratch pass, keeping the incremental intermediates.
+    stencil_mesh: optional mesh for the grid stencils and the flood."""
     xy, keep, cnt, valid, bounds, guards = _points.preprocess_full(
         pc, poly, params, exclusions, s, ror_method=ror_method)
     grid = _raster.generate_grid(xy, keep, bounds, s)
-    inflated = _raster.inflate(grid, s)
-    skel = _skeleton.skeletonize(inflated, s)
-    out, world = _downstream(skel, inflated, poly, params, s, guards)
+    inflated = _inflate(grid, s, stencil_mesh, stencil_axis)
+    skel = _skeletonize(inflated, s, stencil_mesh, stencil_axis)
+    out, world = _downstream(skel, inflated, poly, params, s, guards, stencil_mesh,
+                             stencil_axis)
     return IncrementalState(xyz=pc.xyz, valid=valid, cnt=cnt, keep=keep, inflated=inflated,
                             cfg=(poly, params, exclusions), pre_guards=guards, out=out,
                             world=world)
@@ -144,7 +168,8 @@ def _cross_counts(all_pts, all_valid, dpts, dvalid, dcount: int, r2):
 
 
 def perceive_update(st: IncrementalState, pc: PointCloud, poly: Polygon, params: AosParams,
-                    exclusions, s: Statics, *, ror_method: str = "exact"):
+                    exclusions, s: Statics, *, ror_method: str = "exact", stencil_mesh=None,
+                    stencil_axis: str = "space"):
     """One incremental map frame. pc is the FULL current snapshot
     (index-stable buffer); the delta is the mask difference against the
     carried state. Returns (new state, level i32 tensor)."""
@@ -161,7 +186,8 @@ def perceive_update(st: IncrementalState, pc: PointCloud, poly: Polygon, params:
     cfg = (poly, params, exclusions)
     cfg_same = _cfg_same(st.cfg, cfg)
     if cfg_same is False or bool(removed | moved | (dcount > D) | ~cfg_same):
-        return (perceive_init(pc, poly, params, exclusions, s, ror_method=ror_method),
+        return (perceive_init(pc, poly, params, exclusions, s, ror_method=ror_method,
+                              stencil_mesh=stencil_mesh, stencil_axis=stencil_axis),
                 _level(LEVEL_FULL, dev))
     n_delta = int(dcount)
     if n_delta == 0:
@@ -192,13 +218,13 @@ def perceive_update(st: IncrementalState, pc: PointCloud, poly: Polygon, params:
     keep &= _points.static_keep_mask(xyz_new, params, exclusions, bounds)
 
     grid = _raster.generate_grid(xyz_new[:, :2], keep, bounds, s)
-    inflated = _raster.inflate(grid, s)
+    inflated = _inflate(grid, s, stencil_mesh, stencil_axis)
     carried = dataclasses.replace(st, xyz=xyz_new, valid=valid_new, cnt=cnt, keep=keep,
                                   inflated=inflated)
     if not bool((inflated.occ != st.inflated.occ).any()):
         return carried, _level(LEVEL_REUSE_WORLD, dev)
 
-    skel = _skeleton.skeletonize(inflated, s)
+    skel = _skeletonize(inflated, s, stencil_mesh, stencil_axis)
     if bool((skel.occ == carried.out.skeleton.occ).all()):
         # the skeleton is the same, so graph and plans are; the inflated
         # occupancy plane did change, so refresh it wherever it rides
@@ -209,7 +235,8 @@ def perceive_update(st: IncrementalState, pc: PointCloud, poly: Polygon, params:
             _level(LEVEL_REUSE_DOWNSTREAM, dev))
     # seed with the preprocess-era bits only: the previous skeleton's
     # cluster bits must not carry over into this frame's world
-    out, world = _downstream(skel, inflated, poly, params, s, carried.pre_guards)
+    out, world = _downstream(skel, inflated, poly, params, s, carried.pre_guards,
+                             stencil_mesh, stencil_axis)
     return dataclasses.replace(carried, out=out, world=world), _level(LEVEL_DOWNSTREAM, dev)
 
 

@@ -1,17 +1,17 @@
 """Monte-Carlo planner evaluation over many orchards (mirror of
 ``aosx/parallel/batch.py``): one-shot rollouts, chunked rollouts with an
-in-loop summary accumulator, plan-cached rollouts, and the sustained
-lane-refill harness.
+in-loop summary accumulator, plan-cached rollouts, the sustained lane-refill
+harness, and rollouts whose lanes are split over the devices of a mesh.
 
 What differs from the JAX package, and why:
 
-- **Clouds, not keys.** ``aosx`` draws each orchard from ``jax.random``
-  inside the rollout; its normals go through XLA's erf_inv and cannot be
-  reproduced bit for bit here. Where ``aosx`` takes ``key``/``keys``/``seed``
-  the port takes a cloud ``(xyz float32 [n, 3], polygon [4, 2])`` or, in the
-  harness, ``clouds``: a callable rollout id -> cloud (default
-  ``make_orchard_np(spec, seed=seed + id)``). Parity tests hand both
-  packages the same clouds.
+- **Keys, as in ``aosx``.** Rollout id ``i`` runs
+  ``orchards.make_orchard(keys[i], spec, s, device)``, with ``aosx``'s
+  default ``keys = prng.split(prng.prng_key(seed), total)``: the port draws
+  the JAX package's clouds bit for bit (``prng``, ``f32math``), so the same
+  call evaluates the same worlds in both packages. The harness also takes
+  ``clouds``, a callable rollout id -> cloud ``(xyz float32 [n, 3],
+  polygon [k, 2])``, in place of the keys.
 - **Lanes.** ``aosx`` vmaps begin/chunk/finish over lanes. Here ``begin``
   builds the worlds of a group one after the other (the world build's loops
   are data-dependent) and stacks them on a leading lane axis; the full World
@@ -20,11 +20,14 @@ What differs from the JAX package, and why:
   ``plancache.step_cached`` on [L, ...] leaves. The uncached chunk
   (``engine.step``: per-tick A* and linearize loops that end on the data)
   runs its lanes one after the other; it is right and slow.
+- **Meshes.** ``sharded_rollouts`` and ``sustained_rollouts(mesh=)`` split
+  the lanes into one block per device of a ``parallel.spatial.Mesh``; block
+  ``k`` is built, stepped and read on ``mesh.devices[k]``. Lanes are
+  independent, so every lane's record is bitwise the one of ``mesh=None``.
 - **No compile, no warm-up.** There is nothing to trace, so the harness
   times from its first chunk call. ``width_valve``, ``host_jit`` and the
   sync-debug switch guard against faults of the TPU toolchain and have no
-  counterpart; ``sharded_rollouts`` and ``mesh=`` are not ported (one card
-  has nothing to shard over).
+  counterpart.
 """
 
 from __future__ import annotations
@@ -35,11 +38,11 @@ import time
 import numpy as np
 import torch
 
-from .. import engine, tree
+from .. import engine, prng, tree
 from ..config import AosParams, Statics
 from ..convert import to_numpy
 from ..ops import sqrt
-from ..orchards import OrchardSpec, make_orchard_np
+from ..orchards import OrchardSpec, make_orchard
 from ..plan import plancache
 from ..types import PointCloud, Polygon
 
@@ -64,9 +67,15 @@ def cloud_tensors(cloud, s: Statics, device):
     return pc, Polygon.from_array(poly, s, device)
 
 
-def _world(cloud, params: AosParams, s: Statics, ror_method: str, device):
-    pc, poly = cloud_tensors(cloud, s, device)
-    excl = torch.zeros((s.max_exclusions, 3), dtype=torch.float32, device=device)
+def to_device(t, device):
+    """Every tensor leaf of ``t`` on ``device`` (other leaves as they are)."""
+    return tree.tree_map(lambda x: x.to(device) if torch.is_tensor(x) else x, t)
+
+
+def _world(orchard, params: AosParams, s: Statics, ror_method: str):
+    """The World of an orchard (PointCloud, Polygon), on the orchard's device."""
+    pc, poly = orchard
+    excl = torch.zeros((s.max_exclusions, 3), dtype=torch.float32, device=pc.xyz.device)
     return engine.prepare_world(pc, poly, params, excl, s, ror_method=ror_method)
 
 
@@ -115,22 +124,41 @@ def rollout_summary(final, metrics, s: Statics):
     ), s)
 
 
-def rollout_one(cloud, params: AosParams, s: Statics, n_steps: int,
+def rollout_one(key, spec: OrchardSpec, params: AosParams, s: Statics, n_steps: int,
                 ror_method: str = "sorted", v_dt=None, device=None):
-    """One orchard: perceive -> GVD -> closed loop of n_steps ticks. v_dt:
-    per-tick travel of the stand-in robot (engine.episode's default 0.12)."""
+    """One procedural orchard drawn from ``key``: generate -> perceive -> GVD
+    -> closed loop of n_steps ticks. v_dt: per-tick travel of the stand-in
+    robot (engine.episode's default 0.12)."""
     device = default_device() if device is None else device
-    world = _world(cloud, params, s, ror_method, device)
+    world = _world(make_orchard(key, spec, s, device), params, s, ror_method)
     kw = {} if v_dt is None else {"v_dt": v_dt}
     final, metrics = engine.episode(world, params, s, n_steps, **kw)
     return rollout_summary(final, metrics, s)
 
 
-def batched_rollouts(clouds, params, s, n_steps, ror_method="sorted", v_dt=None, device=None):
-    """rollout_one over a sequence of clouds, one after the other; every
-    field gains a leading axis."""
-    return tree.stack([rollout_one(c, params, s, n_steps, ror_method, v_dt, device)
-                       for c in clouds])
+def batched_rollouts(keys, spec, params, s, n_steps, ror_method="sorted", v_dt=None,
+                     device=None):
+    """rollout_one over keys [B, 2], one after the other; every field gains a
+    leading axis."""
+    return tree.stack([rollout_one(k, spec, params, s, n_steps, ror_method, v_dt, device)
+                       for k in keys])
+
+
+def sharded_rollouts(keys, spec, params, s, n_steps, mesh, ror_method="sorted"):
+    """The keys split into one block per device of ``mesh`` (a
+    ``parallel.spatial.Mesh``), each block's rollouts run on its device.
+    Returns (out, total_done): every field of all blocks joined on
+    ``mesh.devices[0]``, and the completed count summed over the blocks."""
+    n = len(mesh.devices)
+    assert keys.shape[0] % n == 0, (keys.shape, n)
+    per = keys.shape[0] // n
+    outs = [to_device(batched_rollouts(keys[k * per:(k + 1) * per], spec,
+                                       to_device(params, dev), s, n_steps, ror_method,
+                                       device=dev), mesh.devices[0])
+            for k, dev in enumerate(mesh.devices)]
+    total_done = torch.stack([o["completed"].to(torch.int32).sum(dtype=torch.int32)
+                              for o in outs]).sum(dtype=torch.int32)
+    return tree.cat(outs), total_done
 
 
 # ---------------------------------------------------------------------------
@@ -171,18 +199,25 @@ def _fold(acc, m, tick):
     )
 
 
-def rollout_begin(cloud, params: AosParams, s: Statics, n_steps_total: int,
-                  ror_method: str = "sorted", classify: bool = False, device=None):
-    """World + initial state + summary accumulator for one orchard.
-    classify=True also builds the plan cache for its tour_feasibility."""
-    device = default_device() if device is None else device
-    world = _world(cloud, params, s, ror_method, device)
-    acc = _acc_init(s, n_steps_total, device)
+def _begin(orchard, params: AosParams, s: Statics, n_steps_total: int, ror_method: str,
+           classify: bool):
+    world = _world(orchard, params, s, ror_method)
+    acc = _acc_init(s, n_steps_total, orchard[0].xyz.device)
     if classify:
         cache = plancache.build_plan_cache(world, params, s)
         feas = plancache.tour_feasibility(cache, world.waypoints, params, s)
         acc["feasible"] = feas["feasible"].to(torch.int32)
     return world, engine.initial_state(world, s), acc
+
+
+def rollout_begin(key, spec: OrchardSpec, params: AosParams, s: Statics, n_steps_total: int,
+                  ror_method: str = "sorted", classify: bool = False, device=None):
+    """World + initial state + summary accumulator for the orchard of
+    ``key``. classify=True also builds the plan cache for its
+    tour_feasibility."""
+    device = default_device() if device is None else device
+    return _begin(make_orchard(key, spec, s, device), params, s, n_steps_total, ror_method,
+                  classify)
 
 
 def rollout_chunk(world, st, acc, params, s: Statics, n: int, offset):
@@ -218,20 +253,26 @@ def rollout_finish(st, acc, s: Statics):
 # ---------------------------------------------------------------------------
 
 
-def rollout_begin_cached(cloud, params: AosParams, s: Statics, n_steps_total: int,
-                         ror_method: str = "sorted", device=None):
-    """rollout_begin + plan-cache build; returns (lite, cache, state, acc).
-    The full World is a temporary of this function. The feasibility class is
-    free here (a few reductions over the cache)."""
-    device = default_device() if device is None else device
-    world = _world(cloud, params, s, ror_method, device)
+def _begin_cached(orchard, params: AosParams, s: Statics, n_steps_total: int,
+                  ror_method: str):
+    world = _world(orchard, params, s, ror_method)
     cache = plancache.build_plan_cache(world, params, s)
-    acc = _acc_init(s, n_steps_total, device)
+    acc = _acc_init(s, n_steps_total, orchard[0].xyz.device)
     feas = plancache.tour_feasibility(cache, world.waypoints, params, s)
     acc["feasible"] = feas["feasible"].to(torch.int32)
     # step_cached never reads the per-point yaw rows (a serving payload)
     cache = dataclasses.replace(cache, plan_yaw=cache.plan_yaw[:, :0])
     return plancache.world_lite(world), cache, plancache.initial_cached_state(world, s), acc
+
+
+def rollout_begin_cached(key, spec: OrchardSpec, params: AosParams, s: Statics,
+                         n_steps_total: int, ror_method: str = "sorted", device=None):
+    """rollout_begin + plan-cache build; returns (lite, cache, state, acc).
+    The full World is a temporary of this function. The feasibility class is
+    free here (a few reductions over the cache)."""
+    device = default_device() if device is None else device
+    return _begin_cached(make_orchard(key, spec, s, device), params, s, n_steps_total,
+                         ror_method)
 
 
 def rollout_chunk_cached(lite, cache, st, acc, params, s: Statics, n: int, offset):
@@ -257,8 +298,8 @@ def sustained_rollouts(total: int, batch: int, spec: OrchardSpec, params: AosPar
                        s: Statics, steps_budget: int, *, chunk_steps: int = 150,
                        refill: int | None = None, seed: int = 0,
                        ror_method: str = "sorted", cached: bool = False, on_progress=None,
-                       params_queue: AosParams | None = None, clouds=None,
-                       classify: bool | None = None, device=None):
+                       params_queue: AosParams | None = None, keys=None,
+                       classify: bool | None = None, mesh=None, clouds=None, device=None):
     """Run ``total`` full rollouts through ``batch`` lanes with refill.
 
     Returns (results, stats): ``results`` is a dict of numpy arrays indexed
@@ -271,13 +312,27 @@ def sustained_rollouts(total: int, batch: int, spec: OrchardSpec, params: AosPar
     the fixed-budget rollout's. ``refill`` is the lane-group size of world
     rebuilds.
 
-    ``clouds``: rollout id -> (xyz [n, 3], polygon [k, 2]); default
-    ``make_orchard_np(spec, seed=seed + id)``. ``params_queue``: an AosParams
-    whose leaves carry a leading [total] axis; rollout id i runs with row i
-    (``params`` is then ignored). ``classify``: compute ``feasible``
-    (default: True when cached, where it is free; False when uncached, where
-    it costs a plan-cache build per world)."""
-    device = default_device() if device is None else device
+    ``keys``: the per-rollout keys (int64 [total, 2]; default, as in
+    ``aosx``, ``prng.split(prng.prng_key(seed), total)``); rollout id i runs
+    ``make_orchard(keys[i], spec, s)``. ``clouds``, in place of the keys:
+    rollout id -> (xyz [n, 3], polygon [k, 2]). ``params_queue``: an
+    AosParams whose leaves carry a leading [total] axis; rollout id i runs
+    with row i (``params`` is then ignored). ``classify``: compute
+    ``feasible`` (default: True when cached, where it is free; False when
+    uncached, where it costs a plan-cache build per world).
+
+    ``mesh`` (a ``parallel.spatial.Mesh``): the lanes split into one block
+    per device, lane ``ln`` in block ``ln // (batch / n_dev)``; a block's
+    worlds are built, stepped and read on its device. The queue logic is the
+    same and every record is bitwise the one of ``mesh=None``. batch must
+    divide by the mesh's device count."""
+    if mesh is not None:
+        devices = tuple(mesh.devices)
+        device = devices[0] if device is None else device
+    else:
+        device = default_device() if device is None else device
+        devices = (device,)
+    n_dev = len(devices)
     if classify is None:
         classify = cached
     refill = refill or max(1, min(batch // 2, 64))
@@ -288,44 +343,50 @@ def sustained_rollouts(total: int, batch: int, spec: OrchardSpec, params: AosPar
     # lanes overrun it
     assert steps_budget % chunk_steps == 0, (steps_budget, chunk_steps)
     assert batch % refill == 0, (batch, refill)
+    assert batch % n_dev == 0, (batch, n_dev)
+    per = batch // n_dev
     if clouds is None:
-        def clouds(i):
-            return make_orchard_np(spec, seed=seed + i)
+        if keys is None:
+            keys = prng.split(prng.prng_key(seed, torch.device("cpu")), total)
+        keys = torch.as_tensor(keys, dtype=torch.int64)
+        assert keys.shape[0] == total, (keys.shape, total)
+
+        def orchard(i, dev):
+            return make_orchard(keys[i], spec, s, dev)
+    else:
+        assert keys is None, "pass keys or clouds, not both"
+
+        def orchard(i, dev):
+            return cloud_tensors(clouds(i), s, dev)
 
     swept = params_queue is not None
     if swept:
         qlen = tree.leaves(params_queue)[0].shape[0]
         assert qlen == total, (qlen, total)
 
-    def _q(lo, hi):
-        """Params rows of rollout ids [lo, hi): queue rows if swept."""
-        return tree.lane(params_queue, slice(lo, hi)) if swept else params
+    def _params(i, dev):
+        """Params of rollout id i (an int) or ids i (a slice) on ``dev``."""
+        return to_device(tree.lane(params_queue, i) if swept else params, dev)
 
-    def begin(lo, hi):
-        """Lane-stacked (world, state, acc) of rollout ids [lo, hi), built
-        one after the other."""
-        group = []
-        for i in range(lo, hi):
-            p = tree.lane(params_queue, i) if swept else params
-            if cached:
-                lite, cache, st, acc = rollout_begin_cached(
-                    clouds(i), p, s, steps_budget, ror_method=ror_method, device=device)
-                group.append(((lite, cache), st, acc))
-            else:
-                group.append(rollout_begin(clouds(i), p, s, steps_budget,
-                                           ror_method=ror_method, classify=classify,
-                                           device=device))
-        return tree.stack(group)
+    def build(i, dev):
+        """(world, state, acc) of rollout id i, built on ``dev``."""
+        if cached:
+            lite, cache, st, acc = _begin_cached(orchard(i, dev), _params(i, dev), s,
+                                                 steps_budget, ror_method)
+            return (lite, cache), st, acc
+        return _begin(orchard(i, dev), _params(i, dev), s, steps_budget, ror_method,
+                      classify)
 
-    def chunk(world_b, st_b, acc_b, ages, params_b):
-        off = torch.from_numpy(ages).to(device)
+    def chunk(blk, ages_blk, dev):
+        world_b, st_b, acc_b, params_b = blk
+        off = torch.from_numpy(ages_blk).to(dev)
         if cached:
             return rollout_chunk_cached(world_b[0], world_b[1], st_b, acc_b, params_b, s,
                                         chunk_steps, off)
         out = []
-        for ln in range(batch):
+        for ln in range(len(ages_blk)):
             w, st, acc = tree.lane((world_b, st_b, acc_b), ln)
-            p = tree.lane(params_b, ln) if swept else params
+            p = tree.lane(params_b, ln) if swept else params_b
             out.append(rollout_chunk(w, st, acc, p, s, chunk_steps, off[ln]))
         return tree.stack(out)
 
@@ -340,32 +401,41 @@ def sustained_rollouts(total: int, batch: int, spec: OrchardSpec, params: AosPar
     begin_s = chunk_s = 0.0
 
     def _sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        for dev in set(devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     with torch.no_grad():
-        # initial fill, in refill-sized groups
+        # initial fill: lane ln runs rollout id ln, on its block's device.
+        # The harness counts it as batch / refill begin calls, as aosx does
         t_fill = time.perf_counter()
-        parts = [begin(i, i + refill) for i in range(0, batch, refill)]
-        n_begin_calls += len(parts)
-        world_b, st_b, acc_b = tree.cat(parts)
-        # per-lane params (only when swept), scattered alongside the lane
-        # state at refill so that a lane's chunk runs its rollout's own row
-        params_b = _q(0, batch)
+        blocks = []
+        for k, dev in enumerate(devices):
+            lanes = range(k * per, (k + 1) * per)
+            world_b, st_b, acc_b = tree.stack([build(i, dev) for i in lanes])
+            # per-lane params (only when swept), scattered alongside the lane
+            # state at refill so that a lane's chunk runs its rollout's own row
+            blocks.append([world_b, st_b, acc_b, _params(slice(lanes[0], lanes[-1] + 1), dev)])
+        n_begin_calls += batch // refill
         _sync()
         begin_s += time.perf_counter() - t_fill
 
         t0 = time.perf_counter()
         while n_recorded < total:
             tc = time.perf_counter()
-            st_b, acc_b = chunk(world_b, st_b, acc_b, ages, params_b)
-            comp = st_b.mission.exploration_completed.cpu().numpy()
+            comp = []
+            for k, dev in enumerate(devices):
+                blk = blocks[k]
+                blk[1], blk[2] = chunk(blk, ages[k * per:(k + 1) * per], dev)
+                comp.append(blk[1].mission.exploration_completed.cpu().numpy())
+            comp = np.concatenate(comp)
             chunk_s += time.perf_counter() - tc
             n_chunk_calls += 1
             ages += chunk_steps
             finished = (comp | (ages >= steps_budget)) & ~recorded
             if finished.any():
-                summ = to_numpy(rollout_finish(st_b, acc_b, s))
+                parts = [to_numpy(rollout_finish(b[1], b[2], s)) for b in blocks]
+                summ = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
                 for ln in np.nonzero(finished)[0]:
                     for k, v in summ.items():
                         results.setdefault(k, [None] * total)[rid[ln]] = v[ln]
@@ -374,18 +444,25 @@ def sustained_rollouts(total: int, batch: int, spec: OrchardSpec, params: AosPar
             # refill retired lanes in fixed-size groups while work remains
             while recorded.sum() >= refill and next_id + refill <= total:
                 idx = np.nonzero(recorded)[0][:refill]
+                ids = np.arange(next_id, next_id + refill)
                 tb = time.perf_counter()
-                new = begin(next_id, next_id + refill)
+                for k, dev in enumerate(devices):
+                    mine = (idx // per) == k
+                    if not mine.any():
+                        continue
+                    new = tree.stack([build(int(i), dev) for i in ids[mine]])
+                    local = torch.from_numpy(idx[mine] % per).to(dev)
+                    blk = blocks[k]
+                    blk[0], blk[1], blk[2] = tree.scatter(tuple(blk[:3]), local, new)
+                    if swept:
+                        blk[3] = tree.scatter(blk[3], local, to_device(
+                            tree.lane(params_queue, torch.from_numpy(ids[mine])), dev))
                 n_begin_calls += 1
-                idx_dev = torch.from_numpy(idx).to(device)
-                world_b, st_b, acc_b = tree.scatter((world_b, st_b, acc_b), idx_dev, new)
-                if swept:
-                    params_b = tree.scatter(params_b, idx_dev, _q(next_id, next_id + refill))
                 _sync()
                 begin_s += time.perf_counter() - tb
                 ages[idx] = 0
                 recorded[idx] = False
-                rid[idx] = np.arange(next_id, next_id + refill)
+                rid[idx] = ids
                 next_id += refill
             if on_progress is not None:
                 on_progress(n_recorded, total, time.perf_counter() - t0)

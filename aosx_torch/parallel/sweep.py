@@ -15,7 +15,9 @@ and the lane-batched tick evaluates each lane with its own row:
 Rollout id layout is configuration-major: id = c * K + k runs configuration
 c on orchard k, and every configuration sees the SAME K orchards, so
 per-orchard differences between configurations are paired (common random
-numbers). ``clouds(k)`` is therefore called with ``id % K``.
+numbers): rollout id c * K + k draws from ``base_keys[k]``, with ``aosx``'s
+``base_keys = prng.split(prng.prng_key(seed), K)``, or runs ``clouds(k)``
+where the caller passes clouds.
 ``summarize_sweep`` and ``compare_configs`` are numpy on the host, this
 package's own copies.
 """
@@ -28,9 +30,9 @@ import itertools
 import numpy as np
 import torch
 
-from .. import tree
+from .. import prng, tree
 from ..config import AosParams, Statics, params_as_f32
-from ..orchards import OrchardSpec, make_orchard_np
+from ..orchards import OrchardSpec
 from .batch import default_device, sustained_rollouts
 
 
@@ -67,8 +69,9 @@ def sweep_rollouts(stacked: AosParams, configs, seeds_per_config: int, spec: Orc
                    clouds=None, device=None):
     """P configurations x seeds_per_config rollouts, configuration-major,
     through sustained_rollouts' lane-refill harness (params_queue). Every
-    configuration runs the same seeds_per_config orchards: ``clouds(k)`` for
-    k < seeds_per_config (default ``make_orchard_np(spec, seed=seed + k)``).
+    configuration runs the same seeds_per_config orchard keys,
+    ``prng.split(prng.prng_key(seed), seeds_per_config)`` as in ``aosx``, or
+    the clouds ``clouds(k)`` for k < seeds_per_config where given.
 
     Returns (results, stats) exactly like sustained_rollouts; reshape with
     summarize_sweep."""
@@ -77,14 +80,16 @@ def sweep_rollouts(stacked: AosParams, configs, seeds_per_config: int, spec: Orc
     K = seeds_per_config
     device = tree.leaves(stacked)[0].device if device is None else device
     queue = tree.tree_map(lambda x: torch.repeat_interleave(x.to(device), K, dim=0), stacked)
+    keys = None
     if clouds is None:
-        def clouds(k):
-            return make_orchard_np(spec, seed=seed + k)
+        base_keys = prng.split(prng.prng_key(seed, torch.device("cpu")), K)
+        keys = base_keys[torch.arange(K).repeat(P)]
     return sustained_rollouts(
         P * K, batch, spec, None, s, steps_budget,
         chunk_steps=chunk_steps, refill=refill, ror_method=ror_method,
-        cached=cached, on_progress=on_progress, params_queue=queue,
-        clouds=lambda i: clouds(i % K), classify=classify, device=device,
+        cached=cached, on_progress=on_progress, params_queue=queue, keys=keys,
+        clouds=None if clouds is None else (lambda i: clouds(i % K)),
+        classify=classify, device=device,
     )
 
 

@@ -29,16 +29,26 @@ class PerceiveOut:
 
 
 def perceive(pc: PointCloud, poly: Polygon, params: AosParams, exclusions,
-             s: Statics, *, ror_method: str = "sorted") -> PerceiveOut:
+             s: Statics, *, ror_method: str = "sorted", stencil_mesh=None,
+             stencil_axis: str = "space") -> PerceiveOut:
     """Preprocess, rasterize, inflate, mark borders, skeletonize, then
-    ``perceive_tail``. (``aosx``'s row-sharded ``stencil_mesh`` option is
-    not ported.)"""
+    ``perceive_tail``. stencil_mesh: optional ``parallel.spatial.Mesh``; the
+    disc inflation and the morph open + Zhang-Suen then run on row bands
+    over its devices (``parallel/spatial.py``), bitwise equal to the
+    single-device stages. The other stages run as without a mesh."""
     xy, keep, bounds, guards = _points.preprocess(
         pc, poly, params, exclusions, s, ror_method=ror_method)
     grid = _raster.generate_grid(xy, keep, bounds, s)
-    inflated = _raster.inflate(grid, s)
-    occupancy = _raster.mark_borders(inflated)
-    skel = _skeleton.skeletonize(inflated, s)
+    if stencil_mesh is not None:
+        from ..parallel.spatial import inflate_sharded, skeletonize_sharded
+
+        inflated = inflate_sharded(grid, s, stencil_mesh, stencil_axis)
+        occupancy = _raster.mark_borders(inflated)
+        skel = skeletonize_sharded(inflated, s, stencil_mesh, stencil_axis)
+    else:
+        inflated = _raster.inflate(grid, s)
+        occupancy = _raster.mark_borders(inflated)
+        skel = _skeleton.skeletonize(inflated, s)
     return perceive_tail(skel, occupancy, poly, params, s, guards)
 
 

@@ -48,9 +48,14 @@ class ServeState:
 
 
 def serve_init(pc: PointCloud, poly: Polygon, params: AosParams, exclusions, s: Statics,
-               *, ror_method: str = "exact") -> ServeState:
-    """First map snapshot: the from-scratch world and its plan cache."""
-    inc0 = perceive_init(pc, poly, params, exclusions, s, ror_method=ror_method)
+               *, ror_method: str = "exact", stencil_mesh=None,
+               stencil_axis: str = "space") -> ServeState:
+    """First map snapshot: the from-scratch world and its plan cache.
+    stencil_mesh: optional ``parallel.spatial.Mesh`` for the grid stencils
+    and the flood of the world updates (bitwise equal;
+    incremental.perceive_init)."""
+    inc0 = perceive_init(pc, poly, params, exclusions, s, ror_method=ror_method,
+                         stencil_mesh=stencil_mesh, stencil_axis=stencil_axis)
     cache0 = plancache.add_carry_row(plancache.build_plan_cache(inc0.world, params, s), s)
     return ServeState(inc=inc0, cache=cache0,
                       st=plancache.initial_cached_state(inc0.world, s),
@@ -58,7 +63,8 @@ def serve_init(pc: PointCloud, poly: Polygon, params: AosParams, exclusions, s: 
 
 
 def serve_map_frame(sv: ServeState, pc_f: PointCloud, poly: Polygon, params: AosParams,
-                    exclusions, s: Statics, *, ror_method: str = "exact"):
+                    exclusions, s: Statics, *, ror_method: str = "exact", stencil_mesh=None,
+                    stencil_axis: str = "space"):
     """One SLAM map message. Returns (state, level i32 tensor), the
     incremental reuse level taken (incremental.LEVEL_*).
 
@@ -67,7 +73,8 @@ def serve_map_frame(sv: ServeState, pc_f: PointCloud, poly: Polygon, params: Aos
     rebuilt with the adopted row carried over and the restored live
     config's row pinned (plancache.pin_live_row)."""
     inc, level = perceive_update(sv.inc, pc_f, poly, params, exclusions, s,
-                                 ror_method=ror_method)
+                                 ror_method=ror_method, stencil_mesh=stencil_mesh,
+                                 stencil_axis=stencil_axis)
     mission, wp = rebuild_waypoints(sv.st.mission, sv.st.wp, inc.world.graph, params, s)
     cache, adopted = sv.cache, sv.st.adopted
     if int(level) >= LEVEL_DOWNSTREAM:

@@ -72,6 +72,20 @@ kernel on them:
            report against the JAX package's
            (tests/torch_reference/dashboard_np.json), the launches of K1
            and K2 against the worlds built, episode_state.npz loaded back
+  phase 11 row-sharded stencils and meshes (parallel/spatial.py). (a) At
+           BENCH_STATICS on the bench orchard with a 4-band mesh on the
+           card: prepare_world_full(stencil_mesh=) equals the single-device
+           world leaf for leaf, jump_flood_sharded the single-device owner
+           plane, bitwise; host ms of each banded stage beside the
+           single-device one; the banded path launches neither K1 nor K2
+           (it is the plain counterpart of aosx's XLA stencils); over
+           distinct cards too where more than one is visible. (b) At
+           TEST_STATICS: serve_init + 2 map frames with a 2-band mesh equal
+           the mesh-less serving states; sustained_rollouts(mesh=) of 8
+           rollouts drawn from the default keys equal mesh=None per lane;
+           the card pipeline's raw, inflated, occupancy and skeleton grids
+           equal the port's NumPy oracle (its Subdiv2D graph only where
+           OpenCV imports)
 
 Every phase raises on failure, so the exit code is not 0 and no result is
 printed. There is no CPU fallback: without a CUDA device the run fails.
@@ -102,9 +116,12 @@ ULP_BOUND = 4
 # K1 and its plain version round the flood's cell coordinates and squared
 # distance once, as the fused multiply-adds of the JAX reference's XLA:CPU
 # build, yet 3 of the 4,096,000 owner cells still differ on the bench orchard
-# (measured on the H100 and on the CPU; 5 before the FMAs; the JAX package's
-# own Pallas-interpret and dynamic-shift lowerings differ in 12). The graph
-# and its message agree exactly (phase 10).
+# (measured on the H100 and on the CPU). The fault is the reference's:
+# tests/torch_reference/owner_cells.py shows that at those cells the JAX
+# owner lies farther than the port's in f64 and in every f32 rounding of the
+# fold, that JAX's flood run op by op equals the port's unfused fold at every
+# cell, and that JAX's jitted dynamic-shift flood misplaces owners after a
+# single step-1 pass. The graph and its message agree exactly (phase 10).
 OWNER_CELL_BOUND = 32
 TEST_TICKS = 20
 TEST_V_DT = 0.5
@@ -271,8 +288,8 @@ def ulp_distance(a, b):
     return float(np.abs(a[fin].astype(np.float64) - b[fin].astype(np.float64)).max() / scale)
 
 
-def assert_trees_match(ref, got, what):
-    """int/bool leaves bitwise, f32 leaves within ULP_BOUND."""
+def tree_leaves(tree):
+    """{leaf path: numpy array} of a nested state (dataclasses, dicts, lists)."""
     from aosx_torch.convert import to_numpy
 
     def leaves(t, p=""):
@@ -285,8 +302,12 @@ def assert_trees_match(ref, got, what):
         else:
             yield p, np.asarray(t)
 
-    r = dict(leaves(to_numpy(ref)))
-    g = dict(leaves(to_numpy(got)))
+    return dict(leaves(to_numpy(tree)))
+
+
+def assert_trees_match(ref, got, what):
+    """int/bool leaves bitwise, f32 leaves within ULP_BOUND."""
+    r, g = tree_leaves(ref), tree_leaves(got)
     bad, worst = [], 0.0
     for name, a in r.items():
         b = g[name]
@@ -1247,7 +1268,8 @@ def mc_single(cloud, params, S, device, budget, chunk):
     chunk boundary with exploration_completed set, or at the budget."""
     from aosx_torch.parallel import batch
 
-    lite, cache, st, acc = batch.rollout_begin_cached(cloud, params, S, budget, device=device)
+    lite, cache, st, acc = batch._begin_cached(batch.cloud_tensors(cloud, S, device), params,
+                                               S, budget, "sorted")
     for off in range(0, budget, chunk):
         st, acc = batch.rollout_chunk_cached(lite, cache, st, acc, params, S, chunk, off)
         if bool(st.mission.exploration_completed):
@@ -1291,8 +1313,8 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
 
     # one world build alone: its kernel launches, and where begin's time goes
     zero_counts(kernels)
-    world, world_ms = timed(lambda: batch._world(make_orchard_np(spec, seed=0), params, S,
-                                                 "sorted", device))
+    world, world_ms = timed(lambda: batch._world(
+        batch.cloud_tensors(make_orchard_np(spec, seed=0), S, device), params, S, "sorted"))
     per_world = read_counts(kernels)
     cache, cache_ms = timed(lambda: plancache.build_plan_cache(world, params, S))
     tour = int(world.waypoints.count)
@@ -1372,8 +1394,9 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
             continue
         differ.append(i)
         # which plan-cache rows of this world differ from JAX's in length
-        _, cache_i, _, _ = batch.rollout_begin_cached(make_orchard_np(spec, seed=i), params, S,
-                                                      budget, device=device)
+        _, cache_i, _, _ = batch._begin_cached(
+            batch.cloud_tensors(make_orchard_np(spec, seed=i), S, device), params, S, budget,
+            "sorted")
         rows = [r for r, (a, b) in enumerate(zip(cache_i.plan_count.tolist(),
                                                  want["cache_count"])) if a != b]
         log(f"# phase 9: rollout {i} differs from the JAX reference in "
@@ -1410,12 +1433,14 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
         f"boundary their lane retired at) equal "
         f"their lane's record bitwise; {single_s:.1f} s a rollout alone")
 
-    # a 2 x 2 sweep; configuration 0 is the default parameters
+    # a 2 x 2 sweep on the same numpy clouds; configuration 0 is the default
+    # parameters
     stacked, configs = sweep.grid_params(device=device, docking_radius=[0.7, 0.4],
                                          heuristic_weight=[3.0, 1.0])
     (sres, sstats), sweep_ms = timed(lambda: sweep.sweep_rollouts(
         stacked, configs, sweep_seeds, spec, S, budget, batch=sweep_batch, chunk_steps=chunk,
-        ror_method="sorted", cached=True, device=device))
+        ror_method="sorted", cached=True, clouds=lambda k: make_orchard_np(spec, seed=k),
+        device=device))
     table, agg = sweep.summarize_sweep(sres, len(configs), sweep_seeds)
     bad = [k for k in res if table[k][0].tobytes() != res[k][:sweep_seeds].tobytes()]
     if bad:
@@ -1741,6 +1766,199 @@ def phase_dashboard(device):
     return {f"dashboard_{k}_s": v for k, v in walls.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: row-sharded stencils and meshes
+# ---------------------------------------------------------------------------
+
+MESH_BANDS = 4
+MESH_TOTAL, MESH_LANES, MESH_REFILL, MESH_BUDGET, MESH_CHUNK = 8, 4, 2, 300, 150
+
+
+def assert_trees_equal(ref, got, what):
+    """Every leaf bitwise equal (dtype, shape and bytes)."""
+    r, g = tree_leaves(ref), tree_leaves(got)
+    if r.keys() != g.keys():
+        raise AssertionError(f"{what}: leaves {sorted(r.keys() ^ g.keys())}")
+    bad = [k for k, a in r.items()
+           if a.dtype != g[k].dtype or a.shape != g[k].shape or a.tobytes() != g[k].tobytes()]
+    if bad:
+        raise AssertionError(f"{what}: leaves differ: {bad[:12]}")
+    return len(r)
+
+
+def mesh_bench(device, bench_spec, devices, name):
+    """(a) for one mesh: the banded world and flood at BENCH_STATICS against
+    the single-device ones; host ms of each stage. Returns its numbers."""
+    import torch
+    from aosx_torch import engine
+    from aosx_torch.config import BENCH_STATICS as S, AosParams, params_as_f32
+    from aosx_torch.gvd import jfa_pass_cuda
+    from aosx_torch.gvd.graph import merge_seeds
+    from aosx_torch.gvd.voronoi import jump_flood
+    from aosx_torch.parallel.spatial import (Mesh, inflate_sharded, jump_flood_sharded,
+                                             skeletonize_sharded)
+    from aosx_torch.perceive import points, raster, ror_cuda, skeleton, skeleton_cuda
+
+    kernels = (jfa_pass_cuda.jfa_flood, skeleton_cuda.zhang_suen_fixpoint, ror_cuda.ror_counts)
+    mesh = Mesh(devices, ("space",))
+    pc, poly = cloud(S, bench_spec, 0, device)
+    params = params_as_f32(AosParams(), device)
+    excl = torch.zeros((S.max_exclusions, 3), device=device)
+    # once untimed: the first call after the kernels load pays their set-up
+    engine.prepare_world_full(pc, poly, params, excl, S, ror_method="sorted")
+    zero_counts(kernels)
+    (world, out, _), single_ms = host_ms(lambda: engine.prepare_world_full(
+        pc, poly, params, excl, S, ror_method="sorted"))
+    single = read_counts(kernels)
+    assert_one_world(single, 1, S, f"phase 11 {name}: the single-device world")
+    # the banded path, counts set to 0 just before it and read just after
+    zero_counts(kernels)
+    (world_m, out_m, _), mesh_ms = host_ms(lambda: engine.prepare_world_full(
+        pc, poly, params, excl, S, ror_method="sorted", stencil_mesh=mesh))
+    banded = read_counts(kernels)
+    if banded["jfa_flood"] or banded["zhang_suen_fixpoint"] or banded["ror_counts"]:
+        raise AssertionError(f"phase 11 {name}: the banded world launched {banded}")
+    leaves = assert_trees_equal((world, out), (world_m, out_m),
+                                f"phase 11 {name}: prepare_world_full(stencil_mesh=)")
+
+    # stage by stage: host ms of the banded stage beside the single-device one
+    xy, keep, bounds, _ = points.preprocess(pc, poly, params, excl, S, ror_method="sorted")
+    grid = raster.generate_grid(xy, keep, bounds, S)
+    inflated = raster.inflate(grid, S)
+    merged = merge_seeds(out.seeds, params, S)
+    pairs = {
+        "inflate": (lambda: raster.inflate(grid, S).occ,
+                    lambda: inflate_sharded(grid, S, mesh).occ),
+        "skeletonize": (lambda: skeleton.skeletonize(inflated, S).occ,
+                        lambda: skeletonize_sharded(inflated, S, mesh).occ),
+        "jump_flood": (lambda: jump_flood(out.skeleton, merged, S),
+                       lambda: jump_flood_sharded(out.skeleton, merged, S, mesh)),
+    }
+    times = {}
+    for stage, (one, banded_fn) in pairs.items():
+        want, t_one = host_ms(one)
+        got, t_band = host_ms(banded_fn)
+        if not torch.equal(want.to(got.device), got):
+            raise AssertionError(f"phase 11 {name}: {stage} on bands differs from the single "
+                                 f"device in {int((want.to(got.device) != got).sum())} cells")
+        times[stage] = (t_one, t_band)
+    log(f"# phase 11 (a) {name}: BENCH_STATICS {S.grid_h}x{S.grid_w} over "
+        f"{[str(d) for d in mesh.devices]}: prepare_world_full(stencil_mesh=) == single device "
+        f"({leaves} leaves bitwise); host ms single / banded: world {single_ms:.1f} / "
+        f"{mesh_ms:.1f}, " + ", ".join(f"{k} {a:.1f} / {b:.1f}" for k, (a, b) in times.items())
+        + f"; launches single {single}, banded {banded}")
+    out_stats = {f"{name}_world_ms": [single_ms, mesh_ms]}
+    out_stats.update({f"{name}_{k}_ms": list(v) for k, v in times.items()})
+    return out_stats
+
+
+def phase_mesh(device, bench_spec):
+    import torch
+    from aosx_torch import engine, serving
+    from aosx_torch.config import TEST_STATICS as S, AosParams, params_as_f32
+    from aosx_torch.oracle import perceive as op
+    from aosx_torch.orchards import OrchardSpec, make_orchard_np
+    from aosx_torch.parallel import batch
+    from aosx_torch.parallel.spatial import Mesh
+    from aosx_torch.perceive import points, raster, skeleton
+
+    # (a) BENCH_STATICS, 4 bands on the card, and over distinct cards if any
+    stats = mesh_bench(device, bench_spec, (device,) * MESH_BANDS, "one_card")
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        n = max(k for k in (2, 4, 5, 8) if k <= n_cards and 2000 % k == 0)
+        stats.update(mesh_bench(device, bench_spec,
+                                tuple(torch.device("cuda", i) for i in range(n)), "cards"))
+
+    # (b) TEST_STATICS: serving with a 2-band mesh
+    params = params_as_f32(AosParams(), device)
+    excl = torch.zeros((S.max_exclusions, 3), device=device)
+    spec = OrchardSpec(n_rows=3, row_len=12.0, origin=(6.0, 4.0))
+    xyz, poly_np = make_orchard_np(spec, seed=5)
+    xyz = xyz[np.random.default_rng(0).permutation(len(xyz))].astype(np.float32)
+    frames = []
+    for frac in (0.55, 0.8, 1.0):
+        n = int(len(xyz) * frac)
+        frames.append(batch.cloud_tensors((xyz[:n], poly_np), S, device)[0])
+    poly = batch.cloud_tensors((xyz[:1], poly_np), S, device)[1]
+    mesh2 = Mesh((device,) * 2, ("space",))
+    t0 = time.perf_counter()
+    sv = serving.serve_init(frames[0], poly, params, excl, S)
+    sv_m = serving.serve_init(frames[0], poly, params, excl, S, stencil_mesh=mesh2)
+    assert_trees_equal(sv, sv_m, "phase 11: serve_init(stencil_mesh=)")
+    levels = []
+    for f, pc in enumerate(frames[1:], 1):
+        sv, lv = serving.serve_map_frame(sv, pc, poly, params, excl, S)
+        sv_m, lv_m = serving.serve_map_frame(sv_m, pc, poly, params, excl, S, stencil_mesh=mesh2)
+        if int(lv) != int(lv_m):
+            raise AssertionError(f"phase 11: frame {f} level {int(lv_m)} with the mesh, "
+                                 f"{int(lv)} without")
+        assert_trees_equal(sv, sv_m, f"phase 11: serve_map_frame {f} (stencil_mesh=)")
+        levels.append(int(lv))
+    serve_s = time.perf_counter() - t0
+    log(f"# phase 11 (b): TEST_STATICS serve_init + {len(levels)} map frames (levels {levels}) "
+        f"with a 2-band mesh == without, every state leaf bitwise ({serve_s:.1f} s for both)")
+
+    # sustained rollouts with the lanes over a 2-device mesh, default keys
+    kw = dict(chunk_steps=MESH_CHUNK, refill=MESH_REFILL, seed=0, ror_method="sorted",
+              cached=True, device=device)
+    t0 = time.perf_counter()
+    want, wstats = batch.sustained_rollouts(MESH_TOTAL, MESH_LANES, spec, params, S,
+                                            MESH_BUDGET, **kw)
+    got, gstats = batch.sustained_rollouts(MESH_TOTAL, MESH_LANES, spec, params, S,
+                                           MESH_BUDGET, mesh=Mesh((device,) * 2, ("data",)),
+                                           **kw)
+    assert_trees_equal(want, got, "phase 11: sustained_rollouts(mesh=)")
+    if (wstats["chunk_calls"], wstats["begin_calls"]) != (gstats["chunk_calls"],
+                                                          gstats["begin_calls"]):
+        raise AssertionError(f"phase 11: harness calls {gstats} vs {wstats}")
+    mc_s = time.perf_counter() - t0
+    log(f"# phase 11 (b): sustained_rollouts of {MESH_TOTAL} rollouts (seed 0 keys, "
+        f"make_orchard on the card) through {MESH_LANES} lanes over a 2-device mesh == "
+        f"mesh=None, per lane bitwise; completed {int(got['completed'].sum())}; "
+        f"{mc_s:.1f} s for both")
+
+    # the card pipeline's grids against the port's NumPy oracle
+    xyz_o, poly_o = make_orchard_np(OrchardSpec(n_rows=3, row_len=12.0), seed=3)
+    xyz_o, poly_o = xyz_o.astype(np.float32), poly_o.astype(np.float32)
+    x64, p64 = xyz_o.astype(np.float64), poly_o.astype(np.float64)
+    ores = op.perceive(x64, p64)
+    keep = op.radius_outlier_removal(x64)
+    pts = op.preprocess_points(x64[keep], p64, (-0.4, 0.5), (-5.0, 72.0, -10.0, 20.0),
+                               np.zeros((0, 3)))
+    raw_o = op.generate_occupancy_grid(pts, op.active_bounds(p64, None), S.resolution)
+    infl_o = op.apply_inflation(raw_o, 0.8)
+    pc, poly = batch.cloud_tensors((xyz_o, poly_o), S, device)
+    xy, keep_t, bounds, _ = points.preprocess(pc, poly, params, excl, S)
+    grid = raster.generate_grid(xy, keep_t, bounds, S)
+    inflated = raster.inflate(grid, S)
+    planes = {"raw": (grid, raw_o), "inflated": (inflated, infl_o),
+              "occupancy": (raster.mark_borders(inflated), ores.occupancy),
+              "skeleton": (skeleton.skeletonize(inflated, S), ores.skeleton)}
+    for name, (g, o) in planes.items():
+        live = g.occ[:int(g.h_cells), :int(g.w_cells)].cpu().numpy()
+        if live.shape != o.data.shape or not (live == (o.data == 100)).all():
+            raise AssertionError(f"phase 11: the card's {name} grid differs from the oracle's")
+    try:
+        import cv2  # noqa: F401
+        from aosx_torch.oracle import gvd as og
+        ref = og.gvd_graph(ores.seeds, ores.skeleton, ores.rows_sorted)
+        world = engine.prepare_world(pc, poly, params, excl, S, ror_method="exact")
+        nodes = world.graph.nodes[:int(world.graph.num_nodes)].cpu().numpy()
+        d = np.linalg.norm(nodes[None] - np.asarray(ref.nodes)[:, None], axis=2).min(1)
+        misses = int((d > 3 * S.resolution).sum())
+        if misses > max(1, int(0.02 * len(ref.nodes))):
+            raise AssertionError(f"phase 11: {misses} Subdiv2D nodes without a port node")
+        subdiv = f"the Subdiv2D graph's {len(ref.nodes)} nodes covered but {misses}"
+    except ImportError:
+        subdiv = "no OpenCV here, so no Subdiv2D graph (morph_open took its NumPy branch)"
+    log(f"# phase 11 (b): the card's raw, inflated, occupancy and skeleton grids == the port's "
+        f"oracle at {S.grid_h}x{S.grid_w} (live {int(grid.h_cells)}x{int(grid.w_cells)}); "
+        f"{subdiv}")
+    stats.update(serve_mesh_s=serve_s, sustained_mesh_s=mc_s)
+    return stats
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tests"))
@@ -1776,6 +1994,7 @@ def main():
     mc_launches, mc_stats = phase(9, phase_monte_carlo, device)
     host_stats = phase(10, phase_host_surface, device, bench_spec)
     host_stats.update(phase(10, phase_dashboard, device))
+    mesh_stats = phase(11, phase_mesh, device, bench_spec)
 
     def row(name, source, replaces, k):
         # launches: on the serving path (phase 7); launches_stage_full: on
@@ -1817,6 +2036,7 @@ def main():
     log(f"# serving: {json.dumps(serve_stats)}")
     log(f"# monte carlo: {json.dumps(mc_stats)}")
     log(f"# operator's surface: {json.dumps(host_stats)}")
+    log(f"# meshes: {json.dumps(mesh_stats)}")
     log(f"# K3 uniform cloud: kernel {k3['uniform_ms']:.3f} ms, plain {k3['uniform_plain_ms']:.3f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,7 +27,7 @@ from aosx.orchards import OrchardSpec as JSpec, make_orchard
 from aosx.parallel import batch as jbatch
 from aosx.plan import plancache as jplancache
 from aosx import engine as jengine
-from aosx_torch import tree
+from aosx_torch import prng, tree
 from aosx_torch.config import DRYRUN_STATICS as S, AosParams, params_as_f32
 from aosx_torch.convert import to_numpy, to_torch
 from aosx_torch.guards import GUARD_SKEL_OVERFLOW
@@ -140,8 +140,9 @@ def test_lanes_equal_single_runs(clouds, params):
     """4 lanes x 60 ticks of the lane step_cached equal 4 single-lane runs,
     every state leaf and metric bitwise (v_dt = 0.5 m a tick, so the lanes
     leave the straight leg, dock and replan)."""
-    singles = [batch.rollout_begin_cached(c, params, S, 60, ror_method="exact", device=CPU)
-               for c in clouds[:4]]
+    keys = prng.split(prng.prng_key(5, CPU), TOTAL)[:4]
+    singles = [batch.rollout_begin_cached(k, SPEC, params, S, 60, ror_method="exact", device=CPU)
+               for k in keys]
     lite_b, cache_b, st_b, _ = tree.stack(singles)
     lane_metrics = []
     for _ in range(60):
@@ -232,15 +233,16 @@ def test_sustained_rejects_bad_shapes(params):
                                  device=CPU)
 
 
-def test_default_clouds_are_make_orchard_np(params):
-    """Without ``clouds`` rollout id i runs make_orchard_np(spec, seed + i)."""
-    from aosx_torch.orchards import make_orchard_np
-
+def test_default_keys_are_jax_keys(params):
+    """Without ``clouds`` rollout id i runs the orchard of the JAX package's
+    key ``jax.random.split(PRNGKey(seed), total)[i]``, as ``aosx`` does: the
+    records equal those of the JAX keys' clouds, bitwise."""
     res, _ = batch.sustained_rollouts(2, 2, SPEC, params, S, CHUNK, chunk_steps=CHUNK, refill=1,
                                       seed=3, ror_method="exact", cached=True, device=CPU)
+    jclouds = [cloud_of(k) for k in jax.random.split(jax.random.PRNGKey(3), 2)]
     want, _ = batch.sustained_rollouts(
         2, 2, SPEC, params, S, CHUNK, chunk_steps=CHUNK, refill=1, ror_method="exact",
-        cached=True, clouds=lambda i: make_orchard_np(SPEC, seed=3 + i), device=CPU)
+        cached=True, clouds=jclouds.__getitem__, device=CPU)
     assert_same(want, res)
 
 
@@ -279,7 +281,8 @@ def test_flagged_lane_end_to_end(params):
     key = jax.random.PRNGKey(0)
     jp = jparams(JParams())
     want = jax.jit(lambda k: jbatch.rollout_one(k, JSPEC, jp, js, 5, ror_method="exact"))(key)
-    got = batch.rollout_one(cloud_of(key, js), params, s, 5, ror_method="exact", device=CPU)
+    got = batch.rollout_one(prng.prng_key(0, CPU), SPEC, params, s, 5, ror_method="exact",
+                            device=CPU)
     assert int(got["guards"]) & GUARD_SKEL_OVERFLOW
     assert not bool(got["completed"]) and int(got["final_status"]) == 1
     for k in INT_FIELDS:

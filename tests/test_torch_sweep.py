@@ -119,6 +119,17 @@ def test_sweep_is_configuration_major(sweeps):
     assert sweeps["stats"]["chunk_calls"] == sweeps["jstats"]["chunk_calls"]
 
 
+def test_sweep_default_keys_are_jax_keys(sweeps):
+    """Without ``clouds`` orchard k of every configuration is drawn from the
+    JAX package's ``base_keys = split(PRNGKey(seed), K)``: the records equal
+    those of the sweep on those keys' clouds, bitwise."""
+    stacked, configs = sweep.grid_params(device=CPU, heuristic_weight=[3.0, 1.0])
+    res, _ = sweep.sweep_rollouts(stacked, configs, K, OrchardSpec(**SPEC_KW), S, BUDGET,
+                                  batch=4, chunk_steps=20, refill=2, seed=5, ror_method="exact",
+                                  cached=True, device=CPU)
+    assert_same(sweeps["res"], res)
+
+
 @pytest.mark.parametrize("field", INT_FIELDS + FLOAT_FIELDS)
 def test_sweep_rollouts_match_jax(sweeps, field):
     got, want = sweeps["res"][field], np.asarray(sweeps["jres"][field])

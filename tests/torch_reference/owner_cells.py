@@ -1,0 +1,342 @@
+"""Where the port's flood and the JAX reference part on the bench orchard.
+
+``chip_smoke.py`` phase 5 counts the cells of the BENCH_STATICS owner plane
+that differ from ``bench_np_seed0_owner.npz`` (JAX's ``jump_flood`` inside
+``make_bench_reference.py``'s ``stage_full`` jit, ``jfa_dynamic_shifts=True``).
+This script finds out why.
+
+``make`` (needs jax; ~2 min on the CPU) runs that ``stage_full`` jit again,
+returning also the flood's inputs (the skeleton plane and its grid scalars,
+the merged seeds), checks that its owner plane is the reference's, and saves
+the inputs to ``bench_np_seed0_flood_in.npz``. It also saves the owner planes
+of JAX's ``jump_flood`` jitted alone on those inputs (dynamic shifts), and
+run op by op (no jit: no fusion, so no contraction of a*b + c).
+
+``passes`` (needs jax; ~10 min) jits JAX's dynamic-shift flood (the code of
+``aosx.gvd.voronoi.jump_flood``, with its ``_jfa_init`` and ``jacobi_fold``)
+over the first m passes, m = 1..12, and saves each owner plane to
+``_archive/owner_cells/jax_passes.npz`` (gitignored); ``analyse`` then finds
+the first pass whose owner plane differs from the port's, and where.
+
+``analyse`` (torch only; the default) floods the saved inputs with the port's
+plain Jacobi fold (``aosx_torch.gvd.voronoi.jacobi_fold``'s update) under
+several roundings of the cell coordinates and of d2, counts for each the
+cells that differ from every JAX plane, and prints, for every cell where the
+port's rounding differs from the reference, each pass's candidates: owner,
+d2 in f32 under each rounding and in f64.
+
+Run from the repository root:
+
+    JAX_PLATFORMS=cpu python tests/torch_reference/owner_cells.py make
+    JAX_PLATFORMS=cpu python tests/torch_reference/owner_cells.py passes
+    python tests/torch_reference/owner_cells.py analyse
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import pathlib
+import sys
+
+import numpy as np
+
+HERE = pathlib.Path(__file__).resolve().parent
+ROOT = HERE.parents[1]
+sys.path.insert(0, str(ROOT))
+FLOOD_IN = HERE / "bench_np_seed0_flood_in.npz"
+REF_OWNER = HERE / "bench_np_seed0_owner.npz"
+JAX_PASSES = ROOT / "_archive" / "owner_cells" / "jax_passes.npz"
+
+
+def make():
+    import jax
+    import jax.numpy as jnp
+
+    sys.path.insert(0, str(HERE))
+    from make_bench_reference import BENCH_SPEC  # noqa: E402
+
+    from aosx import engine
+    from aosx.config import BENCH_STATICS, AosParams, params_as_f32
+    from aosx.gvd.graph import build_gvd_graph, merge_seeds
+    from aosx.gvd.voronoi import jump_flood
+    from aosx.orchards import OrchardSpec, make_orchard_np
+    from aosx.perceive import perceive
+    from aosx.plan.astar import cost_matrix
+    from aosx.plan.mission import build_waypoints, trim_distance_plane
+    from aosx.types import GridWorld, PointCloud, Polygon, SeedSet
+
+    s = dataclasses.replace(BENCH_STATICS, jfa_dynamic_shifts=True)
+    xyz, poly = make_orchard_np(OrchardSpec(**BENCH_SPEC), seed=0)
+    buf = np.zeros((s.max_points, 3), np.float32)
+    buf[:len(xyz)] = xyz
+    valid = np.zeros(s.max_points, bool)
+    valid[:len(xyz)] = True
+    pc = PointCloud(xyz=jnp.asarray(buf), valid=jnp.asarray(valid))
+    polygon = Polygon.from_array(poly, s)
+    params = params_as_f32(AosParams())
+    excl = jnp.zeros((s.max_exclusions, 3), jnp.float32)
+
+    # make_bench_reference.py's stage_full, returning the flood's inputs too
+    @jax.jit
+    def stage_full(pc, poly, params, excl):
+        out = perceive(pc, poly, params, excl, s, ror_method="sorted")
+        g = build_gvd_graph(out.seeds, out.rows_sorted, out.skeleton, params, s)
+        cm = cost_matrix(g, s)
+        wp = build_waypoints(g, params, s)
+        world = engine.World(skeleton=out.skeleton, occupancy=out.occupancy, graph=g,
+                             costmat=cm, waypoints=wp,
+                             guards=out.guards | g.guards | cm.guards,
+                             trim_skel=trim_distance_plane(out.skeleton, s))
+        _, metrics = engine.step(engine.initial_state(world, s), world, params, s)
+        merged = merge_seeds(out.seeds, params, s)
+        owner = jump_flood(out.skeleton, merged, s)
+        return out.skeleton, merged, metrics["plan_len"], owner
+
+    skel, merged, _, owner = jax.block_until_ready(stage_full(pc, polygon, params, excl))
+    ref = np.load(REF_OWNER)["owner"]
+    print(f"stage_full again: {int((np.asarray(owner) != ref).sum())} cells differ from "
+          f"the reference owner plane", flush=True)
+    grid = GridWorld(skel.occ, skel.origin_x, skel.origin_y, skel.h_cells, skel.w_cells)
+    seeds = SeedSet(merged.xy, merged.valid, merged.kind)
+    alone = jax.block_until_ready(jax.jit(lambda g, se: jump_flood(g, se, s))(grid, seeds))
+    print(f"jump_flood jitted alone: {int((np.asarray(alone) != ref).sum())} cells differ",
+          flush=True)
+    with jax.disable_jit():
+        eager = np.asarray(jump_flood(grid, seeds, s))
+    print(f"jump_flood op by op: {int((eager != ref).sum())} cells differ", flush=True)
+    np.savez_compressed(
+        FLOOD_IN, occ=np.asarray(skel.occ), origin=np.array(
+            [np.asarray(skel.origin_x), np.asarray(skel.origin_y)], np.float32),
+        cells=np.array([int(skel.h_cells), int(skel.w_cells)], np.int32),
+        seeds_xy=np.asarray(merged.xy), seeds_valid=np.asarray(merged.valid),
+        resolution=np.float32(s.resolution), owner_stage=np.asarray(owner),
+        owner_alone=np.asarray(alone), owner_eager=eager)
+
+
+def jax_passes():
+    """JAX's jitted dynamic-shift flood stopped after m passes, m = 1..12."""
+    import jax
+    import jax.numpy as jnp
+
+    from aosx.config import BENCH_STATICS
+    from aosx.gvd.voronoi import _jfa_init, _passes, jacobi_fold
+    from aosx.types import GridWorld, SeedSet
+
+    inp = dict(np.load(FLOOD_IN))
+    s = BENCH_STATICS
+    grid = GridWorld(jnp.asarray(inp["occ"]), jnp.float32(inp["origin"][0]),
+                     jnp.float32(inp["origin"][1]), jnp.int32(inp["cells"][0]),
+                     jnp.int32(inp["cells"][1]))
+    S = len(inp["seeds_xy"])
+    seeds = SeedSet(jnp.asarray(inp["seeds_xy"]), jnp.asarray(inp["seeds_valid"]),
+                    jnp.zeros((S,), jnp.int8))
+    passes = _passes(s)
+
+    def flood(grid, seeds, m):
+        # aosx.gvd.voronoi.jump_flood's dynamic-shift branch over passes[:m]
+        h, w = grid.occ.shape
+        res = jnp.float32(s.resolution)
+        iy = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)
+        ix = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)
+        cellx = grid.origin_x + ix.astype(jnp.float32) * res
+        celly = grid.origin_y + iy.astype(jnp.float32) * res
+        steps = jnp.asarray(passes[:m], jnp.int32)
+
+        def dyn_shift(a, dy, dx, fill):
+            out = jnp.roll(a, (dy, dx), axis=(0, 1))
+            bad = (iy - dy < 0) | (iy - dy >= h) | (ix - dx < 0) | (ix - dx >= w)
+            return jnp.where(bad, fill, out)
+
+        def body(k, state):
+            step = steps[k]
+            o0, x0, y0 = state
+            nb = [(dyn_shift(o0, dys * step, dxs * step, jnp.int32(S)),
+                   dyn_shift(x0, dys * step, dxs * step, jnp.float32(1e9)),
+                   dyn_shift(y0, dys * step, dxs * step, jnp.float32(1e9)))
+                  for dys in (-1, 0, 1) for dxs in (-1, 0, 1) if dys or dxs]
+            return jacobi_fold(o0, x0, y0, nb, S, cellx, celly)
+
+        state = jax.lax.fori_loop(0, m, body, _jfa_init(grid, seeds, s), unroll=m)
+        return state[0]
+
+    out = {}
+    for m in range(1, len(passes) + 1):
+        out[f"m{m}"] = np.asarray(jax.jit(lambda g, se: flood(g, se, m))(grid, seeds))
+        print(f"passes[:{m}] done", flush=True)
+    JAX_PASSES.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(JAX_PASSES, **out)
+
+
+# ---------------------------------------------------------------------------
+# the port's flood under several roundings
+# ---------------------------------------------------------------------------
+
+VARIANTS = {
+    # name: (cell coordinates fused, d2 form)
+    "port": (True, "fma_dx"),       # fma(ix, res, origin); fma(dx, dx, dy * dy)
+    "fma_dy": (True, "fma_dy"),     # fma(dy, dy, dx * dx)
+    "d2_unfused": (True, "plain"),  # dx * dx + dy * dy, rounded op by op
+    "coords_unfused": (False, "fma_dx"),
+    "unfused": (False, "plain"),
+}
+
+
+def _d2(form, dx, dy):
+    from aosx_torch.ops import fma
+
+    if form == "fma_dx":
+        return fma(dx, dx, dy * dy)
+    if form == "fma_dy":
+        return fma(dy, dy, dx * dx)
+    return dx * dx + dy * dy
+
+
+def _coords(shape, origin, res, fused):
+    import torch
+
+    from aosx_torch.gvd.jfa_pass_cuda import cell_coords
+
+    if fused:
+        return cell_coords(shape, float(origin[0]), float(origin[1]), float(res),
+                           torch.device("cpu"))
+    h, w = shape
+    r = torch.tensor(res)
+    cx = torch.tensor(origin[0]) + torch.arange(w, dtype=torch.float32)[None, :] * r
+    cy = torch.tensor(origin[1]) + torch.arange(h, dtype=torch.float32)[:, None] * r
+    return cx.expand(h, w), cy.expand(h, w)
+
+
+def _candidates(o, x, y, step, S):
+    from aosx_torch.perceive.raster import shift2d
+
+    out = [(o, x, y)]
+    for dys in (-1, 0, 1):
+        for dxs in (-1, 0, 1):
+            if dys or dxs:
+                out.append((shift2d(o, dys * step, dxs * step, S),
+                            shift2d(x, dys * step, dxs * step, 1e9),
+                            shift2d(y, dys * step, dxs * step, 1e9)))
+    return out
+
+
+def flood(inp, variant, watch=(), states=None):
+    """The port's Jacobi flood of the saved inputs under ``variant``. Returns
+    (owner plane masked as jump_flood masks it, trace): trace[cell] lists per
+    pass the candidates (owner, {variant: d2 f32}, d2 f64) at that cell."""
+    import torch
+
+    from aosx_torch.config import BENCH_STATICS
+    from aosx_torch.gvd.voronoi import _jfa_init, _passes
+    from aosx_torch.types import GridWorld, SeedSet
+
+    fused, form = VARIANTS[variant]
+    occ = torch.from_numpy(inp["occ"])
+    origin, res = inp["origin"], inp["resolution"]
+    h_cells, w_cells = (torch.tensor(int(v), dtype=torch.int32) for v in inp["cells"])
+    grid = GridWorld(occ, torch.tensor(origin[0]), torch.tensor(origin[1]), h_cells, w_cells)
+    sxy = torch.from_numpy(inp["seeds_xy"])
+    seeds = SeedSet(sxy, torch.from_numpy(inp["seeds_valid"]),
+                    torch.zeros(len(sxy), dtype=torch.int8))
+    S = len(sxy)
+    owner, table = _jfa_init(grid, seeds, BENCH_STATICS)
+    pos = table[owner.long()]
+    o, x, y = owner, pos[..., 0].contiguous(), pos[..., 1].contiguous()
+    cellx, celly = _coords(occ.shape, origin, res, fused)
+    all_coords = {v: _coords(occ.shape, origin, res, f) for v, (f, _) in VARIANTS.items()}
+    inf = torch.tensor(3.4e38)
+    trace = {c: [] for c in watch}
+    for step in _passes(BENCH_STATICS):
+        cands = _candidates(o, x, y, step, S)
+        for (cy_, cx_) in watch:
+            rows = []
+            for no, nx, ny in cands:
+                k = int(no[cy_, cx_])
+                if k >= S:
+                    continue
+                px, py = nx[cy_, cx_], ny[cy_, cx_]
+                d32 = {}
+                for v, (f, fm) in VARIANTS.items():
+                    ccx, ccy = all_coords[v]
+                    d32[v] = float(_d2(fm, (px - ccx[cy_, cx_])[None], (py - ccy[cy_, cx_])[None])[0])
+                gx = float(origin[0]) + (cx_ * float(np.float32(res)))
+                gy = float(origin[1]) + (cy_ * float(np.float32(res)))
+                d64 = (float(px) - gx) ** 2 + (float(py) - gy) ** 2
+                rows.append((k, d32, d64))
+            trace[(cy_, cx_)].append((step, sorted(set((r[0], tuple(r[1].items()), r[2])
+                                                     for r in rows))))
+        d2 = torch.where(o < S, _d2(form, x - cellx, y - celly), inf)
+        no_, nx_, ny_ = o, x, y
+        for co, cx2, cy2 in cands[1:]:
+            nd = torch.where(co < S, _d2(form, cx2 - cellx, cy2 - celly), inf)
+            better = (nd < d2) | ((nd == d2) & (co < no_))
+            no_ = torch.where(better, co, no_)
+            nx_ = torch.where(better, cx2, nx_)
+            ny_ = torch.where(better, cy2, ny_)
+            d2 = torch.where(better, nd, d2)
+        o, x, y = no_, nx_, ny_
+        if states is not None:
+            states.append(o.numpy().copy())
+    iy = torch.arange(occ.shape[0])[:, None]
+    ix = torch.arange(occ.shape[1])[None, :]
+    live = (iy < h_cells) & (ix < w_cells)
+    return torch.where(live & (o < S), o, -1).numpy(), trace
+
+
+def analyse():
+    import torch
+
+    torch.set_num_threads(4)
+    inp = dict(np.load(FLOOD_IN))
+    ref = np.load(REF_OWNER)["owner"]
+    planes = {"reference (stage_full)": ref, "jump_flood alone": inp["owner_alone"],
+              "jump_flood op by op": inp["owner_eager"]}
+    for a, pa in planes.items():
+        for b, pb in planes.items():
+            if a < b:
+                print(f"JAX {a} vs JAX {b}: {int((pa != pb).sum())} cells differ")
+    port, _ = flood(inp, "port")
+    cells = [tuple(int(v) for v in c) for c in np.argwhere(port != ref)]
+    summary = {}
+    for v in VARIANTS:
+        got = port if v == "port" else flood(inp, v)[0]
+        summary[v] = {a: int((got != pa).sum()) for a, pa in planes.items()}
+        print(f"port flood, {v}: cells differing from " + json.dumps(summary[v]), flush=True)
+    print(f"cells where the port differs from the reference: {cells}")
+    _, trace = flood(inp, "port", watch=cells)
+    for c in cells:
+        print(f"\ncell (row, col) {c}: reference owner {ref[c]}, port {port[c]}, "
+              f"alone {inp['owner_alone'][c]}, op by op {inp['owner_eager'][c]}")
+        for step, rows in trace[c]:
+            print(f"  pass step {step}:")
+            for k, d32, d64 in rows:
+                vals = " ".join(f"{v}={d!r}" for v, d in d32)
+                print(f"    owner {k}: f64 {d64!r}  f32 {vals}")
+    if JAX_PASSES.exists():
+        jp = np.load(JAX_PASSES)
+        print("\nJAX's jitted flood stopped after m passes against the port's state after m "
+              "passes, cells that differ under each rounding:")
+        for v in VARIANTS:
+            states = []
+            flood(inp, v, states=states)
+            counts = [int((jp[f"m{m}"] != st).sum()) for m, st in enumerate(states, 1)]
+            print(f"  {v}: {counts}", flush=True)
+            if v == "port":
+                port_states = states
+        # a step-1 pass moves an owner at most one cell from its seed's cell
+        xy, org = inp["seeds_xy"], inp["origin"]
+        res = np.float32(inp["resolution"])
+        print("after the first pass (step 1), where JAX's jitted state differs:")
+        for r, c in np.argwhere(jp["m1"] != port_states[0])[:8]:
+            for who, k in (("JAX", jp["m1"][r, c]), ("port", port_states[0][r, c])):
+                if k < len(xy):
+                    cell = (int(np.floor((xy[k, 1] - org[1]) / res)),
+                            int(np.floor((xy[k, 0] - org[0]) / res)))
+                    print(f"  cell {(int(r), int(c))}: {who} owner {int(k)}, whose seed lies "
+                          f"in cell {cell}")
+    return summary
+
+
+if __name__ == "__main__":
+    mode = sys.argv[1] if len(sys.argv) > 1 else "analyse"
+    {"make": make, "passes": jax_passes, "analyse": analyse}[mode]()
