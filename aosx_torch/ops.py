@@ -83,11 +83,17 @@ CHECK_EVERY = 4
 
 def while_loop(cond, body, state, check_every: int = CHECK_EVERY):
     """``lax.while_loop`` as a Python loop that reads ``cond`` on the host
-    only every ``check_every`` iterations. Sound only for bodies that leave
-    the state unchanged once ``cond`` is false; the bodies in this package
-    either are such no-ops by construction or mask their updates with
-    ``cond`` (see each caller)."""
-    while bool(cond(state)):
+    only every ``check_every`` iterations.
+
+    ``cond`` may return a tensor of lanes (the batch axes of a vmapped
+    loop): the loop runs while ANY lane is active, every lane in lockstep,
+    as ``jax.vmap`` of a ``while_loop`` runs it. Sound only for bodies that
+    leave each lane's state unchanged once that lane's ``cond`` is false:
+    the bodies in this package either are such no-ops by construction or
+    mask each lane's update with the lane's own ``cond`` (see each caller),
+    so neither the extra iterations between host checks nor the iterations
+    a lane spends waiting for the slowest lane change it."""
+    while bool(cond(state).any()):
         for _ in range(check_every):
             state = body(state)
     return state
@@ -114,17 +120,25 @@ def segment_min(vals, segs, num: int):
 
 
 def scatter_set(size: int, fill, idx, vals):
-    """``full(size, fill).at[idx].set(vals, mode="drop")`` for idx in
-    [0, size]; index ``size`` is the drop slot. Callers only drop or write
-    distinct indices, so no write races."""
-    out = torch.full((size + 1,) + vals.shape[1:], fill, dtype=vals.dtype, device=vals.device)
-    out[idx.long()] = vals
-    return out[:size]
+    """``full(size, fill).at[idx].set(vals, mode="drop")`` along the last
+    axis of idx, for idx in [0, size]; index ``size`` is the drop slot.
+    idx [*B, n] and vals [*B, n, *T] give [*B, size, *T]: leading axes are
+    lanes, each scattered on its own. Callers only drop or write distinct
+    indices within a lane, so no write races."""
+    nb = idx.dim() - 1
+    T = vals.shape[nb + 1:]
+    out = torch.full(idx.shape[:-1] + (size + 1,) + T, fill, dtype=vals.dtype,
+                     device=vals.device)
+    ix = idx.long().reshape(idx.shape + (1,) * len(T)).expand(vals.shape)
+    return out.scatter_(nb, ix, vals).narrow(nb, 0, size)
 
 
 def lanes(cond, like):
     """cond with trailing singleton axes appended until it broadcasts against
-    ``like`` from the left: cond's axes are ``like``'s leading (lane) axes."""
+    ``like`` from the left: cond's axes are ``like``'s leading (lane) axes.
+    A Python scalar (a parameter) is returned as it is."""
+    if not torch.is_tensor(cond):
+        return cond
     return cond.reshape(cond.shape + (1,) * (like.dim() - cond.dim()))
 
 
@@ -143,15 +157,61 @@ def take_row(arr, i):
     return torch.gather(arr, i.dim(), _row_index(arr, i)).squeeze(i.dim())
 
 
-def put_row(arr, i, value):
-    """A copy of ``arr`` with row ``i`` set to the scalar ``value``
-    (``take_row``'s indexing)."""
-    i = torch.as_tensor(i, device=arr.device).long()
-    if i.dim() == 0:
-        out = arr.clone()
-        out[i] = value
-        return out
-    return arr.scatter(i.dim(), _row_index(arr, i), value)
+def take(arr, idx, nb: int):
+    """``arr[b, idx[b, ...]]`` for every lane b of ``nb`` leading batch
+    axes: arr is [*Ba, N, *T] and idx [*Bi, *J] with Ba and Bi of length nb
+    and broadcastable (a world of batch axis 1 serves every row of a lane);
+    the result is [*broadcast(Ba, Bi), *J, *T]. A gather by advanced
+    indexing: no copy of a broadcast arr, every bit kept. nb = 0 is
+    ``arr[idx]``."""
+    idx = idx.long()
+    J = idx.dim() - nb
+    ix = []
+    for d in range(nb):
+        n = arr.shape[d]
+        shape = [1] * (nb + J)
+        shape[d] = n
+        ix.append(torch.arange(n, device=arr.device).reshape(shape))
+    return arr[tuple(ix) + (idx,)]
+
+
+def set_at(arr, i, value, nb: int):
+    """A copy of arr [*B, N, *T] with entry ``i[b]`` of every lane b
+    (i [*B]) set to value (broadcastable to [*B, *T]): a select against
+    the one-hot of i, so no two lanes ever write one cell."""
+    T = arr.dim() - nb - 1
+    hot = torch.arange(arr.shape[nb], device=arr.device) == i.unsqueeze(-1)
+    value = torch.as_tensor(value, dtype=arr.dtype, device=arr.device)
+    if value.dim() > 0:
+        value = value.unsqueeze(-T - 1)
+    return torch.where(hot.reshape(hot.shape + (1,) * T), value, arr)
+
+
+def sum_fixed(x):
+    """Sum over the last axis in one fixed order, a pairwise tree over the
+    axis padded with zeros to a power of two, whatever the leading shape
+    and device (torch.sum's order depends on both on the card). The +0.0
+    added last makes an all -0.0 sum +0.0, as torch.sum gives."""
+    n = x.shape[-1]
+    m = 1 << max(n - 1, 0).bit_length()
+    x = torch.cat([x, x.new_zeros(x.shape[:-1] + (m - n,))], dim=-1)
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0] + 0.0
+
+
+def cumsum_fixed(x):
+    """Inclusive prefix sums over the last axis in one fixed order
+    (Hillis-Steele: log2 n rounds of a shifted add), whatever the leading
+    shape and device; torch.cumsum on the card scans one row (CUB) in
+    another order than many rows."""
+    n = x.shape[-1]
+    k = 1
+    while k < n:
+        x = torch.cat([x[..., :k], x[..., k:] + x[..., :-k]], dim=-1)
+        k *= 2
+    return x
 
 
 def compact_take(vals, indices, fill):

@@ -12,14 +12,15 @@ What differs from the JAX package, and why:
   call evaluates the same worlds in both packages. The harness also takes
   ``clouds``, a callable rollout id -> cloud ``(xyz float32 [n, 3],
   polygon [k, 2])``, in place of the keys.
-- **Lanes.** ``aosx`` vmaps begin/chunk/finish over lanes. Here ``begin``
-  builds the worlds of a group one after the other (the world build's loops
-  are data-dependent) and stacks them on a leading lane axis; the full World
-  of a cached lane is dropped right after its plan cache is built. The
-  cached chunk is lane-batched: ``chunk_steps`` calls of
-  ``plancache.step_cached`` on [L, ...] leaves. The uncached chunk
-  (``engine.step``: per-tick A* and linearize loops that end on the data)
-  runs its lanes one after the other; it is right and slow.
+- **Lanes.** ``aosx`` vmaps begin/chunk/finish over lanes. Here the
+  cached ``begin`` of a group (``rollout_begin_group``) builds its worlds
+  one after the other (``prepare_world``'s loops end on the data), stacks
+  them on a leading lane axis and builds the group's plan caches in one
+  batched call over worlds x rows x A* candidates; the full Worlds are
+  dropped right after. The cached chunk is lane-batched: ``chunk_steps``
+  calls of ``plancache.step_cached`` on [L, ...] leaves. The uncached
+  begin and chunk (``engine.step``: per-tick A* and linearize loops that
+  end on the data) run their lanes one after the other; right and slow.
 - **Meshes.** ``sharded_rollouts`` and ``sustained_rollouts(mesh=)`` split
   the lanes into one block per device of a ``parallel.spatial.Mesh``; block
   ``k`` is built, stepped and read on ``mesh.devices[k]``. Lanes are
@@ -253,26 +254,59 @@ def rollout_finish(st, acc, s: Statics):
 # ---------------------------------------------------------------------------
 
 
-def _begin_cached(orchard, params: AosParams, s: Statics, n_steps_total: int,
-                  ror_method: str):
-    world = _world(orchard, params, s, ror_method)
+def _begin_group(orchards, params: AosParams, s: Statics, n_steps_total: int,
+                 ror_method: str, lane_params: bool = False):
+    """(lite, cache, state, acc) of a group of orchards, every leaf with a
+    leading [G] axis: what ``jax.vmap(rollout_begin_cached)`` gives.
+
+    Each world is built on its own (``prepare_world``'s loops end on the
+    data; K1 and K2 launch once a world). The worlds are then stacked and
+    the group's plan caches come from ONE ``build_plan_cache`` (one batched
+    plan_current_path and one linearize over worlds x rows x A* candidates)
+    and one ``tour_feasibility``; the initial states and accumulators are
+    made per lane. ``params``: one AosParams for the group or, with
+    ``lane_params``, one whose leaves carry the [G] axis. The full Worlds
+    are temporaries of this function."""
+    G = len(orchards)
+    per = [tree.lane(params, i) if lane_params else params for i in range(G)]
+    worlds = [_world(o, p, s, ror_method) for o, p in zip(orchards, per)]
+    world = tree.stack(worlds)
     cache = plancache.build_plan_cache(world, params, s)
-    acc = _acc_init(s, n_steps_total, orchard[0].xyz.device)
     feas = plancache.tour_feasibility(cache, world.waypoints, params, s)
+    device = orchards[0][0].xyz.device
+    acc = tree.stack([_acc_init(s, n_steps_total, device) for _ in range(G)])
     acc["feasible"] = feas["feasible"].to(torch.int32)
     # step_cached never reads the per-point yaw rows (a serving payload)
-    cache = dataclasses.replace(cache, plan_yaw=cache.plan_yaw[:, :0])
-    return plancache.world_lite(world), cache, plancache.initial_cached_state(world, s), acc
+    cache = dataclasses.replace(cache, plan_yaw=cache.plan_yaw[..., :0])
+    return (plancache.world_lite(world), cache,
+            tree.stack([plancache.initial_cached_state(w, s) for w in worlds]), acc)
+
+
+def _begin_cached(orchard, params: AosParams, s: Statics, n_steps_total: int,
+                  ror_method: str):
+    """The group begin of one orchard, without the group axis."""
+    return tree.lane(_begin_group([orchard], params, s, n_steps_total, ror_method), 0)
 
 
 def rollout_begin_cached(key, spec: OrchardSpec, params: AosParams, s: Statics,
                          n_steps_total: int, ror_method: str = "sorted", device=None):
     """rollout_begin + plan-cache build; returns (lite, cache, state, acc).
     The full World is a temporary of this function. The feasibility class is
-    free here (a few reductions over the cache)."""
+    free here (a few reductions over the cache). A group of one: see
+    ``rollout_begin_group``."""
     device = default_device() if device is None else device
     return _begin_cached(make_orchard(key, spec, s, device), params, s, n_steps_total,
                          ror_method)
+
+
+def rollout_begin_group(keys, spec: OrchardSpec, params: AosParams, s: Statics,
+                        n_steps_total: int, ror_method: str = "sorted", device=None):
+    """rollout_begin_cached over keys [G, 2] as one group (the refill group
+    of ``sustained_rollouts``): every leaf gains a leading [G] axis, each
+    lane bitwise the single key's begin."""
+    device = default_device() if device is None else device
+    return _begin_group([make_orchard(k, spec, s, device) for k in keys], params, s,
+                        n_steps_total, ror_method)
 
 
 def rollout_chunk_cached(lite, cache, st, acc, params, s: Statics, n: int, offset):
@@ -365,17 +399,20 @@ def sustained_rollouts(total: int, batch: int, spec: OrchardSpec, params: AosPar
         assert qlen == total, (qlen, total)
 
     def _params(i, dev):
-        """Params of rollout id i (an int) or ids i (a slice) on ``dev``."""
+        """Params of rollout id i (an int) or ids i (a slice or an index
+        tensor) on ``dev``."""
         return to_device(tree.lane(params_queue, i) if swept else params, dev)
 
-    def build(i, dev):
-        """(world, state, acc) of rollout id i, built on ``dev``."""
+    def build(ids, dev):
+        """(world, state, acc) of rollout ids ``ids`` (a group), built on
+        ``dev``, every leaf with the group's leading axis."""
         if cached:
-            lite, cache, st, acc = _begin_cached(orchard(i, dev), _params(i, dev), s,
-                                                 steps_budget, ror_method)
+            lite, cache, st, acc = _begin_group(
+                [orchard(int(i), dev) for i in ids], _params(torch.as_tensor(list(ids)), dev), s,
+                steps_budget, ror_method, lane_params=swept)
             return (lite, cache), st, acc
-        return _begin(orchard(i, dev), _params(i, dev), s, steps_budget, ror_method,
-                      classify)
+        return tree.stack([_begin(orchard(int(i), dev), _params(int(i), dev), s, steps_budget,
+                                  ror_method, classify) for i in ids])
 
     def chunk(blk, ages_blk, dev):
         world_b, st_b, acc_b, params_b = blk
@@ -412,7 +449,8 @@ def sustained_rollouts(total: int, batch: int, spec: OrchardSpec, params: AosPar
         blocks = []
         for k, dev in enumerate(devices):
             lanes = range(k * per, (k + 1) * per)
-            world_b, st_b, acc_b = tree.stack([build(i, dev) for i in lanes])
+            world_b, st_b, acc_b = tree.cat([build(lanes[j:j + refill], dev)
+                                             for j in range(0, per, refill)])
             # per-lane params (only when swept), scattered alongside the lane
             # state at refill so that a lane's chunk runs its rollout's own row
             blocks.append([world_b, st_b, acc_b, _params(slice(lanes[0], lanes[-1] + 1), dev)])
@@ -450,7 +488,7 @@ def sustained_rollouts(total: int, batch: int, spec: OrchardSpec, params: AosPar
                     mine = (idx // per) == k
                     if not mine.any():
                         continue
-                    new = tree.stack([build(int(i), dev) for i in ids[mine]])
+                    new = build(ids[mine], dev)
                     local = torch.from_numpy(idx[mine] % per).to(dev)
                     blk = blocks[k]
                     blk[0], blk[1], blk[2] = tree.scatter(tuple(blk[:3]), local, new)

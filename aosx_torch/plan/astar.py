@@ -4,7 +4,8 @@ reference: aos_path_gen_node.cpp:800-932).
 The graph is held as a padded-CSR adjacency (``CsrCosts``: [N, D] neighbour
 ids + costs). One pop is a masked argmin over f = g + w*h (ties: lowest
 index); a relaxation is a D-wide scatter-min. The k candidate starts of
-``plan_between`` run as one batch of searches.
+``plan_between`` run as one batch of searches, and so do the leading batch
+axes of the plan cache (worlds x rows).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from ..config import AosParams, Statics
 from ..guards import GUARD_DEGREE_CAP
-from ..ops import sqrt, while_loop
+from ..ops import lanes, sqrt, sum_fixed, take, take_row, while_loop
 from ..types import GvdGraph
 
 INF = 3.4e38
@@ -69,107 +70,125 @@ def _norm2(v):
     return sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
 
 
+def _world_axes(costs: CsrCosts) -> int:
+    """Number of leading batch axes of a world's leaves."""
+    return costs.idx.dim() - 2
+
+
 def astar(costs: CsrCosts, nodes, node_valid, start, goal, weight, s: Statics,
           enabled=None):
     """Weighted A* (f = g + w*h, h = euclidean to goal; cpp:800-896) from
-    each of the start nodes ``start`` [K] to ``goal``. Returns (path [K,
-    max_path] i32 padded with -1, path_len [K] i32, found [K] bool). Pops
-    the open node with min f (ties: lowest index).
+    each of the start nodes ``start`` [*B, K] to ``goal`` [*B]. Returns
+    (path [*B, K, max_path] i32 padded with -1, path_len [*B, K] i32, found
+    [*B, K] bool). Pops the open node with min f (ties: lowest index).
 
-    The search runs in lockstep over the K starts; a search that is done
-    keeps its state (its updates are masked), so extra iterations between
-    host checks of the loop condition change nothing.
+    Batch axes B, as ``jax.vmap`` maps them: the world's leaves (costs,
+    nodes, node_valid) carry len(B) leading axes of B's sizes or 1 (one
+    world serving every search of a lane), or none (one world for all);
+    ``weight`` and ``enabled`` are 0-d or carry B. B = () is one world's
+    search. Every lane and start runs the single search's arithmetic bit
+    for bit.
 
-    enabled (optional bool tensor): when False every search starts done, so
-    the loop body never runs, and (all -1, 0, False) is returned, exactly
-    what an unreachable search gives (build_plan_cache's dead rows)."""
+    The searches run in lockstep over B x K; a search that is done keeps
+    its state (its updates are masked with its own activity), so the
+    iterations it spends waiting for the slowest search, and those between
+    host checks of the loop condition, change nothing.
+
+    enabled (optional bool): where False the search starts done, so its
+    lane never changes, and (all -1, 0, False) is returned, exactly what an
+    unreachable search gives (build_plan_cache's dead rows)."""
     dev = nodes.device
     N = s.max_nodes
-    K = start.shape[0]
+    nw = _world_axes(costs)
+    B, K = start.shape[:-1], start.shape[-1]
     inf = torch.tensor(INF, dtype=torch.float32, device=dev)
     start = start.long()
-    goal = torch.as_tensor(goal, device=dev).long()
-    h = _norm2(nodes - nodes[goal][None, :]) * weight
+    goal = torch.as_tensor(goal, device=dev).long().expand(B)
+    h = _norm2(nodes - take(nodes, goal, nw).unsqueeze(-2)) * lanes(weight, goal[..., None])
 
-    rows = torch.arange(K, device=dev)
-    g0 = torch.full((K, N), INF, dtype=torch.float32, device=dev)
-    g0[rows, start] = 0.0
-    open0 = torch.zeros((K, N), dtype=torch.bool, device=dev)
-    open0[rows, start] = True
+    g0 = torch.full(B + (K, N), INF, dtype=torch.float32, device=dev)
+    g0.scatter_(-1, start[..., None], 0.0)
+    open0 = torch.zeros(B + (K, N), dtype=torch.bool, device=dev)
+    open0.scatter_(-1, start[..., None], True)
 
-    start_ok = node_valid[start] & node_valid[goal]
-    has_nb_start = (costs.cost[start] < inf).any(dim=1)
-    has_nb_goal = (costs.cost[goal] < inf).any()
-    runnable = start_ok & has_nb_start & has_nb_goal & (start != goal)
+    start_ok = take(node_valid, start, nw) & take(node_valid, goal, nw)[..., None]
+    has_nb_start = (take(costs.cost, start, nw) < inf).any(dim=-1)
+    has_nb_goal = (take(costs.cost, goal, nw) < inf).any(dim=-1)
+    runnable = start_ok & has_nb_start & has_nb_goal[..., None] & (start != goal[..., None])
     if enabled is not None:
+        enabled = torch.as_tensor(enabled, device=dev)[..., None]
         runnable = runnable & enabled
 
     def active(st):
         _, _, open_, _, done, it = st
-        return ~done & open_.any(dim=1) & (it < N)
+        return ~done & open_.any(dim=-1) & (it < N)
 
     def body(st):
         g, parent, open_, closed, done, it = st
         act = active(st)
-        f = torch.where(open_, g + h[None, :], inf)
-        u = torch.argmin(f, dim=1)
-        at_goal = u == goal
-        closed1 = closed.clone()
-        closed1[rows, u] = True
-        open1 = open_.clone()
-        open1[rows, u] = False
-        t = costs.idx[u].long()                                  # [K, D]
-        c = costs.cost[u]
+        f = torch.where(open_, g + h.unsqueeze(-2), inf)
+        u = torch.argmin(f, dim=-1)                              # [*B, K]
+        at_goal = u == goal[..., None]
+        u1 = u[..., None]
+        closed1 = closed.scatter(-1, u1, True)
+        open1 = open_.scatter(-1, u1, False)
+        t = take(costs.idx, u, nw).long()                        # [*B, K, D]
+        c = take(costs.cost, u, nw)
         tc = torch.clamp(t, max=N - 1)
-        ng = torch.where((c < inf) & ~closed1.gather(1, tc) & ~at_goal[:, None],
-                         g[rows, u][:, None] + c, inf)
-        gext = torch.cat([g, torch.full((K, 1), INF, dtype=g.dtype, device=dev)], dim=1)
-        g2 = gext.scatter_reduce(1, t, ng, reduce="amin", include_self=True)[:, :N]
+        ng = torch.where((c < inf) & ~closed1.gather(-1, tc) & ~at_goal[..., None],
+                         g.gather(-1, u1) + c, inf)
+        gext = torch.cat([g, torch.full(B + (K, 1), INF, dtype=g.dtype, device=dev)], dim=-1)
+        g2 = gext.scatter_reduce(-1, t, ng, reduce="amin", include_self=True)[..., :N]
         better = g2 < g
-        parent1 = torch.where(better, u.to(torch.int32)[:, None], parent)
+        parent1 = torch.where(better, u.to(torch.int32)[..., None], parent)
         open1 = open1 | better
-        a2 = act[:, None]
+        a2 = act[..., None]
         return (torch.where(a2, g2, g), torch.where(a2, parent1, parent),
                 torch.where(a2, open1, open_), torch.where(a2, closed1, closed),
                 torch.where(act, done | at_goal, done), it + act.to(torch.int32))
 
-    state = (g0, torch.full((K, N), -1, dtype=torch.int32, device=dev), open0,
-             torch.zeros((K, N), dtype=torch.bool, device=dev), ~runnable,
-             torch.zeros(K, dtype=torch.int32, device=dev))
-    _, parent, _, closed, done, _ = while_loop(lambda st: active(st).any(), body, state)
-    found = done & runnable & closed[:, goal]
+    state = (g0, torch.full(B + (K, N), -1, dtype=torch.int32, device=dev), open0,
+             torch.zeros(B + (K, N), dtype=torch.bool, device=dev), ~runnable,
+             torch.zeros(B + (K,), dtype=torch.int32, device=dev))
+    _, parent, _, closed, done, _ = while_loop(active, body, state)
+    goal_k = goal[..., None].expand(B + (K,))
+    found = done & runnable & closed.gather(-1, goal_k[..., None]).squeeze(-1)
 
     # reconstruct goal -> start by pointer doubling over the parent table
     # (parent -1 is the absorbing index N), then reverse front-aligned
     P = s.max_path
     par = torch.where(parent >= 0, parent, N).long()
-    par = torch.cat([par, torch.full((K, 1), N, dtype=torch.long, device=dev)], dim=1)
-    seq = torch.where(found, goal, N)[:, None]                  # [K, 1]
+    par = torch.cat([par, torch.full(B + (K, 1), N, dtype=torch.long, device=dev)], dim=-1)
+    seq = torch.where(found, goal_k, N)[..., None]              # [*B, K, 1]
     jump = par
-    while seq.shape[1] < P:
-        seq = torch.cat([seq, jump.gather(1, seq)], dim=1)
-        jump = jump.gather(1, jump)
-    seq = seq[:, :P]
+    while seq.shape[-1] < P:
+        seq = torch.cat([seq, jump.gather(-1, seq)], dim=-1)
+        jump = jump.gather(-1, jump)
+    seq = seq[..., :P]
     ok = seq < N
     rev = torch.where(ok, seq, -1).to(torch.int32)
-    ln = ok.sum(dim=1, dtype=torch.int32)
+    ln = ok.sum(dim=-1, dtype=torch.int32)
     idx = torch.arange(P, device=dev)
-    src_i = torch.clamp(ln[:, None] - 1 - idx[None, :], 0, P - 1).long()
-    path = torch.where(idx[None, :] < ln[:, None], rev.gather(1, src_i), -1)
+    src_i = torch.clamp(ln[..., None] - 1 - idx, 0, P - 1).long()
+    path = torch.where(idx < ln[..., None], rev.gather(-1, src_i), -1)
     # single-node degenerate case start == goal (cpp:808-811)
-    trivial = start_ok & (start == goal)
+    trivial = start_ok & (start == goal[..., None])
     if enabled is not None:
         trivial = trivial & enabled
-    triv_path = torch.full((K, P), -1, dtype=torch.int32, device=dev)
-    triv_path[:, 0] = start.to(torch.int32)
-    path = torch.where(trivial[:, None], triv_path, path)
+    triv_path = torch.full(B + (K, P), -1, dtype=torch.int32, device=dev)
+    triv_path[..., 0] = start.to(torch.int32)
+    path = torch.where(trivial[..., None], triv_path, path)
     ln = torch.where(trivial, 1, torch.where(found, ln, 0)).to(torch.int32)
     return path, ln, found | trivial
 
 
 def path_cost(costs: CsrCosts, nodes, path, path_len):
     """calculatePathCost (cpp:935-973): edge costs along consecutive path
-    pairs, euclidean where no edge matches. path [..., P], path_len [...]."""
+    pairs, euclidean where no edge matches. path [*B, ..., P], path_len
+    [*B, ...], the world's leaves with the batch axes B. Summed in f64 in
+    one fixed order and rounded once, so every device and batch shape gives
+    one value."""
+    nw = _world_axes(costs)
     P = path.shape[-1]
     a = path[..., :-1]
     b = path[..., 1:]
@@ -177,23 +196,23 @@ def path_cost(costs: CsrCosts, nodes, path, path_len):
           & (a >= 0) & (b >= 0))
     ai = torch.clamp(a, min=0).long()
     bi = torch.clamp(b, min=0).long()
-    rows = costs.idx[ai]                       # [..., P-1, D]
+    rows = take(costs.idx, ai, nw)                 # [..., P-1, D]
     match = rows == bi[..., None]
     has = match.any(dim=-1)
     slot = match.to(torch.uint8).argmax(dim=-1)
-    c = costs.cost[ai, slot]
-    eu = _norm2(nodes[bi] - nodes[ai])
+    c = take(costs.cost, ai, nw).gather(-1, slot[..., None]).squeeze(-1)
+    eu = _norm2(take(nodes, bi, nw) - take(nodes, ai, nw))
     c = torch.where(has, c, eu)
-    # summed in f64 and rounded once, so that every device gives one value
-    return torch.where(ok, c, 0.0).double().sum(dim=-1).float()
+    return sum_fixed(torch.where(ok, c, 0.0).double()).float()
 
 
 def k_nearest_nodes(nodes, node_valid, point, k: int):
     """findKNearestNodes (cpp:914-932): k nearest by distance, ties to the
-    lower index (a stable sort, as lax.top_k orders ties)."""
-    d = _norm2(nodes - point[None, :])
+    lower index (a stable sort, as lax.top_k orders ties). point [*B, 2]
+    and the nodes of the world of each lane give [*B, k]."""
+    d = _norm2(nodes - point.unsqueeze(-2))
     d = torch.where(node_valid, d, INF)
-    return torch.argsort(d, stable=True)[:k].to(torch.int32)
+    return torch.argsort(d, dim=-1, stable=True)[..., :k].to(torch.int32)
 
 
 def plan_between(costs: CsrCosts, nodes, node_valid, start_point, goal_node,
@@ -201,13 +220,17 @@ def plan_between(costs: CsrCosts, nodes, node_valid, start_point, goal_node,
     """The k-candidate-start planning core (cpp:1282-1386): A* from each of
     the astar_k nearest nodes to start_point, score = dist(start,
     candidate) + path cost, keep the best (first on ties). Returns
-    (path [max_path] i32, path_len, found). enabled: see astar."""
+    (path [*B, max_path] i32, path_len [*B], found [*B]) for start_point
+    [*B, 2] and goal_node [*B]; batch axes and enabled: see astar."""
+    nw = _world_axes(costs)
     cands = k_nearest_nodes(nodes, node_valid, start_point, s.astar_k)
+    goal_node = torch.as_tensor(goal_node, device=nodes.device).expand(cands.shape[:-1])
     paths, lens, found = astar(costs, nodes, node_valid, cands, goal_node,
                                params.heuristic_weight, s, enabled=enabled)
-    usable = found & (lens > 1) & (cands != goal_node)
-    cost = path_cost(costs, nodes, paths, lens) + _norm2(start_point[None, :] - nodes[cands.long()])
+    usable = found & (lens > 1) & (cands != goal_node[..., None])
+    cost = (path_cost(costs, nodes, paths, lens)
+            + _norm2(start_point.unsqueeze(-2) - take(nodes, cands, nw)))
     cost = torch.where(usable, cost, INF)
-    best = torch.argmin(cost)
-    any_ok = usable.any()
-    return paths[best], torch.where(any_ok, lens[best], 0), any_ok
+    best = torch.argmin(cost, dim=-1)
+    any_ok = usable.any(dim=-1)
+    return take_row(paths, best), torch.where(any_ok, take_row(lens, best), 0), any_ok

@@ -13,7 +13,7 @@ import torch
 
 from ..config import AosParams, Statics
 from ..geom import atan2
-from ..ops import scatter_set, sqrt, while_loop
+from ..ops import cumsum_fixed, lanes, scatter_set, set_at, sqrt, take, take_row, while_loop
 from ..types import Path
 
 SEG_CAP = 1024  # interpolated points cap per segment (51 m at 5 cm)
@@ -21,32 +21,35 @@ _FAR = 3.4e38
 
 
 def _prefix(v):
-    """[0, v0, v0+v1, ...] in f32, accumulated in f64 so that every device
-    gives the same sums."""
-    c = torch.cumsum(v.double(), 0).float()
-    return torch.cat([torch.zeros(1, dtype=torch.float32, device=v.device), c])
+    """[..., 0, v0, v0+v1, ...] in f32 over the last axis, accumulated in
+    f64 in one fixed order (``ops.cumsum_fixed``), so that every device and
+    batch shape gives the same sums."""
+    c = cumsum_fixed(v.double()).float()
+    return torch.cat([torch.zeros(v.shape[:-1] + (1,), dtype=torch.float32, device=v.device), c],
+                     dim=-1)
 
 
 def _fit_tables(xy, count):
-    """Prefix sums giving (slope, intercept, mse) of any [s, e] in O(1)."""
-    m = torch.arange(xy.shape[0], device=xy.device) < count
-    x = torch.where(m, xy[:, 0], 0.0)
-    y = torch.where(m, xy[:, 1], 0.0)
-    return dict(sx=_prefix(x), sy=_prefix(y), sxy=_prefix(x * y),
-                sxx=_prefix(x * x), syy=_prefix(y * y))
+    """Prefix sums giving (slope, intercept, mse) of any [s, e] in O(1):
+    [*B, 5, P + 1] rows sx, sy, sxy, sxx, syy, one scan for all five."""
+    m = torch.arange(xy.shape[-2], device=xy.device) < count[..., None]
+    x = torch.where(m, xy[..., 0], 0.0)
+    y = torch.where(m, xy[..., 1], 0.0)
+    return _prefix(torch.stack([x, y, x * y, x * x, y * y], dim=-2))
 
 
 def _linreg(tab, s_, e_):
-    """y = a x + b over inclusive [s, e] (cpp:50-96). Returns (a, b, mse)."""
+    """y = a x + b over inclusive [s, e] (cpp:50-96), for s_ and e_ of the
+    table's batch axes B and more axes J. Returns (a, b, mse) [*B, *J]."""
     n = (e_ - s_ + 1).to(torch.float32)
-    ei = (e_ + 1).long()
-    si = s_.long()
+    B = tab.shape[:-2]
+    J = s_.shape[len(B):]
 
-    def seg(p):
-        return p[ei] - p[si]
+    def rows(i):
+        return tab.gather(-1, i.long().reshape(B + (1, -1)).expand(B + (5, -1)))
 
-    sx, sy = seg(tab["sx"]), seg(tab["sy"])
-    sxy, sxx, syy = seg(tab["sxy"]), seg(tab["sxx"]), seg(tab["syy"])
+    seg = (rows(e_ + 1) - rows(s_)).reshape(B + (5,) + J)
+    sx, sy, sxy, sxx, syy = seg.unbind(len(B))
     den = n * sxx - sx * sx
     degenerate = torch.abs(den) < 1e-9
     nn = torch.clamp(n, min=1.0)
@@ -61,66 +64,75 @@ def _linreg(tab, s_, e_):
 
 def _best_split(tab, s_, e_, P):
     """findBestSplitPoint (cpp:99-125): argmin over sp in (s, e) of the
-    count-weighted mean of the two segment MSEs."""
+    count-weighted mean of the two segment MSEs, per lane."""
     sp = torch.arange(P, dtype=torch.int32, device=s_.device)
-    ones = torch.ones(P, dtype=torch.int32, device=s_.device)
-    _, _, e1 = _linreg(tab, ones * s_, sp)
-    _, _, e2 = _linreg(tab, sp, ones * e_)
-    n1 = (sp - s_ + 1).to(torch.float32)
-    n2 = (e_ - sp + 1).to(torch.float32)
-    tot = (e1 * n1 + e2 * n2) / torch.clamp(n1 + n2, min=1.0)
-    tot = torch.where((sp > s_) & (sp < e_), tot, _FAR)
-    best = torch.argmin(tot).to(torch.int32)
+    lo, hi = s_[..., None], e_[..., None]
+    shape = s_.shape + (P,)
+    _, _, err1 = _linreg(tab, lo.expand(shape), sp.expand(shape))
+    _, _, err2 = _linreg(tab, sp.expand(shape), hi.expand(shape))
+    n1 = (sp - lo + 1).to(torch.float32)
+    n2 = (hi - sp + 1).to(torch.float32)
+    tot = (err1 * n1 + err2 * n2) / torch.clamp(n1 + n2, min=1.0)
+    tot = torch.where((sp > lo) & (sp < hi), tot, _FAR)
+    best = torch.argmin(tot, dim=-1).to(torch.int32)
     return torch.where(e_ <= s_ + 1, e_, best)
 
 
 def _find_breakpoints(xy, count, max_segments, params, P):
     """splitPathRecursive (cpp:128-177) as an explicit DFS stack (left
-    first). Returns bp_mask [P]. A body with an empty stack changes
-    nothing (its updates are masked)."""
+    first), one stack per lane of count's batch axes. Returns bp_mask
+    [*B, P]. A lane whose stack is empty changes nothing (its updates are
+    masked with its own activity), however long the others run."""
     dev = xy.device
+    B = count.shape
     tab = _fit_tables(xy, count)
     idxs = torch.arange(P, device=dev)
     STK = 2 * 16
+    max_dev_ok = lanes(params.linearize_max_dev, count)
+
+    def at(a, i):
+        return a.gather(-1, i[..., None].long()).squeeze(-1)
 
     def body(st):
         bp_mask, stack_s, stack_e, sp_, nbp = st
         active = sp_ > 0
         top = torch.clamp(sp_ - 1, min=0)
-        s_ = stack_s[top.long()]
-        e_ = stack_e[top.long()]
+        s_ = at(stack_s, top)
+        e_ = at(stack_e, top)
         a, b, _ = _linreg(tab, s_, e_)
-        interior = (idxs > s_) & (idxs < e_) & (idxs < count)
-        dev_ = torch.abs(xy[:, 1] - (a * xy[:, 0] + b))
-        max_dev = torch.where(interior, dev_, -1.0).max()
-        skip = (e_ <= s_) | (max_dev < params.linearize_max_dev) | (nbp >= max_segments - 1)
+        interior = (idxs > s_[..., None]) & (idxs < e_[..., None]) & (idxs < count[..., None])
+        dev_ = torch.abs(xy[..., 1] - (a[..., None] * xy[..., 0] + b[..., None]))
+        max_dev = torch.where(interior, dev_, -1.0).max(dim=-1).values
+        skip = (e_ <= s_) | (max_dev < max_dev_ok) | (nbp >= max_segments - 1)
         split = _best_split(tab, s_, e_, P)
-        si = split.long()
-        is_new = ~bp_mask[si] & ~skip
-        bp2 = bp_mask.clone()
-        bp2[si] = bp_mask[si] | ~skip
+        # an empty path's split is -1, which indexes the last point, as
+        # a negative index does in both packages
+        si = torch.where(split < 0, split + P, split)
+        old = at(bp_mask, si)
+        is_new = ~old & ~skip
+        bp2 = bp_mask.scatter(-1, si[..., None].long(), (old | ~skip)[..., None])
         nbp2 = nbp + is_new.to(torch.int32)
         recurse = ~skip & (nbp2 < max_segments - 1)
         # push right then left (left popped first)
-        ss2 = stack_s.clone()
-        se2 = stack_e.clone()
-        ss2[top.long()] = split
-        se2[top.long()] = e_
-        ss2[(top + 1).long()] = s_
-        se2[(top + 1).long()] = split
-        ss2 = torch.where(recurse, ss2, stack_s)
-        se2 = torch.where(recurse, se2, stack_e)
+        t0 = top[..., None].long()
+        t1 = t0 + 1
+        ss2 = stack_s.scatter(-1, t0, split[..., None]).scatter(-1, t1, s_[..., None])
+        se2 = stack_e.scatter(-1, t0, e_[..., None]).scatter(-1, t1, split[..., None])
+        r2 = recurse[..., None]
+        ss2 = torch.where(r2, ss2, stack_s)
+        se2 = torch.where(r2, se2, stack_e)
         sp2 = torch.where(recurse, top + 2, top)
-        return (torch.where(active, bp2, bp_mask), torch.where(active, ss2, stack_s),
-                torch.where(active, se2, stack_e), torch.where(active, sp2, sp_),
+        a2 = active[..., None]
+        return (torch.where(a2, bp2, bp_mask), torch.where(a2, ss2, stack_s),
+                torch.where(a2, se2, stack_e), torch.where(active, sp2, sp_),
                 torch.where(active, nbp2, nbp))
 
-    ss = torch.zeros(STK, dtype=torch.int32, device=dev)
-    se = torch.zeros(STK, dtype=torch.int32, device=dev)
-    se[0] = count - 1
-    state = (torch.zeros(P, dtype=torch.bool, device=dev), ss, se,
-             torch.ones((), dtype=torch.int32, device=dev),
-             torch.zeros((), dtype=torch.int32, device=dev))
+    ss = torch.zeros(B + (STK,), dtype=torch.int32, device=dev)
+    se = torch.zeros(B + (STK,), dtype=torch.int32, device=dev)
+    se[..., 0] = count - 1
+    state = (torch.zeros(B + (P,), dtype=torch.bool, device=dev), ss, se,
+             torch.ones(B, dtype=torch.int32, device=dev),
+             torch.zeros(B, dtype=torch.int32, device=dev))
     bp_mask, _, _, _, _ = while_loop(lambda st: st[3] > 0, body, state)
     return bp_mask
 
@@ -131,96 +143,106 @@ def _dot_rows(u, v):
 
 def _backtrack_keep(oxy, oseg, ocount, NSEG: int):
     """Keep-mask of the sequential backtracking removal, computed per
-    segment (see aosx.plan.linearize for the equivalence argument). Carry:
-    the last two kept points and the kept count."""
+    segment (see aosx.plan.linearize for the equivalence argument), per
+    lane of ocount's batch axes. Carry: the last two kept points and the
+    kept count."""
     dev = oxy.device
-    Q = oxy.shape[0]
+    B = ocount.shape
+    Q = oxy.shape[-2]
     idxq = torch.arange(Q, device=dev)
-    live = idxq < ocount
-    prev2 = torch.zeros(2, dtype=torch.float32, device=dev)
-    prev1 = torch.zeros(2, dtype=torch.float32, device=dev)
-    nkept = torch.zeros((), dtype=torch.int32, device=dev)
-    keep = torch.zeros(Q, dtype=torch.bool, device=dev)
+    live = idxq < ocount[..., None]
+    prev2 = torch.zeros(B + (2,), dtype=torch.float32, device=dev)
+    prev1 = torch.zeros(B + (2,), dtype=torch.float32, device=dev)
+    nkept = torch.zeros(B, dtype=torch.int32, device=dev)
+    keep = torch.zeros(B + (Q,), dtype=torch.bool, device=dev)
     for j in range(NSEG):
         in_seg = (oseg == j) & live
-        vals0 = _dot_rows(oxy - prev1[None, :], (prev1 - prev2)[None, :])
-        c1 = in_seg & ((nkept <= 1) | (vals0 >= -0.01))
-        any1 = c1.any()
-        k1 = c1.to(torch.uint8).argmax()
-        p_k1 = oxy[k1]
-        prev2_a = torch.where(nkept >= 1, prev1, prev2)
-        vals1 = _dot_rows(oxy - p_k1[None, :], (p_k1 - prev2_a)[None, :])
-        c2 = in_seg & (idxq > k1) & ((nkept + 1 <= 1) | (vals1 >= -0.01))
-        any2 = c2.any()
-        k2 = c2.to(torch.uint8).argmax()
-        keep_seg = in_seg & any1 & ((idxq == k1) | (any2 & (idxq >= k2)))
-        cnt = keep_seg.sum(dtype=torch.int32)
-        last = torch.where(keep_seg, idxq, -1).max()
-        second = torch.where(keep_seg & (idxq < last), idxq, -1).max()
-        p_last = oxy[torch.clamp(last, min=0)]
-        p_second = oxy[torch.clamp(second, min=0)]
-        new_prev1 = torch.where(cnt >= 1, p_last, prev1)
-        new_prev2 = torch.where(cnt >= 2, p_second,
-                                torch.where((cnt == 1) & (nkept >= 1), prev1, prev2))
+        vals0 = _dot_rows(oxy - prev1.unsqueeze(-2), (prev1 - prev2).unsqueeze(-2))
+        c1 = in_seg & ((nkept <= 1)[..., None] | (vals0 >= -0.01))
+        any1 = c1.any(dim=-1)
+        k1 = c1.to(torch.uint8).argmax(dim=-1)
+        p_k1 = take_row(oxy, k1)
+        prev2_a = torch.where((nkept >= 1)[..., None], prev1, prev2)
+        vals1 = _dot_rows(oxy - p_k1.unsqueeze(-2), (p_k1 - prev2_a).unsqueeze(-2))
+        c2 = in_seg & (idxq > k1[..., None]) & ((nkept + 1 <= 1)[..., None] | (vals1 >= -0.01))
+        any2 = c2.any(dim=-1)
+        k2 = c2.to(torch.uint8).argmax(dim=-1)
+        keep_seg = in_seg & any1[..., None] & ((idxq == k1[..., None])
+                                               | (any2[..., None] & (idxq >= k2[..., None])))
+        cnt = keep_seg.sum(dim=-1, dtype=torch.int32)
+        last = torch.where(keep_seg, idxq, -1).max(dim=-1).values
+        second = torch.where(keep_seg & (idxq < last[..., None]), idxq, -1).max(dim=-1).values
+        p_last = take_row(oxy, torch.clamp(last, min=0))
+        p_second = take_row(oxy, torch.clamp(second, min=0))
+        new_prev1 = torch.where((cnt >= 1)[..., None], p_last, prev1)
+        new_prev2 = torch.where((cnt >= 2)[..., None], p_second,
+                                torch.where(((cnt == 1) & (nkept >= 1))[..., None], prev1, prev2))
         prev2, prev1, nkept = new_prev2, new_prev1, nkept + cnt
         keep = keep | keep_seg
     return keep
 
 
 def breakpoint_mask(path: Path, params: AosParams, s: Statics):
-    """[max_path] bool: the points where the linearized path's segments
+    """[*B, max_path] bool: the points where the linearized path's segments
     start and end (0 and count - 1 included); every point of a path of at
     most 4, else the regression split's (max 10 segments when the goal is
     the origin, else 4)."""
     P = s.max_path
     xy, count = path.xy, path.count
-    end_pt = xy[torch.clamp(count - 1, min=0).long()]
-    is_long = (torch.abs(end_pt[0]) < 1e-6) & (torch.abs(end_pt[1]) < 1e-6)
+    c1 = count[..., None]
+    end_pt = take_row(xy, torch.clamp(count - 1, min=0))
+    is_long = (torch.abs(end_pt[..., 0]) < 1e-6) & (torch.abs(end_pt[..., 1]) < 1e-6)
     max_segments = torch.where(is_long, s.max_segments, 4).to(torch.int32)
 
     bp_mask = _find_breakpoints(xy, count, max_segments, params, P)
     idxs = torch.arange(P, device=xy.device)
-    interior_all = (idxs > 0) & (idxs < count - 1)
-    bp_mask = torch.where(count <= 4, interior_all, bp_mask)
-    bp_mask = bp_mask & (idxs > 0) & (idxs < count - 1)
-    bp_mask = bp_mask.clone()
-    bp_mask[0] = count > 0
-    bp_mask = bp_mask | (idxs == count - 1)
-    return bp_mask & (idxs < count)
+    interior_all = (idxs > 0) & (idxs < c1 - 1)
+    bp_mask = torch.where(c1 <= 4, interior_all, bp_mask)
+    bp_mask = bp_mask & (idxs > 0) & (idxs < c1 - 1)
+    bp_mask = torch.where(idxs == 0, c1 > 0, bp_mask)
+    bp_mask = bp_mask | (idxs == c1 - 1)
+    return bp_mask & (idxs < c1)
 
 
 def linearize(path: Path, params: AosParams, s: Statics) -> Path:
     """convertToLinearSegments (cpp:248-370). Input path of n points:
     n <= 1: passthrough; n == 2: one interpolated segment; 3 <= n <= 4:
-    consecutive-point interpolation; else regression split."""
+    consecutive-point interpolation; else regression split.
+
+    Batch axes, as ``jax.vmap`` maps them: path.xy [*B, max_path, 2],
+    path.count [*B]; params 0-d or with leading axes B. Each lane is the
+    single path's result bit for bit (one call for every row of a plan
+    cache)."""
     dev = path.xy.device
     P = s.max_path
     Q = s.max_plan
     xy, count = path.xy, path.count
-    end_pt = xy[torch.clamp(count - 1, min=0).long()]
-    start_pt = xy[0]
+    nb = count.dim()
+    B = count.shape
+    end_pt = take_row(xy, torch.clamp(count - 1, min=0))
+    start_pt = xy[..., 0, :]
     bp_mask = breakpoint_mask(path, params, s)
     idxs = torch.arange(P, device=dev)
 
     NSEG = max(s.max_segments, 4) + 1
     MAXBP = NSEG + 1
-    rank = torch.cumsum(bp_mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    rank = torch.cumsum(bp_mask.to(torch.int32), -1, dtype=torch.int32) - 1
     tgt = torch.where(bp_mask & (rank < MAXBP), rank, MAXBP)
-    bps = scatter_set(MAXBP, -1, tgt, idxs.to(torch.int32))
-    nbp = torch.clamp(bp_mask.sum(dtype=torch.int32), max=MAXBP)
+    bps = scatter_set(MAXBP, -1, tgt, idxs.to(torch.int32).expand(B + (P,)))
+    nbp = torch.clamp(bp_mask.sum(dim=-1, dtype=torch.int32), max=MAXBP)
 
     # ---- interpolate segments at 5 cm (cpp:190-245) -----------------------
-    spacing = params.linearize_spacing
     seg_i = torch.arange(NSEG, device=dev)
-    s_idx = bps[torch.clamp(seg_i, 0, MAXBP - 1)]
-    e_idx = bps[torch.clamp(seg_i + 1, 0, MAXBP - 1)]
-    seg_ok = (seg_i < nbp - 1) & (s_idx >= 0) & (e_idx >= 0)
-    p1 = xy[torch.clamp(s_idx, min=0).long()]
-    p2 = xy[torch.clamp(e_idx, min=0).long()]
+    s_idx = bps[..., torch.clamp(seg_i, 0, MAXBP - 1)]
+    e_idx = bps[..., torch.clamp(seg_i + 1, 0, MAXBP - 1)]
+    seg_ok = (seg_i < nbp[..., None] - 1) & (s_idx >= 0) & (e_idx >= 0)
+    p1 = take(xy, torch.clamp(s_idx, min=0), nb)
+    p2 = take(xy, torch.clamp(e_idx, min=0), nb)
     d = p2 - p1
-    dist = sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
-    yaw = atan2(d[:, 1], d[:, 0])
+    dist = sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+    yaw = atan2(d[..., 1], d[..., 0])
     degen = dist < 1e-6
+    spacing = lanes(params.linearize_spacing, dist)
     num_mid = torch.floor(dist / spacing).to(torch.int32)
     cand = torch.clamp(num_mid, max=SEG_CAP - 1)
     t_cand = cand.to(torch.float32) * spacing / torch.clamp(dist, min=1e-9)
@@ -231,49 +253,49 @@ def linearize(path: Path, params: AosParams, s: Statics) -> Path:
     cnt = torch.where(seg_ok & ~degen,
                       n_mid + first.to(torch.int32) + has_end.to(torch.int32), 0)
     cnt = torch.where(seg_ok & degen, torch.where(first, 1, 0), cnt)
-    off = torch.cumsum(cnt, 0) - cnt
-    total = cnt.sum()
+    off = torch.cumsum(cnt, -1) - cnt
+    total = cnt.sum(dim=-1)
 
     qidx = torch.arange(Q, device=dev)
-    onehot = (qidx[:, None] >= off[None, :]) & (qidx[:, None] < (off + cnt)[None, :])
-    valid_q = onehot.any(dim=1)
+    onehot = ((qidx[:, None] >= off.unsqueeze(-2))
+              & (qidx[:, None] < (off + cnt).unsqueeze(-2)))     # [*B, Q, NSEG]
+    valid_q = onehot.any(dim=-1)
 
     def pick(v):
-        """[NSEG] -> [Q]; exactly one (or zero) nonzero term per slot."""
-        return torch.where(onehot, v[None, :], torch.zeros_like(v)[None, :]).sum(dim=1)
+        """[*B, NSEG] -> [*B, Q]; exactly one (or zero) nonzero term per slot."""
+        return torch.where(onehot, v.unsqueeze(-2), torch.zeros_like(v).unsqueeze(-2)).sum(dim=-1)
 
     kq_i = qidx - pick(off) + pick(k0)
-    t_q = kq_i.to(torch.float32) * spacing / torch.clamp(pick(dist), min=1e-9)
+    t_q = kq_i.to(torch.float32) * lanes(params.linearize_spacing, kq_i) \
+        / torch.clamp(pick(dist), min=1e-9)
     is_end_q = valid_q & (kq_i == pick(n_mid) + 1)
-    px_q = torch.where(is_end_q, pick(p2[:, 0]), pick(p1[:, 0]) + t_q * pick(d[:, 0]))
-    py_q = torch.where(is_end_q, pick(p2[:, 1]), pick(p1[:, 1]) + t_q * pick(d[:, 1]))
-    oxy = torch.where(valid_q[:, None], torch.stack([px_q, py_q], dim=1), 0.0)
+    px_q = torch.where(is_end_q, pick(p2[..., 0]), pick(p1[..., 0]) + t_q * pick(d[..., 0]))
+    py_q = torch.where(is_end_q, pick(p2[..., 1]), pick(p1[..., 1]) + t_q * pick(d[..., 1]))
+    oxy = torch.where(valid_q[..., None], torch.stack([px_q, py_q], dim=-1), 0.0)
     oyaw = torch.where(valid_q, pick(yaw), 0.0)
-    oseg = torch.where(valid_q, pick(seg_i), NSEG)
+    oseg = torch.where(valid_q, pick(seg_i.expand(B + (NSEG,))), NSEG)
     ocount = torch.clamp(total, max=Q)
 
     # exact endpoints (cpp:329-333)
-    has_pts = ocount > 0
-    oxy = oxy.clone()
-    oxy[0] = torch.where(has_pts, start_pt, oxy[0])
+    has_pts = (ocount > 0)[..., None]
+    oxy = set_at(oxy, torch.zeros_like(ocount), torch.where(has_pts, start_pt, oxy[..., 0, :]), nb)
     last_i = torch.clamp(ocount - 1, min=0)
-    oxy[last_i] = torch.where(has_pts, end_pt, oxy[last_i])
+    oxy = set_at(oxy, last_i, torch.where(has_pts, end_pt, take_row(oxy, last_i)), nb)
 
     # ---- backtracking removal (cpp:336-369) -------------------------------
     keep = _backtrack_keep(oxy, oseg, ocount, NSEG)
-    keep = torch.where(ocount <= 2, qidx < ocount, keep)
-    rank3 = torch.cumsum(keep.to(torch.int32), 0, dtype=torch.int32) - 1
+    keep = torch.where((ocount <= 2)[..., None], qidx < ocount[..., None], keep)
+    rank3 = torch.cumsum(keep.to(torch.int32), -1, dtype=torch.int32) - 1
     tgt3 = torch.where(keep & (rank3 < Q), rank3, Q)
     fxy = scatter_set(Q, 0.0, tgt3, oxy)
     fyaw = scatter_set(Q, 0.0, tgt3, oyaw)
-    fcount = torch.clamp(keep.sum(dtype=torch.int32), max=Q)
+    fcount = torch.clamp(keep.sum(dim=-1, dtype=torch.int32), max=Q)
     fi = torch.clamp(fcount - 1, min=0)
-    fxy[fi] = torch.where(fcount > 0, end_pt, fxy[fi])
+    fxy = set_at(fxy, fi, torch.where((fcount > 0)[..., None], end_pt, take_row(fxy, fi)), nb)
 
     # passthrough for 0/1-point paths
     tiny = count <= 1
-    tiny_xy = torch.zeros_like(fxy)
-    tiny_xy[0] = start_pt
-    return Path(xy=torch.where(tiny, tiny_xy, fxy),
-                yaw=torch.where(tiny, torch.zeros_like(fyaw), fyaw),
+    tiny_xy = set_at(torch.zeros_like(fxy), torch.zeros_like(count), start_pt, nb)
+    return Path(xy=torch.where(tiny[..., None, None], tiny_xy, fxy),
+                yaw=torch.where(tiny[..., None], torch.zeros_like(fyaw), fyaw),
                 count=torch.where(tiny, count, fcount).to(torch.int32))

@@ -22,7 +22,7 @@ import torch
 
 from ..config import AosParams, Statics
 from ..geom import atan2
-from ..ops import fma, lanes, put_row, scatter_set, sqrt, take_row
+from ..ops import fma, lanes, scatter_set, set_at, sqrt, take, take_row
 from ..perceive.raster import f32, shift2d
 from ..types import GridWorld, GvdGraph, MissionState, Path, Waypoints
 from .astar import INF, plan_between
@@ -85,8 +85,9 @@ def build_waypoints(graph: GvdGraph, params: AosParams, s: Statics) -> Waypoints
 
 
 def labeled_cluster_total(graph: GvdGraph):
-    """Number of clusters with any TL/TR/BL/BR label (cpp:1633-1652)."""
-    return (graph.label_node >= 0).any(dim=1).sum(dtype=torch.int32)
+    """Number of clusters with any TL/TR/BL/BR label (cpp:1633-1652);
+    label_node may carry leading lane axes."""
+    return (graph.label_node >= 0).any(dim=-1).sum(dim=-1, dtype=torch.int32)
 
 
 def cluster_index_from_total(target_wp, total):
@@ -110,8 +111,8 @@ def _append_origin(wp: Waypoints, params: AosParams) -> Waypoints:
     last = take_row(wp.xy, torch.clamp(wp.count - 1, min=0))
     near = (wp.count > 0) & (_norm2(last) <= 0.2)
     slot = torch.clamp(wp.count, max=W - 1)
-    xy = put_row(wp.xy, slot, 0.0)
-    node_idx = put_row(wp.node_idx, slot, -1)
+    xy = set_at(wp.xy, slot, 0.0, slot.dim())
+    node_idx = set_at(wp.node_idx, slot, -1, slot.dim())
     return Waypoints(xy=torch.where(lanes(near, xy), wp.xy, xy),
                      node_idx=torch.where(lanes(near, node_idx), wp.node_idx, node_idx),
                      count=torch.where(near, wp.count, torch.clamp(wp.count + 1, max=W)))
@@ -259,19 +260,22 @@ def force_next_waypoint(state: MissionState, wp: Waypoints, params: AosParams):
 
 
 def _assemble(cand_xy, cand_ok, s: Statics):
+    """Compaction of the ok candidates [*B, n, 2] into a [*B, max_path, 2]
+    buffer and their count, per lane."""
     P = s.max_path
-    rank = torch.cumsum(cand_ok.to(torch.int32), 0, dtype=torch.int32) - 1
+    rank = torch.cumsum(cand_ok.to(torch.int32), -1, dtype=torch.int32) - 1
     tgt = torch.where(cand_ok & (rank < P), rank, P)
-    return scatter_set(P, 0.0, tgt, cand_xy), torch.clamp(cand_ok.sum(dtype=torch.int32), max=P)
+    return (scatter_set(P, 0.0, tgt, cand_xy),
+            torch.clamp(cand_ok.sum(dim=-1, dtype=torch.int32), max=P))
 
 
 def _yaws(xy, count, last_yaw):
-    P = xy.shape[0]
-    d = torch.roll(xy, -1, dims=0) - xy
-    yaw = atan2(d[:, 1], d[:, 0])
+    P = xy.shape[-2]
+    d = torch.roll(xy, -1, dims=-2) - xy
+    yaw = atan2(d[..., 1], d[..., 0])
     idx = torch.arange(P, device=xy.device)
-    yaw = torch.where(idx == count - 1, last_yaw, yaw)
-    return torch.where(idx < count, yaw, 0.0)
+    yaw = torch.where(idx == count[..., None] - 1, last_yaw[..., None], yaw)
+    return torch.where(idx < count[..., None], yaw, 0.0)
 
 
 def _trim_offsets(s: Statics):
@@ -304,17 +308,22 @@ def trim_distance_plane(skel: GridWorld, s: Statics):
 def _trim(xy, yaw, count, skel: GridWorld, params: AosParams, s: Statics, trim_plane):
     """trimPathNearOccupiedRegions (cpp:1570-1630) through the distance
     plane: the first index i >= 1 whose trim disc touches an occupied
-    skeleton cell truncates the path to i."""
+    skeleton cell truncates the path to i. xy [*B, P, 2]; the skeleton and
+    its plane carry the world's batch axes."""
+    nw = skel.occ.dim() - 2
     resf = f32(s.resolution, xy.device)
-    H, W = skel.occ.shape
-    mx = ((xy[:, 0] - skel.origin_x) / resf).to(torch.int32)
-    my = ((xy[:, 1] - skel.origin_y) / resf).to(torch.int32)
-    ing = (mx >= 0) & (mx < skel.w_cells) & (my >= 0) & (my < skel.h_cells)
-    flat = (torch.clamp(my, 0, H - 1) * W + torch.clamp(mx, 0, W - 1)).long()
-    too_close = (trim_plane.reshape(-1)[flat] <= params.trim_safety_distance) & ing
-    idx = torch.arange(xy.shape[0], device=xy.device)
-    bad = too_close & (idx >= 1) & (idx < count)
-    first_bad = torch.where(bad, idx, xy.shape[0]).min()
+    H, W = skel.occ.shape[-2:]
+    x, y = xy[..., 0], xy[..., 1]
+    mx = ((x - lanes(skel.origin_x, x)) / resf).to(torch.int32)
+    my = ((y - lanes(skel.origin_y, y)) / resf).to(torch.int32)
+    ing = ((mx >= 0) & (mx < lanes(skel.w_cells, x))
+           & (my >= 0) & (my < lanes(skel.h_cells, x)))
+    flat = torch.clamp(my, 0, H - 1) * W + torch.clamp(mx, 0, W - 1)
+    too_close = (take(trim_plane.flatten(-2), flat, nw)
+                 <= lanes(params.trim_safety_distance, x)) & ing
+    idx = torch.arange(xy.shape[-2], device=xy.device)
+    bad = too_close & (idx >= 1) & (idx < count[..., None])
+    first_bad = torch.where(bad, idx, xy.shape[-2]).min(dim=-1).values
     return xy, yaw, torch.minimum(count, first_bad.to(torch.int32))
 
 
@@ -325,85 +334,100 @@ def plan_current_path(state: MissionState, wp: Waypoints, graph: GvdGraph, costm
     Returns (Path, success bool). use_current_position (f32 [2]): the
     robot's position as the start, for the next_waypoint service's plan.
     astar_enabled (bool tensor): False skips the graph search
-    (plan_between's ``enabled``; build_plan_cache's dead rows)."""
+    (plan_between's ``enabled``; build_plan_cache's dead rows).
+
+    Batch axes, as ``jax.vmap`` maps them: the mission's leaves are [*B],
+    the tour's [*B, ...], astar_enabled 0-d or [*B]; the world's leaves
+    (graph, costmat, skel, trim_plane) carry len(B) leading axes of B's
+    sizes or 1, or none (one world for every lane); params are 0-d or carry
+    the leading axes too. B = () is one plan. Each lane's result is the
+    single plan's bit for bit (build_plan_cache: worlds x rows)."""
     dev = graph.nodes.device
     P = s.max_path
-    init_wp = torch.stack([params.initial_waypoint_x, params.initial_waypoint_y])
+    nb = state.target_wp.dim()
+    nw = graph.nodes.dim() - 2
+    init_wp = torch.stack([params.initial_waypoint_x, params.initial_waypoint_y], dim=-1)
     arP = torch.arange(P, device=dev)
 
     # ---------------- initial straight path (cpp:983-1031) -----------------
+    # from the params alone: [*Bp, P] for params of leading axes Bp
+    npb = init_wp.dim() - 1
     dist0 = _norm2(init_wp)
     num0 = torch.ceil(dist0 / params.path_step).to(torch.int32)
-    t0 = arP.to(torch.float32) / torch.clamp(num0.to(torch.float32), min=1.0)
-    straight = t0[:, None] * init_wp[None, :]
-    straight_xy, straight_count = _assemble(straight, arP <= num0, s)
-    straight_xy[torch.clamp(straight_count - 1, min=0).long()] = init_wp
-    yaw0 = atan2(init_wp[1], init_wp[0])
-    straight_yaw = torch.where(arP < straight_count, yaw0, 0.0)
+    t0 = arP.to(torch.float32) / torch.clamp(num0.to(torch.float32), min=1.0)[..., None]
+    straight = t0[..., None] * init_wp.unsqueeze(-2)
+    straight_xy, straight_count = _assemble(straight, arP <= num0[..., None], s)
+    straight_xy = set_at(straight_xy, torch.clamp(straight_count - 1, min=0), init_wp, npb)
+    yaw0 = atan2(init_wp[..., 1], init_wp[..., 0])
+    straight_yaw = torch.where(arP < straight_count[..., None], yaw0[..., None], 0.0)
 
     # ---------------- graph path (cpp:1046-1549) ---------------------------
-    Wn = wp.xy.shape[0]
-    tw = torch.clamp(state.target_wp, 0, Wn - 1).long()
-    target = wp.xy[tw]
-    target_node = wp.node_idx[tw]
+    Wn = wp.xy.shape[-2]
+    tw = torch.clamp(state.target_wp, 0, Wn - 1)
+    target = take_row(wp.xy, tw)
+    target_node = take_row(wp.node_idx, tw)
     prev_ok = (state.prev_wp >= 0) & (state.prev_wp < wp.count)
-    start_point = torch.where(prev_ok, wp.xy[torch.clamp(state.prev_wp, 0, Wn - 1).long()], init_wp)
+    start_point = torch.where(prev_ok[..., None],
+                              take_row(wp.xy, torch.clamp(state.prev_wp, 0, Wn - 1)), init_wp)
     if use_current_position is not None:
-        start_point = torch.as_tensor(use_current_position, dtype=torch.float32, device=dev)
+        start_point = torch.as_tensor(use_current_position, dtype=torch.float32,
+                                      device=dev).expand(start_point.shape)
 
     origin_return = target_node < 0
-    d_to_nodes = _norm2(graph.nodes - target[None, :])
-    nearest_to_target = torch.argmin(torch.where(graph.node_valid, d_to_nodes, INF)).to(torch.int32)
+    d_to_nodes = _norm2(graph.nodes - target.unsqueeze(-2))
+    nearest_to_target = torch.argmin(torch.where(graph.node_valid, d_to_nodes, INF),
+                                     dim=-1).to(torch.int32)
     goal = torch.where(origin_return, nearest_to_target, torch.clamp(target_node, min=0))
 
     node_path, plen, found = plan_between(costmat, graph.nodes, graph.node_valid,
                                           start_point, goal, params, s,
                                           enabled=astar_enabled)
 
-    first_node_xy = graph.nodes[torch.clamp(node_path[0], min=0).long()]
+    first_node_xy = take(graph.nodes, torch.clamp(node_path[..., 0], min=0), nw)
     add_start = _norm2(start_point - first_node_xy) > 0.1
-    node_xy = graph.nodes[torch.clamp(node_path, min=0).long()]
-    node_ok = (arP < plen) & (node_path >= 0)
+    node_xy = take(graph.nodes, torch.clamp(node_path, min=0), nw)
+    node_ok = (arP < plen[..., None]) & (node_path >= 0)
     # drop exact-duplicate consecutive node positions (cpp:1446-1454)
-    prev_xy = torch.cat([start_point[None, :], node_xy[:-1]], dim=0)
-    prev_ok_arr = torch.cat([add_start.reshape(1), node_ok[:-1]], dim=0)
-    dup = node_ok & prev_ok_arr & (node_xy == prev_xy).all(dim=1)
+    prev_xy = torch.cat([start_point.unsqueeze(-2), node_xy[..., :-1, :]], dim=-2)
+    prev_ok_arr = torch.cat([add_start[..., None], node_ok[..., :-1]], dim=-1)
+    dup = node_ok & prev_ok_arr & (node_xy == prev_xy).all(dim=-1)
     node_ok = node_ok & ~dup
 
-    last_node_xy = graph.nodes[torch.clamp(node_path[torch.clamp(plen - 1, min=0).long()], min=0).long()]
+    last_node = take_row(node_path, torch.clamp(plen - 1, min=0))
+    last_node_xy = take(graph.nodes, torch.clamp(last_node, min=0), nw)
     dtail = target - last_node_xy
     tail_num = torch.ceil(_norm2(dtail) / params.path_step).to(torch.int32)
     it = arP.to(torch.float32) + 1.0
-    tt = it / torch.clamp(tail_num.to(torch.float32), min=1.0)
+    tt = it / torch.clamp(tail_num.to(torch.float32), min=1.0)[..., None]
     # last_node + t * dtail rounded once: XLA:CPU fuses it
-    tail_xy = fma(tt[:, None], dtail[None, :], last_node_xy[None, :])
-    tail_ok = (arP < tail_num) & origin_return
+    tail_xy = fma(tt[..., None], dtail.unsqueeze(-2), last_node_xy.unsqueeze(-2))
+    tail_ok = (arP < tail_num[..., None]) & origin_return[..., None]
     target_point_ok = ~origin_return & (_norm2(last_node_xy - target) > 0.01)
-    tail_xy = torch.where((arP == 0)[:, None] & ~origin_return, target[None, :], tail_xy)
-    tail_ok = tail_ok | ((arP == 0) & target_point_ok)
+    tail_xy = torch.where((arP == 0)[:, None] & ~origin_return[..., None, None],
+                          target.unsqueeze(-2), tail_xy)
+    tail_ok = tail_ok | ((arP == 0) & target_point_ok[..., None])
 
-    cand_xy = torch.cat([start_point[None, :], node_xy, tail_xy], dim=0)
-    cand_ok = torch.cat([add_start.reshape(1), node_ok, tail_ok], dim=0) & found
+    cand_xy = torch.cat([start_point.unsqueeze(-2), node_xy, tail_xy], dim=-2)
+    cand_ok = torch.cat([add_start[..., None], node_ok, tail_ok], dim=-1) & found[..., None]
     gxy, gcount = _assemble(cand_xy, cand_ok, s)
     # exact target at the end (cpp:1252-1255,1494-1503)
-    gxy_t = gxy.clone()
-    gxy_t[torch.clamp(gcount - 1, min=0).long()] = target
-    gxy = torch.where(found & (gcount > 0), gxy_t, gxy)
+    gxy_t = set_at(gxy, torch.clamp(gcount - 1, min=0), target, nb)
+    gxy = torch.where((found & (gcount > 0))[..., None, None], gxy_t, gxy)
 
     # last yaw: face the next waypoint if any (cpp:1517-1534)
     has_next = state.target_wp < wp.count - 1
-    nxt_wp = wp.xy[torch.clamp(state.target_wp + 1, 0, Wn - 1).long()]
-    last_pt = gxy[torch.clamp(gcount - 1, min=0).long()]
-    prev_pt = gxy[torch.clamp(gcount - 2, min=0).long()]
-    dn = torch.where(has_next, nxt_wp - last_pt, last_pt - prev_pt)
-    gyaw = _yaws(gxy, gcount, atan2(dn[1], dn[0]))
+    nxt_wp = take_row(wp.xy, torch.clamp(state.target_wp + 1, 0, Wn - 1))
+    last_pt = take_row(gxy, torch.clamp(gcount - 1, min=0))
+    prev_pt = take_row(gxy, torch.clamp(gcount - 2, min=0))
+    dn = torch.where(has_next[..., None], nxt_wp - last_pt, last_pt - prev_pt)
+    gyaw = _yaws(gxy, gcount, atan2(dn[..., 1], dn[..., 0]))
 
     # ---------------- select branch + trim ---------------------------------
     use_straight = ~state.initial_reached
     have_wp = (wp.count > 0) & (state.target_wp >= 0) & (state.target_wp < wp.count)
     success = torch.where(use_straight, True, found & have_wp)
-    xy = torch.where(use_straight, straight_xy, gxy)
-    yaw = torch.where(use_straight, straight_yaw, gyaw)
+    xy = torch.where(use_straight[..., None, None], straight_xy, gxy)
+    yaw = torch.where(use_straight[..., None], straight_yaw, gyaw)
     count = torch.where(use_straight, straight_count, torch.where(success, gcount, 0))
     xy, yaw, count = _trim(xy, yaw, count.to(torch.int32), skel, params, s, trim_plane)
     return Path(xy=xy, yaw=yaw, count=count), success

@@ -18,10 +18,14 @@ selects a row by index each tick, bit-identical to replanning every tick
 (``engine.step``). ``add_carry_row`` appends row R = W+5, which keeps the
 published plan across a world rebuild (``serving.serve_map_frame``).
 
-Rows are planned in a Python loop. ``step_cached`` and what it calls take
-an optional leading lane axis on every state, cache, world-lite and
-parameter leaf (the Monte-Carlo chunk of ``aosx_torch.parallel.batch``): one
-copy of the tick logic, each lane the single-lane arithmetic bit for bit.
+``build_plan_cache`` takes worlds of leading batch axes B and plans the
+[*B, R] rows in one batched plan_current_path and one batched linearize
+(worlds x rows x A* candidates, the axes ``aosx`` vmaps); dead rows are
+masked lanes of the one search. ``step_cached`` and what it calls take an
+optional leading lane axis on every state, cache, world-lite and parameter
+leaf (the Monte-Carlo chunk of ``aosx_torch.parallel.batch``). Either way
+there is one copy of the logic, and each lane is the single-lane arithmetic
+bit for bit.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import dataclasses
 
 import torch
 
+from .. import tree
 from ..config import AosParams, Statics
 from ..engine import Robot, _move_robot, initial_state, stack_metrics
 from ..guards import GUARD_NONFINITE, GUARD_PLAN_CAP
@@ -101,76 +106,101 @@ def cache_row_index(mission: MissionState, s: Statics):
 
 
 def _row_payload(raw: Path, plan: Path, success) -> dict:
-    """One cache row from a (raw, linearized) plan pair; shared by
-    build_plan_cache and pin_live_row."""
-    gi = torch.clamp(plan.count - 1, min=0).long()
-    nf = ((~torch.isfinite(plan.xy)).sum(dtype=torch.int32)
-          + (~torch.isfinite(raw.xy)).sum(dtype=torch.int32))
+    """Cache rows from (raw, linearized) plan pairs of any leading axes;
+    shared by build_plan_cache and pin_live_row."""
+    gi = torch.clamp(plan.count - 1, min=0)
+    nf = ((~torch.isfinite(plan.xy)).sum(dim=(-2, -1), dtype=torch.int32)
+          + (~torch.isfinite(raw.xy)).sum(dim=(-2, -1), dtype=torch.int32))
     return dict(plan_xy=plan.xy, plan_yaw=plan.yaw, plan_count=plan.count,
-                goal_xy=plan.xy[gi], goal_yaw=plan.yaw[gi], success=success,
-                nonfinite=nf)
+                goal_xy=take_row(plan.xy, gi), goal_yaw=take_row(plan.yaw, gi),
+                success=success, nonfinite=nf)
+
+
+def row_missions(wp0: Waypoints, params: AosParams, s: Statics):
+    """(MissionState [*B, R], Waypoints [*B, R, ...]) of the R rows (module
+    docstring) as tensors, from a tour wp0 of leading axes B (as
+    ``aosx.plan.plancache.build_plan_cache`` builds them)."""
+    dev = wp0.count.device
+    W = s.max_waypoints
+    R = num_rows(s)
+    wp2 = _append_origin(wp0, params)
+    c2 = wp2.count[..., None]
+    B = wp0.count.shape
+    rows = torch.arange(R, dtype=torch.int32, device=dev)
+    none = (rows == 0) | (rows >= W + 3)
+    target = torch.where(none, -1, torch.where(rows <= W, rows - 1, c2 - 1))
+    prev = torch.where(none, -1, torch.where(rows <= W, rows - 2,
+                                             torch.where(rows == W + 1, c2 - 2, c2 - 1)))
+    use_wp2 = (rows == W + 1) | (rows == W + 2)
+    false = torch.zeros(B + (R,), dtype=torch.bool, device=dev)
+    missions = MissionState(
+        target_wp=target.to(torch.int32).expand(B + (R,)),
+        prev_wp=prev.to(torch.int32).expand(B + (R,)),
+        initial_reached=(rows != 0).expand(B + (R,)),
+        exploration_completed=false, waiting_for_docking=false,
+        status=torch.zeros(B + (R,), dtype=torch.int32, device=dev),
+        origin_appended=use_wp2.expand(B + (R,)))
+    wps = Waypoints(
+        xy=torch.where(use_wp2[:, None, None], wp2.xy.unsqueeze(-3), wp0.xy.unsqueeze(-3)),
+        node_idx=torch.where(use_wp2[:, None], wp2.node_idx.unsqueeze(-2),
+                             wp0.node_idx.unsqueeze(-2)),
+        count=torch.where(use_wp2, c2, wp0.count[..., None]))
+    return missions, wps
+
+
+def _row_axis(t, nb: int):
+    """Leaves of nb leading axes B as [*B, 1, ...]: one world (or parameter
+    set) serving every row of its lane. 0-d leaves stay as they are."""
+    if not nb:
+        return t
+    return tree.tree_map(lambda x: x.unsqueeze(nb) if torch.is_tensor(x) and x.dim() else x, t)
+
+
+def _plan_all_rows(world, params: AosParams, s: Statics, wp_base=None):
+    """(raw Path [*B, R], success [*B, R]) of every row of the worlds of
+    leading axes B: ONE plan_current_path call over the [*B, R] missions.
+    Dead rows (row 0's graph search, targets outside the tour, W+3, W+4)
+    are masked lanes of the one search: their search result is never read
+    (``aosx.plan.plancache.build_plan_cache``)."""
+    nb = world.waypoints.count.dim()
+    wp0 = world.waypoints if wp_base is None else wp_base
+    missions, wps = row_missions(wp0, params, s)
+    live = missions.initial_reached & (missions.target_wp >= 0) & (missions.target_wp < wps.count)
+    graph, costmat, skel, trim = _row_axis(
+        (world.graph, world.costmat, world.skeleton, world.trim_skel), nb)
+    return plan_current_path(missions, wps, graph, costmat, skel, _row_axis(params, nb), s,
+                             trim_plane=trim, astar_enabled=live)
 
 
 def plan_rows(world, params: AosParams, s: Statics, wp_base=None):
-    """[(raw Path, success)] of rows 0..W+3: plan_current_path for each
-    row's mission configuration, in a Python loop.
+    """[(raw Path, success)] of rows 0..W+3 of one world, for inspection:
+    the rows of the one batched plan_current_path call of
+    ``build_plan_cache``.
 
     wp_base is the tour the engine carries (default world.waypoints); after
     a graph change mid-survey pass the post-rebuild_waypoints tour (see
-    ``aosx.plan.plancache.build_plan_cache``). Dead rows (row 0's graph
-    search, and targets outside the tour) run with the search disabled:
-    their search result is never read."""
-    dev = world.graph.nodes.device
-    W = s.max_waypoints
-    wp0 = world.waypoints if wp_base is None else wp_base
-    wp2 = _append_origin(wp0, params)
-    c2 = wp2.count
-
-    def i32(v):
-        return torch.as_tensor(v, dtype=torch.int32, device=dev).reshape(())
-
-    def flag(v):
-        return torch.tensor(bool(v), device=dev)
-
-    rows = []
-    for r in range(W + 4):
-        if r == 0:
-            target, prev = i32(-1), i32(-1)
-        elif r <= W:
-            target, prev = i32(r - 1), i32(r - 2)
-        elif r == W + 1:
-            target, prev = i32(c2 - 1), i32(c2 - 2)
-        elif r == W + 2:
-            target, prev = i32(c2 - 1), i32(c2 - 1)
-        else:
-            target, prev = i32(-1), i32(-1)
-        use_wp2 = r in (W + 1, W + 2)
-        wp = wp2 if use_wp2 else wp0
-        m = MissionState(target_wp=target, prev_wp=prev, initial_reached=flag(r != 0),
-                         exploration_completed=flag(False), waiting_for_docking=flag(False),
-                         status=i32(0), origin_appended=flag(use_wp2))
-        live = m.initial_reached & (target >= 0) & (target < wp.count)
-        rows.append(plan_current_path(m, wp, world.graph, world.costmat, world.skeleton,
-                                      params, s, trim_plane=world.trim_skel,
-                                      astar_enabled=live))
-    return rows
+    ``aosx.plan.plancache.build_plan_cache``)."""
+    raws, success = _plan_all_rows(world, params, s, wp_base)
+    return [(tree.tree_map(lambda x: x[r], raws), success[r]) for r in range(num_rows(s) - 1)]
 
 
 def build_plan_cache(world, params: AosParams, s: Statics, wp_base=None) -> PlanCache:
-    """plan_current_path + linearize for every row of this world (rows
-    0..W+3 from ``plan_rows``, then the W+4 empty row)."""
-    dev = world.graph.nodes.device
-    payloads = [_row_payload(raw, linearize(raw, params, s), success)
-                for raw, success in plan_rows(world, params, s, wp_base)]
-
-    # row W+4: the engine's initial empty /aos/path and its linearization
-    P = s.max_path
-    empty_raw = Path(xy=torch.zeros((P, 2), dtype=torch.float32, device=dev),
-                     yaw=torch.zeros(P, dtype=torch.float32, device=dev),
-                     count=torch.zeros((), dtype=torch.int32, device=dev))
-    payloads.append(_row_payload(empty_raw, linearize(empty_raw, params, s),
-                                 torch.tensor(False, device=dev)))
-    return PlanCache(**{k: torch.stack([p[k] for p in payloads]) for k in payloads[0]})
+    """plan_current_path + linearize for every row of the worlds of leading
+    axes B (every world leaf [*B, ...]; params 0-d or [*B]): one batched
+    plan_current_path and one batched linearize over the [*B, R] rows, as
+    ``jax.vmap`` maps worlds x rows x A* candidates. Row W+4 is planned
+    dead and then replaced by the engine's initial empty /aos/path before
+    the linearize, as the JAX package's row W+4. Returns [*B, R, ...]
+    leaves; each lane's rows are the single world's bit for bit."""
+    raws, success = _plan_all_rows(world, params, s, wp_base)
+    W4 = num_rows(s) - 1
+    empty = torch.arange(num_rows(s), device=success.device) == W4
+    raws = Path(xy=torch.where(empty[:, None, None], 0.0, raws.xy),
+                yaw=torch.where(empty[:, None], 0.0, raws.yaw),
+                count=torch.where(empty, 0, raws.count).to(torch.int32))
+    success = success & ~empty
+    plans = linearize(raws, _row_axis(params, world.waypoints.count.dim()), s)
+    return PlanCache(**_row_payload(raws, plans, success))
 
 
 def tour_feasibility(cache: PlanCache, wp: Waypoints, params: AosParams, s: Statics, *,
@@ -182,42 +212,44 @@ def tour_feasibility(cache: PlanCache, wp: Waypoints, params: AosParams, s: Stat
     mission also needs the initial straight leg to end within
     ``initial_arrive_dist`` of the initial waypoint and a nonempty tour.
 
-    Returns 0-d tensors: feasible, row0_ok, returnable (bool), first_bad_leg
-    (i32 cache row, num_rows(s) if none; row 0 reads waypoint 0 through the
-    clamp of rows - 1) and bad_legs (i32)."""
+    Returns tensors of the worlds' leading axes B (cache [*B, R, ...], wp
+    [*B, ...], params 0-d or [*B]; 0-d for one world): feasible, row0_ok,
+    returnable (bool), first_bad_leg (i32 cache row, num_rows(s) if none;
+    row 0 reads waypoint 0 through the clamp of rows - 1) and bad_legs
+    (i32)."""
     dev = cache.plan_xy.device
     W = s.max_waypoints
     R = num_rows(s)
     rows = torch.arange(R, dtype=torch.int32, device=dev)
-    Wn = wp.xy.shape[0]
+    Wn = wp.xy.shape[-2]
 
     wp2 = _append_origin(wp, params)
-    origin_tgt = wp2.xy[torch.clamp(wp2.count - 1, 0, Wn - 1).long()]
-    tgt = wp.xy[torch.clamp(rows - 1, 0, Wn - 1).long()]
+    origin_tgt = take_row(wp2.xy, torch.clamp(wp2.count - 1, 0, Wn - 1))
+    tgt = wp.xy[..., torch.clamp(rows - 1, 0, Wn - 1).long(), :]
     is_origin_row = (rows == W + 1) | (rows == W + 2)
-    tgt = torch.where(is_origin_row[:, None], origin_tgt[None, :], tgt)
+    tgt = torch.where(is_origin_row[:, None], origin_tgt.unsqueeze(-2), tgt)
 
-    dp = cache.plan_xy - tgt[:, None, :]
+    dp = cache.plan_xy - tgt.unsqueeze(-2)
     d = sqrt(dp[..., 0] * dp[..., 0] + dp[..., 1] * dp[..., 1])
-    valid = (torch.arange(cache.plan_xy.shape[1], device=dev)[None, :]
-             < cache.plan_count[:, None])
+    valid = (torch.arange(cache.plan_xy.shape[-2], device=dev)
+             < cache.plan_count[..., None])
     far = torch.tensor(3.4e38, dtype=torch.float32, device=dev)
-    mind = torch.where(valid, d, far).min(dim=1).values
+    mind = torch.where(valid, d, far).min(dim=-1).values
     dockable = (cache.success & (cache.plan_count > 0)
-                & (mind <= params.docking_radius - dock_margin))
+                & (mind <= lanes(params.docking_radius - dock_margin, mind)))
 
-    live = (rows >= 1) & (rows <= wp.count)      # mid-tour legs: targets 0..count-1
+    live = (rows >= 1) & (rows <= wp.count[..., None])   # mid-tour legs: targets 0..count-1
     legs_ok = torch.where(live, dockable, True)
-    init_wp = torch.stack([params.initial_waypoint_x, params.initial_waypoint_y])
-    d0 = cache.goal_xy[0] - init_wp
-    row0_ok = sqrt(d0[0] * d0[0] + d0[1] * d0[1]) <= params.initial_arrive_dist
-    first_bad = torch.where(legs_ok, R, rows).min().to(torch.int32)
+    init_wp = torch.stack([params.initial_waypoint_x, params.initial_waypoint_y], dim=-1)
+    d0 = cache.goal_xy[..., 0, :] - init_wp
+    row0_ok = sqrt(d0[..., 0] * d0[..., 0] + d0[..., 1] * d0[..., 1]) <= params.initial_arrive_dist
+    first_bad = torch.where(legs_ok, R, rows).min(dim=-1).values.to(torch.int32)
     return dict(
-        feasible=row0_ok & legs_ok.all() & (wp.count > 0),
+        feasible=row0_ok & legs_ok.all(dim=-1) & (wp.count > 0),
         row0_ok=row0_ok,
         first_bad_leg=torch.where(row0_ok, first_bad, 0).to(torch.int32),
-        bad_legs=(~legs_ok).sum(dtype=torch.int32) + (~row0_ok).to(torch.int32),
-        returnable=dockable[W + 1],
+        bad_legs=(~legs_ok).sum(dim=-1, dtype=torch.int32) + (~row0_ok).to(torch.int32),
+        returnable=dockable[..., W + 1],
     )
 
 

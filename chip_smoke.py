@@ -38,7 +38,8 @@ kernel on them:
            frame 0's raw A* paths bitwise, each plan-cache length that
            differs from JAX's excused only by an f32 regression split that
            is not the exact (f64) one; launches of K1, K2 and K3, and the
-           serving latencies
+           serving latencies; frame 0's plan cache built in one batched call
+           against its rows one at a time through unbatched calls, bitwise
   phase 8  the probes P1 (scalar read+write chase, its table in shared and
            in global memory), P2 (scalar read-only chase) and P3 (row gather,
            on the probe's input and on random i32 input) through the kernels
@@ -51,7 +52,10 @@ kernel on them:
            layout and in the identity layout, as a diagnostic of the log;
            then the probe entry point (python3 -m
            aosx_torch.probes) for the launch counts
-  phase 9  Monte-Carlo at MC_STATICS: 128 rollouts of 1,200 ticks through 64
+  phase 9  Monte-Carlo at MC_STATICS: the first refill group's plan caches
+           (32 worlds x 25 rows in one batched build_plan_cache) against
+           the same worlds' caches built one world and one row at a time,
+           bitwise, both timed; 128 rollouts of 1,200 ticks through 64
            lanes with refill groups of 32 (plan-cached), each record held
            against the JAX package's (tests/torch_reference/mc_np_seed0.json);
            8 of them again alone, bitwise equal to their lane's record; a
@@ -859,6 +863,47 @@ def split_witness(world, wp_base, params, S):
     return out
 
 
+def looped_cache(world, params, S):
+    """A world's plan cache built one row at a time through unbatched
+    calls (plan_current_path, linearize and the row payload of each row, row
+    W+4 the empty path), the way the port built it before the rows became
+    one batched call: the reference that holds build_plan_cache's batched
+    rows bitwise on the card."""
+    import torch
+    from aosx_torch import tree
+    from aosx_torch.plan import plancache
+    from aosx_torch.plan.linearize import linearize
+    from aosx_torch.plan.mission import plan_current_path
+    from aosx_torch.types import Path
+
+    missions, wps = plancache.row_missions(world.waypoints, params, S)
+    R = plancache.num_rows(S)
+    rows = []
+    for r in range(R):
+        m, wp = tree.lane(missions, r), tree.lane(wps, r)
+        live = m.initial_reached & (m.target_wp >= 0) & (m.target_wp < wp.count)
+        raw, ok = plan_current_path(m, wp, world.graph, world.costmat, world.skeleton, params,
+                                    S, trim_plane=world.trim_skel, astar_enabled=live)
+        if r == R - 1:
+            raw = Path(xy=torch.zeros_like(raw.xy), yaw=torch.zeros_like(raw.yaw),
+                       count=torch.zeros_like(raw.count))
+            ok = torch.zeros_like(ok)
+        rows.append(plancache._row_payload(raw, linearize(raw, params, S), ok))
+    return plancache.PlanCache(**{k: torch.stack([p[k] for p in rows]) for k in rows[0]})
+
+
+def assert_caches_bitwise(want, got, what):
+    """Every leaf of two plan caches equal bit for bit (floats as i32)."""
+    import torch
+
+    for f in dataclasses.fields(want):
+        a, b = getattr(want, f.name), getattr(got, f.name)
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{what}: {f.name} differs")
+
+
 def raw_path_match(a, b):
     """How the port's raw path a [n, 2] f32 matches JAX's b: "equal"
     (bitwise); "ulp" (the same points within ULP_BOUND ulp: XLA:CPU
@@ -1078,6 +1123,11 @@ def phase_serving(device):
                  for _ in range(SERVE_REPS)]
     cache_reps = [host_ms(lambda: plancache.build_plan_cache(sv0.inc.world, params, S))[1]
                   for _ in range(SERVE_REPS)]
+    # frame 0's cache, its 73 rows in one batched call against one row at a
+    # time through unbatched calls: bitwise
+    looped, looped_ms = host_ms(lambda: looped_cache(sv0.inc.world, params, S))
+    assert_caches_bitwise(looped, plancache.build_plan_cache(sv0.inc.world, params, S),
+                          "phase 7: BENCH plan cache, batched rows against looped rows")
     reuse_reps = [host_ms(lambda: serving.serve_map_frame(sv, frames[-1], poly, params, excl, S,
                                                           ror_method="pallas"))[1]
                   for _ in range(REPS)]
@@ -1085,13 +1135,15 @@ def phase_serving(device):
     mem = torch.cuda.max_memory_allocated() / 2**30
     stats = dict(serve_init_ms=float(np.median(init_reps)), serve_init_first_ms=init_ms,
                  build_plan_cache_ms=float(np.median(cache_reps)),
+                 build_plan_cache_looped_ms=looped_ms,
                  serve_map_frame_ms={lv: float(np.median(v)) for lv, v in sorted(frame_ms.items())},
                  serve_map_frame_samples={lv: len(v) for lv, v in sorted(frame_ms.items())},
                  serve_control_tick_ms=float(np.median(tick_ms)),
                  serve_control_tick_max_ms=float(np.max(tick_ms)), peak_allocated_gib=mem)
     log(f"# phase 7: serve_control_tick reproduces the replay's commands over {ticks} ticks; "
         f"median ms (host wall, synchronised): serve_init {stats['serve_init_ms']:.1f} "
-        f"(first {init_ms:.1f}), build_plan_cache {stats['build_plan_cache_ms']:.1f}, "
+        f"(first {init_ms:.1f}), build_plan_cache {stats['build_plan_cache_ms']:.1f} "
+        f"(its {plancache.num_rows(S)} rows one at a time: {looped_ms:.1f}, bitwise equal), "
         f"serve_map_frame by level {json.dumps(stats['serve_map_frame_ms'])}, "
         f"serve_control_tick {stats['serve_control_tick_ms']:.2f} (max "
         f"{stats['serve_control_tick_max_ms']:.2f}); peak allocated {mem:.2f} GiB")
@@ -1286,10 +1338,8 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
     from aosx_torch.orchards import OrchardSpec, make_orchard_np
     from aosx_torch.parallel import batch, sweep
     from aosx_torch.perceive import ror_cuda, skeleton_cuda
+    from aosx_torch import tree
     from aosx_torch.plan import plancache
-    from aosx_torch.plan.linearize import linearize
-    from aosx_torch.plan.mission import plan_current_path
-    from aosx_torch.types import MissionState
 
     ref = json.loads(MC_REFERENCE.read_text())
     spec = OrchardSpec(**ref["spec"])
@@ -1311,40 +1361,40 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
     if on_card:
         torch.cuda.reset_peak_memory_stats()
 
-    # one world build alone: its kernel launches, and where begin's time goes
+    # the first refill group (rollout ids 0 .. refill - 1) built both ways.
+    # Its worlds one at a time, the first alone for its kernel launches; then
+    # the group's plan caches one world and one row at a time through
+    # unbatched calls, and in one batched build_plan_cache: bitwise equal
+    clouds0 = [batch.cloud_tensors(make_orchard_np(spec, seed=i), S, device)
+               for i in range(refill)]
     zero_counts(kernels)
-    world, world_ms = timed(lambda: batch._world(
-        batch.cloud_tensors(make_orchard_np(spec, seed=0), S, device), params, S, "sorted"))
+    world, world_ms = timed(lambda: batch._world(clouds0[0], params, S, "sorted"))
     per_world = read_counts(kernels)
-    cache, cache_ms = timed(lambda: plancache.build_plan_cache(world, params, S))
-    tour = int(world.waypoints.count)
-    W = S.max_waypoints
-    # rows 1 + tour .. W plan a target outside the tour: their search is
-    # disabled, and they still pay the rest of plan_current_path and a
-    # linearize; row W is one of them
-    dead = W - tour
-
-    def dead_row():
-        def i32(v):
-            return torch.tensor(v, dtype=torch.int32, device=device)
-
-        def flag(v):
-            return torch.tensor(v, device=device)
-
-        m = MissionState(target_wp=i32(W - 1), prev_wp=i32(W - 2), initial_reached=flag(True),
-                         exploration_completed=flag(False), waiting_for_docking=flag(False),
-                         status=i32(0), origin_appended=flag(False))
-        raw, _ = plan_current_path(m, world.waypoints, world.graph, world.costmat,
-                                   world.skeleton, params, S, trim_plane=world.trim_skel,
-                                   astar_enabled=flag(False))
-        return linearize(raw, params, S)
-
-    dead_ms = float(np.median([timed(dead_row)[1] for _ in range(3)]))
-    log(f"# phase 9: one MC_STATICS world ({S.grid_h}x{S.grid_w}): prepare_world "
-        f"{world_ms:.0f} ms with launches {per_world}, build_plan_cache {cache_ms:.0f} ms for "
-        f"{plancache.num_rows(S)} rows; tour {tour}, so {dead} rows are dead at "
-        f"{dead_ms:.1f} ms each: {dead * dead_ms:.0f} ms, "
-        f"{100 * dead * dead_ms / (world_ms + cache_ms):.0f} % of a world's begin")
+    rest, rest_ms = timed(lambda: [batch._world(c, params, S, "sorted") for c in clouds0[1:]])
+    worlds = [world] + rest
+    prepare_ms = world_ms + rest_ms
+    looped, looped_ms = timed(lambda: [looped_cache(w, params, S) for w in worlds])
+    group = tree.stack(worlds)
+    peak_before = torch.cuda.max_memory_allocated() if on_card else 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    cache_b, group_ms = timed(lambda: plancache.build_plan_cache(group, params, S))
+    group_mem = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    _, feas_ms = timed(lambda: plancache.tour_feasibility(cache_b, group.waypoints, params, S))
+    for i, want in enumerate(looped):
+        assert_caches_bitwise(want, tree.lane(cache_b, i),
+                              f"phase 9: world {i} of the first refill group")
+    begin_looped = (prepare_ms + looped_ms) / refill
+    begin_batched = (prepare_ms + group_ms + feas_ms) / refill
+    log(f"# phase 9: the first refill group ({refill} MC_STATICS worlds, {S.grid_h}x{S.grid_w}): "
+        f"prepare_world {world_ms:.0f} ms alone with launches {per_world}, "
+        f"{prepare_ms / refill:.0f} ms a world; plan caches one world and one row at a time "
+        f"{looped_ms:.0f} ms ({looped_ms / refill:.0f} a world), in one batched "
+        f"build_plan_cache over {refill} x {plancache.num_rows(S)} rows {group_ms:.0f} ms "
+        f"({group_ms / refill:.1f} a world, peak allocated {group_mem:.3f} GiB), bitwise equal; "
+        f"tour_feasibility {feas_ms:.1f} ms; begin a world looped {begin_looped:.0f} ms, "
+        f"batched {begin_batched:.0f} ms")
+    del looped, group, cache_b, rest, worlds
 
     # the main path: the sustained harness, counts set to 0 just before it
     started = []
@@ -1449,15 +1499,18 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
         f"{sweep_ms / 1e3:.1f} s ({sstats['rollouts_per_sec']:.3f} rollouts/s from the first "
         f"chunk): configuration 0 equals the unswept records bitwise; completion rate "
         f"{agg['completion_rate'].tolist()}, mean travel {np.round(agg['travel_mean'], 2).tolist()}")
-    mem = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    mem = (max(peak_before, torch.cuda.max_memory_allocated()) / 2**30 if on_card
+           else float("nan"))
     log(f"# phase 9: peak allocated {mem:.2f} GiB")
     return launches, dict(
         rollouts_per_sec=stats["rollouts_per_sec"], rollouts_per_sec_with_fill=1e3 * total / wall_ms,
         elapsed_s=stats["elapsed_s"], begin_calls=n_groups, chunk_calls=stats["chunk_calls"],
         begin_group_ms=1e3 * stats["begin_s"] / n_groups, begin_world_ms=1e3 * stats["begin_s"] / total,
         chunk_call_ms=1e3 * stats["chunk_s"] / stats["chunk_calls"],
-        lane_tick_us=1e6 * stats["chunk_s"] / lane_ticks, prepare_world_ms=world_ms,
-        build_plan_cache_ms=cache_ms, dead_rows=dead, dead_row_ms=dead_ms, single_rollout_s=single_s,
+        lane_tick_us=1e6 * stats["chunk_s"] / lane_ticks, prepare_world_ms=prepare_ms / refill,
+        build_plan_cache_group_ms=group_ms, build_plan_cache_looped_world_ms=looped_ms / refill,
+        begin_world_looped_ms=begin_looped, begin_world_batched_ms=begin_batched,
+        group_peak_allocated_gib=group_mem, single_rollout_s=single_s,
         records_differing=len(differ), float_err_m=worst, completed=int(comp.sum()),
         infeasible=int((res["feasible"] == 0).sum()), flagged=int((res["guards"] != 0).sum()),
         sweep_s=sweep_ms / 1e3, peak_allocated_gib=mem, launches_per_world=per_world)
