@@ -44,6 +44,13 @@
 //   - One call runs every pass of a flood: one cooperative launch with a grid
 //     barrier between passes (a launch a pass from the same call measured 7 %
 //     slower at 2000 x 2048 and 19 % at 384 x 512 on an H100).
+//   - World axis: a group of G planes [G, H, W] with tables [G, S + 1, 2] and
+//     origins [G] is one launch, as jax.vmap of the TPU kernel adds a grid
+//     dimension, every world running the same pass list. The co-resident
+//     blocks are divided evenly among the worlds; a block stages its own
+//     world's table and walks that world's plane only. A group of more worlds
+//     than co-resident blocks is launched in chunks (the entry point counts
+//     its launches). One plane is G = 1.
 //   - Built with -fmad=false and written with __fsub_rn/__fmul_rn/__fmaf_rn so
 //     that the compiler contracts nothing on its own: the cell coordinates and
 //     d2 round exactly as the plain version's (ops.fma where the reference
@@ -95,12 +102,13 @@ __device__ __forceinline__ void fold(int no, int S, const float2* __restrict__ t
 __device__ __forceinline__ void pass(const int32_t* src, int32_t* dst,
                                      const float2* __restrict__ table, float ox0, float oy0,
                                      int H, int W, int S, float res, int step,
-                                     float* __restrict__ out_x, float* __restrict__ out_y) {
+                                     float* __restrict__ out_x, float* __restrict__ out_y,
+                                     int blk, int nblk) {
   const int wq = W >> 2;
   const long groups = (long)H * wq;
   const bool wide = (step & 3) == 0;
-  for (long g = (long)blockIdx.x * blockDim.x + threadIdx.x; g < groups;
-       g += (long)gridDim.x * blockDim.x) {
+  for (long g = (long)blk * blockDim.x + threadIdx.x; g < groups;
+       g += (long)nblk * blockDim.x) {
     const int iy = (int)(g / wq);
     const int x0 = (int)(g - (long)iy * wq) << 2;
     // every load of the group first, so that all nine are in flight together;
@@ -160,19 +168,30 @@ __device__ __forceinline__ void pass(const int32_t* src, int32_t* dst,
 
 // Every pass of `steps`, pass p reading plane p % 2 and writing the other
 // (plane 0 = a), with a grid barrier between passes: a cooperative launch.
+// Block k works on world k / per_world of the launch, as its (k % per_world)-th
+// block.
 __global__ void __launch_bounds__(kMaxThreads)
-flood_kernel(int32_t* a, int32_t* b, const float2* __restrict__ table_g,
+flood_kernel(int32_t* a_all, int32_t* b_all, const float2* __restrict__ table_all,
              const float* __restrict__ origin_x, const float* __restrict__ origin_y,
-             Steps steps, int H, int W, int S, float res, float* out_x, float* out_y) {
+             Steps steps, int H, int W, int S, float res, float* out_x_all, float* out_y_all,
+             int per_world) {
   extern __shared__ float2 table[];
+  const int world = blockIdx.x / per_world;
+  const int blk = blockIdx.x - world * per_world;
+  const size_t plane = (size_t)world * H * W;
+  const float2* __restrict__ table_g = table_all + (size_t)world * (S + 1);
+  int32_t* a = a_all + plane;
+  int32_t* b = b_all + plane;
+  float* out_x = out_x_all != nullptr ? out_x_all + plane : nullptr;
+  float* out_y = out_y_all != nullptr ? out_y_all + plane : nullptr;
   for (int i = threadIdx.x; i <= S; i += blockDim.x) table[i] = table_g[i];
   __syncthreads();
-  const float ox0 = *origin_x, oy0 = *origin_y;
+  const float ox0 = origin_x[world], oy0 = origin_y[world];
   for (int p = 0; p < steps.n; ++p) {
     if (p > 0) cg::this_grid().sync();
     const bool closing = p + 1 == steps.n;
     pass((p & 1) ? b : a, (p & 1) ? a : b, table, ox0, oy0, H, W, S, res, steps.v[p],
-         closing ? out_x : nullptr, closing ? out_y : nullptr);
+         closing ? out_x : nullptr, closing ? out_y : nullptr, blk, per_world);
   }
 }
 
@@ -185,21 +204,26 @@ int fail(cudaError_t e) {
 
 }  // namespace
 
-// owner_a: the flood's initial owner plane i32 [H, W], owners in 0..S; it is
-// one plane of the ping-pong pair and is overwritten. owner_b: the other plane.
-// The result is in owner_a when n_steps is even, else in owner_b. table: f32
-// [S + 1, 2], row S = (1e9, 1e9). origin_x, origin_y: f32 scalars on the
-// device. steps: n_steps (<= 32) pass offsets on the host. out_ox, out_oy: f32
-// [H, W] for the closing pass's positions, or both null. W % 4 == 0. One
-// cooperative launch; an error where the card refuses it.
+// owner_a: the flood's initial owner planes i32 [worlds, H, W], owners in
+// 0..S; they are one plane of the ping-pong pair and are overwritten.
+// owner_b: the other planes. The result is in owner_a when n_steps is even,
+// else in owner_b. table: f32 [worlds, S + 1, 2], row S of each = (1e9, 1e9).
+// origin_x, origin_y: f32 [worlds] on the device. steps: n_steps (<= 32) pass
+// offsets on the host. out_ox, out_oy: f32 [worlds, H, W] for the closing
+// pass's positions, or both null. W % 4 == 0. One cooperative launch for the
+// group, or one for each chunk of worlds where the group has more worlds than
+// co-resident blocks; *launches receives their number. An error where the
+// card refuses a launch.
 extern "C" int jfa_flood(void* owner_a, void* owner_b, const void* table, const void* origin_x,
-                         const void* origin_y, const int* steps, int n_steps, int H, int W,
-                         int S, float res, void* out_ox, void* out_oy, void* stream) {
+                         const void* origin_y, const int* steps, int n_steps, int worlds, int H,
+                         int W, int S, float res, void* out_ox, void* out_oy, int* launches,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_steps < 0 || n_steps > kMaxSteps || H < 1 || W < 4 || (W & 3) != 0 || S < 0 ||
-      (out_ox == nullptr) != (out_oy == nullptr))
+  *launches = 0;
+  if (n_steps < 0 || n_steps > kMaxSteps || worlds < 0 || H < 1 || W < 4 || (W & 3) != 0 ||
+      S < 0 || (out_ox == nullptr) != (out_oy == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (n_steps == 0) return 0;
+  if (n_steps == 0 || worlds == 0) return 0;
   Steps s;
   s.n = n_steps;
   for (int i = 0; i < n_steps; ++i) {
@@ -223,19 +247,29 @@ extern "C" int jfa_flood(void* owner_a, void* owner_b, const void* table, const 
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flood_kernel, threads, smem);
   if (e != cudaSuccess) return fail(e);
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  // the co-resident blocks shared evenly among the worlds of a launch, and no
+  // more for a world than its 4-cell groups fill
+  const long resident = (long)sms * per_sm;
   const long groups = (long)H * (W >> 2);
-  const int blocks = (int)min((long)sms * per_sm, (groups + threads - 1) / threads);
-  int32_t* a = static_cast<int32_t*>(owner_a);
-  int32_t* b = static_cast<int32_t*>(owner_b);
-  const float2* tab = static_cast<const float2*>(table);
-  const float* gx = static_cast<const float*>(origin_x);
-  const float* gy = static_cast<const float*>(origin_y);
-  float* px = static_cast<float*>(out_ox);
-  float* py = static_cast<float*>(out_oy);
-  void* args[] = {(void*)&a, (void*)&b, (void*)&tab, (void*)&gx,  (void*)&gy, (void*)&s,
-                  (void*)&H, (void*)&W, (void*)&S,   (void*)&res, (void*)&px, (void*)&py};
-  e = cudaLaunchCooperativeKernel((const void*)flood_kernel, dim3(blocks), dim3(threads), args,
-                                  smem, st);
-  if (e != cudaSuccess) return fail(e);
+  const int chunk = (int)min((long)worlds, resident);
+  const int per_world = (int)max(1L, min(resident / chunk, (groups + threads - 1) / threads));
+  const size_t plane = (size_t)H * W;
+  for (int w0 = 0; w0 < worlds; w0 += chunk) {
+    const int n = min(chunk, worlds - w0);
+    int32_t* a = static_cast<int32_t*>(owner_a) + w0 * plane;
+    int32_t* b = static_cast<int32_t*>(owner_b) + w0 * plane;
+    const float2* tab = static_cast<const float2*>(table) + (size_t)w0 * (S + 1);
+    const float* gx = static_cast<const float*>(origin_x) + w0;
+    const float* gy = static_cast<const float*>(origin_y) + w0;
+    float* px = out_ox != nullptr ? static_cast<float*>(out_ox) + w0 * plane : nullptr;
+    float* py = out_oy != nullptr ? static_cast<float*>(out_oy) + w0 * plane : nullptr;
+    void* args[] = {(void*)&a,   (void*)&b,   (void*)&tab, (void*)&gx, (void*)&gy,
+                    (void*)&s,   (void*)&H,   (void*)&W,   (void*)&S,  (void*)&res,
+                    (void*)&px,  (void*)&py,  (void*)&per_world};
+    e = cudaLaunchCooperativeKernel((const void*)flood_kernel, dim3(n * per_world),
+                                    dim3(threads), args, smem, st);
+    if (e != cudaSuccess) return fail(e);
+    ++*launches;
+  }
   return (int)cudaGetLastError();
 }

@@ -19,6 +19,10 @@
 // catastrophically, but the same way in both). 2 (a.b) is exact, so
 // fma(-2, a.b, s) rounds like s - 2 (a.b).
 //
+// World axis: a group of G clouds [G, n, 3] (each with its own r2) is one
+// launch, the world blockIdx.y, as jax.vmap of the TPU kernel adds a grid
+// dimension; a single cloud is G = 1.
+//
 // Design: one thread per row point, its count held in a register. A block of
 // THREADS rows walks all N columns in tiles of TILE points; each tile is
 // staged in shared memory as float4 (x, y, z, |b|^2), so a pair costs one
@@ -47,9 +51,13 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, fl
 }
 
 __global__ void __launch_bounds__(THREADS)
-ror_counts_kernel(const float* __restrict__ xyz, const float* __restrict__ r2p,
-                  int32_t* __restrict__ out, int n) {
+ror_counts_kernel(const float* __restrict__ xyz_all, const float* __restrict__ r2_all,
+                  int32_t* __restrict__ out_all, int n) {
   __shared__ float4 tile[TILE];
+  const size_t world = blockIdx.y;
+  const float* __restrict__ xyz = xyz_all + world * 3 * (size_t)n;
+  const float* __restrict__ r2p = r2_all + world;
+  int32_t* __restrict__ out = out_all + world * (size_t)n;
   const int i = blockIdx.x * THREADS + threadIdx.x;
   const bool row_ok = i < n;
   float ax = 0.f, ay = 0.f, az = 0.f;
@@ -83,11 +91,14 @@ ror_counts_kernel(const float* __restrict__ xyz, const float* __restrict__ r2p,
 
 }  // namespace
 
-// xyz: f32 [n, 3] contiguous; r2: f32 scalar on the device; out: i32 [n].
-extern "C" int ror_counts(const void* xyz, const void* r2, void* out, int n, void* stream) {
-  if (n <= 0) return 0;
+// xyz: f32 [worlds, n, 3] contiguous; r2: f32 [worlds] on the device; out:
+// i32 [worlds, n]. One launch for every world (worlds <= 65,535).
+extern "C" int ror_counts(const void* xyz, const void* r2, void* out, int n, int worlds,
+                          void* stream) {
+  if (n <= 0 || worlds <= 0) return 0;
+  if (worlds > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + THREADS - 1) / THREADS);
+  const dim3 grid((n + THREADS - 1) / THREADS, worlds);
   ror_counts_kernel<<<grid, THREADS, 0, st>>>(static_cast<const float*>(xyz),
                                               static_cast<const float*>(r2),
                                               static_cast<int32_t*>(out), n);

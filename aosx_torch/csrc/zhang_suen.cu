@@ -48,6 +48,18 @@
 //     a warp, one atomic a warp that deleted any) go to a slot of their own for
 //     each iteration; every block reads the slot after the barrier and all
 //     stop together when it is 0. No host read anywhere.
+//   - World axis: a group of G planes [G, H, W] with per-world bounds is one
+//     launch, as jax.vmap of the TPU kernel's loop adds a grid dimension.
+//     Each world gets the same number of bands (blocks), at most the SMs
+//     divided among the worlds; a world's blocks exchange edge rows only
+//     among themselves. The stopping rule is per world: a world stops at its
+//     own fixpoint or at max_iters, and its blocks then keep meeting the
+//     grid barrier without working (their state stays as it is) until every
+//     world of the launch has stopped, which a per-iteration total of the
+//     group's deleted cells tells every block at once. A group of more worlds
+//     than SMs is launched in chunks of at most one world an SM (the entry
+//     point counts its launches; a plane too high for one block is refused).
+//     One plane is G = 1.
 //   - The grid is at most one block an SM (the barrier's latency grows with
 //     the blocks that meet at it: 250 and 264 blocks measured slower at 2000 x
 //     2048, and so did 66), which must be co-resident or the barrier never completes: the
@@ -152,20 +164,24 @@ __device__ __forceinline__ int subiter_rows(const uint32_t* __restrict__ src,
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
-fixpoint_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+fixpoint_kernel(const uint8_t* __restrict__ in_all, uint8_t* __restrict__ out_all,
                 const int32_t* __restrict__ h_cells, const int32_t* __restrict__ w_cells,
-                int32_t* __restrict__ stats, int32_t* counts, uint32_t* edges, int H, int W,
-                int rows, int max_iters) {
+                int32_t* __restrict__ stats, int32_t* counts_all, int32_t* totals, uint32_t* edges,
+                int H, int W, int rows, int bands, int max_iters) {
   extern __shared__ uint32_t smem[];
   cg::grid_group grid = cg::this_grid();
   const int wd = (W + 31) / 32;
-  const int b = blockIdx.x;
+  const int world = blockIdx.x / bands;
+  const int b = blockIdx.x - world * bands;
+  const uint8_t* __restrict__ in = in_all + (size_t)world * H * W;
+  uint8_t* __restrict__ out = out_all + (size_t)world * H * W;
+  int32_t* counts = counts_all + (size_t)world * max_iters;
   const int r0 = b * rows;
   const int nrows = min(rows, H - r0);
   const int local = nrows + 2 * kHalo;
   uint32_t* cur = smem;                                     // the iteration's start and end
   uint32_t* mid = smem + (size_t)(rows + 2 * kHalo) * wd;   // after sub-iteration 0
-  const int hc = *h_cells, wc = *w_cells;
+  const int hc = h_cells[world], wc = w_cells[world];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
 
   // pack rows r0 - 2 .. r0 + nrows + 1 (the band and its halo) from the u8
@@ -190,38 +206,51 @@ fixpoint_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
 
   // edge rows a block publishes: [parity][block][top 2 rows, bottom 2 rows][wd]
   const size_t per_block = (size_t)2 * kHalo * wd;
+  // `done` is the same for every thread of a block (all read the same count)
+  bool done = false;
   int iters = 0, last = 0;
   for (int it = 0; it < max_iters; ++it) {
-    // sub-iteration 0 also over one halo row each side (the neighbours compute
-    // the same words), so that sub-iteration 1 of the band needs no exchange
-    int deleted = subiter_rows<0>(cur, mid, 1, local - 1, r0, nrows, wd, hc, wc);
-    __syncthreads();
-    deleted += subiter_rows<1>(mid, cur, kHalo, kHalo + nrows, r0, nrows, wd, hc, wc);
-    deleted = __reduce_add_sync(kFull, deleted);
-    if (lane == 0 && deleted > 0) atomicAdd(counts + it, deleted);
-    __syncthreads();
-    // publish the band's first and last two rows (a band of one row, which
-    // only the last block can have, has an empty second row)
     uint32_t* parity = edges + (size_t)(it & 1) * gridDim.x * per_block;
-    uint32_t* mine = parity + (size_t)b * per_block;
-    for (int i = threadIdx.x; i < kHalo * wd; i += blockDim.x) {
-      const int k = i / wd, j = i - k * wd;
-      mine[i] = (k < nrows) ? cur[(size_t)(kHalo + k) * wd + j] : 0u;
-      const int kb = nrows - kHalo + k;
-      mine[kHalo * wd + i] = (kb >= 0) ? cur[(size_t)(kHalo + kb) * wd + j] : 0u;
+    uint32_t* mine = parity + (size_t)blockIdx.x * per_block;
+    if (!done) {
+      // sub-iteration 0 also over one halo row each side (the neighbours
+      // compute the same words), so that sub-iteration 1 of the band needs no
+      // exchange
+      int deleted = subiter_rows<0>(cur, mid, 1, local - 1, r0, nrows, wd, hc, wc);
+      __syncthreads();
+      deleted += subiter_rows<1>(mid, cur, kHalo, kHalo + nrows, r0, nrows, wd, hc, wc);
+      deleted = __reduce_add_sync(kFull, deleted);
+      if (lane == 0 && deleted > 0) {
+        atomicAdd(counts + it, deleted);
+        atomicAdd(totals + it, deleted);
+      }
+      __syncthreads();
+      // publish the band's first and last two rows (a band of one row, which
+      // only a world's last block can have, has an empty second row)
+      for (int i = threadIdx.x; i < kHalo * wd; i += blockDim.x) {
+        const int k = i / wd, j = i - k * wd;
+        mine[i] = (k < nrows) ? cur[(size_t)(kHalo + k) * wd + j] : 0u;
+        const int kb = nrows - kHalo + k;
+        mine[kHalo * wd + i] = (kb >= 0) ? cur[(size_t)(kHalo + kb) * wd + j] : 0u;
+      }
     }
     grid.sync();
-    // the iteration's changed count and the halo rows in one round trip: the
-    // last two rows of the block above, the first two of the block below
-    last = __ldcg(counts + it);
-    for (int i = threadIdx.x; i < kHalo * wd; i += blockDim.x) {
-      cur[i] = (b > 0) ? __ldcg(mine - per_block + kHalo * wd + i) : 0u;
-      cur[(size_t)(kHalo + nrows) * wd + i] =
-          (b + 1 < (int)gridDim.x) ? __ldcg(mine + per_block + i) : 0u;
+    // the iteration's changed counts (the world's and the launch's) and the
+    // halo rows in one round trip: the last two rows of the world's block
+    // above, the first two of its block below
+    const int group_deleted = __ldcg(totals + it);
+    if (!done) {
+      last = __ldcg(counts + it);
+      for (int i = threadIdx.x; i < kHalo * wd; i += blockDim.x) {
+        cur[i] = (b > 0) ? __ldcg(mine - per_block + kHalo * wd + i) : 0u;
+        cur[(size_t)(kHalo + nrows) * wd + i] =
+            (b + 1 < bands) ? __ldcg(mine + per_block + i) : 0u;
+      }
+      __syncthreads();
+      iters = it + 1;
+      done = last == 0;
     }
-    __syncthreads();
-    iters = it + 1;
-    if (last == 0) break;
+    if (group_deleted == 0) break;
   }
 
   for (int i = warp; i < nrows * wd; i += nwarps) {
@@ -230,8 +259,8 @@ fixpoint_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
     if (x < W) out[(size_t)(r0 + r) * W + x] = (cur[(size_t)(kHalo + r) * wd + j] >> lane) & 1u;
   }
   if (b == 0 && threadIdx.x == 0) {
-    stats[0] = iters;
-    stats[1] = last;
+    stats[2 * world] = iters;
+    stats[2 * world + 1] = last;
   }
 }
 
@@ -244,26 +273,36 @@ int fail(cudaError_t e) {
 
 }  // namespace
 
-// in, out: u8 [H, W] holding only 0 and 1; h_cells, w_cells: i32 scalars on the
-// device; stats: i32 [2] = iterations run, the last iteration's changed cells;
-// scratch: i32 [max_iters + 8 * SMs of the device * ceil(W / 32)] (the
-// iterations' changed counts, then the bands' edge rows). One cooperative
-// launch of at most a block an SM; an error where the card refuses it.
+// in, out: u8 [worlds, H, W] holding only 0 and 1; h_cells, w_cells: i32
+// [worlds] on the device; stats: i32 [worlds, 2] = iterations run, the last
+// iteration's changed cells, per world; scratch: i32 [min(worlds, SMs) *
+// max_iters + max_iters + 8 * SMs of the device * ceil(W / 32)] (the
+// per-world and per-iteration changed counts, the launch's per-iteration
+// totals, then the bands' edge rows). Cooperative launches of at most a block
+// an SM, each world the same number of bands: one launch for the group when
+// it has at most one world an SM, else one for each chunk of that many
+// worlds; *launches receives their number. An error where the card refuses
+// a launch or a band does not fit a block.
 extern "C" int zhang_suen_fixpoint(const void* in, void* out, const void* h_cells,
-                                   const void* w_cells, void* stats, void* scratch, int H, int W,
-                                   int max_iters, void* stream) {
+                                   const void* w_cells, void* stats, void* scratch, int worlds,
+                                   int H, int W, int max_iters, int* launches, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H < 1 || W < 1 || max_iters < 0) return (int)cudaErrorInvalidValue;
+  *launches = 0;
+  if (H < 1 || W < 1 || max_iters < 0 || worlds < 0) return (int)cudaErrorInvalidValue;
+  if (worlds == 0) return 0;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return fail(e);
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return fail(e);
-  // a band is at least as high as its halo, so that a block's halo rows all
-  // come from the one block above or below
+  // the SMs shared among the worlds of a launch; a band is at least as high
+  // as its halo, so that a block's halo rows all come from the one block
+  // above or below
+  const int chunk = min(worlds, sms);
+  const int per_world = sms / chunk;
   const int wd = (W + 31) / 32;
-  const int rows = max(kHalo, (H + sms - 1) / sms);
-  const int blocks = (H + rows - 1) / rows;
+  const int rows = max(kHalo, (H + per_world - 1) / per_world);
+  const int bands = (H + rows - 1) / rows;
   const long words = (long)(rows + 2) * wd;
   const int threads = (int)min((long)kMaxThreads, max(32L, (words + 31) / 32 * 32));
   const size_t smem = 2 * (size_t)(rows + 2 * kHalo) * wd * sizeof(uint32_t);
@@ -276,16 +315,29 @@ extern "C" int zhang_suen_fixpoint(const void* in, void* out, const void* h_cell
   if (e != cudaSuccess) return fail(e);
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   int32_t* counts = static_cast<int32_t*>(scratch);
-  uint32_t* edges = reinterpret_cast<uint32_t*>(counts + max_iters);
-  if (max_iters > 0) {
-    e = cudaMemsetAsync(counts, 0, sizeof(int32_t) * max_iters, st);
+  int32_t* totals = counts + (size_t)chunk * max_iters;
+  uint32_t* edges = reinterpret_cast<uint32_t*>(totals + max_iters);
+  const size_t plane = (size_t)H * W;
+  for (int w0 = 0; w0 < worlds; w0 += chunk) {
+    const int n = min(chunk, worlds - w0);
+    if (max_iters > 0) {
+      e = cudaMemsetAsync(counts, 0, sizeof(int32_t) * ((size_t)chunk * max_iters + max_iters),
+                          st);
+      if (e != cudaSuccess) return fail(e);
+    }
+    const uint8_t* in_n = static_cast<const uint8_t*>(in) + w0 * plane;
+    uint8_t* out_n = static_cast<uint8_t*>(out) + w0 * plane;
+    const int32_t* hc_n = static_cast<const int32_t*>(h_cells) + w0;
+    const int32_t* wc_n = static_cast<const int32_t*>(w_cells) + w0;
+    int32_t* stats_n = static_cast<int32_t*>(stats) + 2 * (size_t)w0;
+    void* args[] = {(void*)&in_n,   (void*)&out_n,  (void*)&hc_n,     (void*)&wc_n,
+                    (void*)&stats_n, (void*)&counts, (void*)&totals, (void*)&edges,
+                    (void*)&H,      (void*)&W,      (void*)&rows,     (void*)&bands,
+                    (void*)&max_iters};
+    e = cudaLaunchCooperativeKernel((const void*)fixpoint_kernel, dim3(n * bands),
+                                    dim3(threads), args, smem, st);
     if (e != cudaSuccess) return fail(e);
+    ++*launches;
   }
-  void* args[] = {(void*)&in,     (void*)&out,   (void*)&h_cells, (void*)&w_cells,
-                  (void*)&stats,  (void*)&counts, (void*)&edges,   (void*)&H,
-                  (void*)&W,      (void*)&rows,  (void*)&max_iters};
-  e = cudaLaunchCooperativeKernel((const void*)fixpoint_kernel, dim3(blocks), dim3(threads),
-                                  args, smem, st);
-  if (e != cudaSuccess) return fail(e);
   return (int)cudaGetLastError();
 }

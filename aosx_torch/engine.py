@@ -8,6 +8,14 @@ then each ``step`` runs
     robot kinematics     (a simple unicycle stand-in)
 ``episode`` is a Python loop over ``step``; ``replay_episode`` runs it over
 a growing map, rebuilding the world from scratch at every frame.
+
+World axis: ``prepare_world``, ``prepare_world_full``, ``world_from_perceive``
+and ``initial_state`` take a cloud and polygon (or a PerceiveOut) whose
+leaves carry a leading world axis [G] (``aosx`` maps them with
+``jax.vmap``) and build the group's worlds in one call: K1, K2 and K3
+launch once a group, and each world of the result equals its unbatched
+build bit for bit. ``step`` and ``episode`` take states and worlds with
+leading lane axes; every reduction runs over a lane's own axes.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from .config import AosParams, Statics
 from .geom import atan2, cos, sin, wrap_angle
 from .guards import GUARD_NONFINITE, GUARD_PLAN_CAP
 from .ops import lanes, sqrt, take_row
+from .tree import tree_map
 from .gvd.graph import build_gvd_graph, merge_seeds
 from .gvd.voronoi import jump_flood
 from .perceive.pipeline import PerceiveOut, perceive
@@ -90,7 +99,12 @@ def prepare_world_full(pc: PointCloud, poly: Polygon, params: AosParams, exclusi
     PerceiveOut, owner plane or None); the extras feed the renderer's seed,
     tree-row and Voronoi-cell overlays (io/render.py). stencil_mesh:
     optional ``parallel.spatial.Mesh``, over whose devices the grid stencils
-    and the flood run on row bands (bitwise equal)."""
+    and the flood run on row bands (bitwise equal). With a world axis on
+    the cloud and polygon (xyz [G, N, 3]; exclusions [E, 3] for every world
+    or [G, E, 3]) every leaf of the result carries it; a mesh does not take
+    one (no ``aosx`` caller combines the two)."""
+    if stencil_mesh is not None and pc.xyz.dim() > 2:
+        raise ValueError("prepare_world: stencil_mesh does not take a world axis")
     out = perceive(pc, poly, params, exclusions, s, ror_method=ror_method,
                    stencil_mesh=stencil_mesh, stencil_axis=stencil_axis)
     world = world_from_perceive(out, params, s, stencil_mesh=stencil_mesh,
@@ -106,7 +120,8 @@ def owner_plane(out: PerceiveOut, params: AosParams, s: Statics):
 
 def world_from_perceive(out: PerceiveOut, params: AosParams, s: Statics, *,
                         stencil_mesh=None, stencil_axis: str = "space") -> World:
-    """Graph + costmat + waypoints + trim plane from a PerceiveOut."""
+    """Graph + costmat + waypoints + trim plane from a PerceiveOut (with or
+    without a leading world axis)."""
     graph = build_gvd_graph(out.seeds, out.rows_sorted, out.skeleton, params, s,
                             stencil_mesh=stencil_mesh, stencil_axis=stencil_axis)
     costmat = cost_matrix(graph, s)
@@ -124,31 +139,39 @@ def world_from_perceive(out: PerceiveOut, params: AosParams, s: Statics, *,
 def prepare_world(pc: PointCloud, poly: Polygon, params: AosParams, exclusions,
                   s: Statics, *, ror_method: str = "sorted", stencil_mesh=None,
                   stencil_axis: str = "space") -> World:
-    """One full perception + graph pass over a static map."""
+    """One full perception + graph pass over a static map, or over a group
+    of maps with a leading world axis [G] (one call, every world bitwise
+    its unbatched build)."""
     return prepare_world_full(pc, poly, params, exclusions, s, ror_method=ror_method,
                               stencil_mesh=stencil_mesh, stencil_axis=stencil_axis)[0]
 
 
 def initial_state(world: World, s: Statics) -> EngineState:
+    """The state before the first tick; with a world axis on ``world``
+    every leaf carries it."""
     dev = world.graph.nodes.device
+    B = world.graph.num_nodes.shape
     P, Q = s.max_path, s.max_plan
 
-    def empty(n):
-        return Path(xy=torch.zeros((n, 2), dtype=torch.float32, device=dev),
-                    yaw=torch.zeros(n, dtype=torch.float32, device=dev),
-                    count=torch.zeros((), dtype=torch.int32, device=dev))
+    def lanes_of(t):
+        return tree_map(lambda x: x.expand(B + x.shape).clone(), t)
 
-    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    def empty(n):
+        return Path(xy=torch.zeros(B + (n, 2), dtype=torch.float32, device=dev),
+                    yaw=torch.zeros(B + (n,), dtype=torch.float32, device=dev),
+                    count=torch.zeros(B, dtype=torch.int32, device=dev))
+
+    zero_i = torch.zeros(B, dtype=torch.int32, device=dev)
     return EngineState(
-        robot=Robot(xy=torch.zeros(2, dtype=torch.float32, device=dev),
-                    yaw=torch.zeros((), dtype=torch.float32, device=dev),
+        robot=Robot(xy=torch.zeros(B + (2,), dtype=torch.float32, device=dev),
+                    yaw=torch.zeros(B, dtype=torch.float32, device=dev),
                     follow_i=zero_i),
-        mission=MissionState.initial(dev),
-        control=ControlState.initial(dev),
+        mission=lanes_of(MissionState.initial(dev)),
+        control=lanes_of(ControlState.initial(dev)),
         wp=world.waypoints,
         plan=empty(Q),
         raw_path=empty(P),
-        last_mod=torch.full((), 3, dtype=torch.int32, device=dev),
+        last_mod=torch.full(B, 3, dtype=torch.int32, device=dev),
         t=zero_i,
     )
 
@@ -194,7 +217,10 @@ def _move_robot(robot: Robot, mod, plan: Path, goal_xy, goal_yaw, v_dt=0.12, yaw
 
 
 def step(state: EngineState, world: World, params: AosParams, s: Statics, *, v_dt=0.12):
-    """One engine tick. Returns (state, metrics dict)."""
+    """One engine tick. Returns (state, metrics dict). Every leaf of the
+    state and the world (and every field of params) may carry leading lane
+    axes; each lane runs the single-lane tick bit for bit, its reductions
+    over its own axes."""
     # 1. control tick on the current /plan (odometry message equivalent)
     ctrl = on_path(state.control, state.plan)
     ctrl, fired, mod, goal_xy, goal_yaw = control_tick(ctrl, state.robot.xy, state.robot.yaw, params)
@@ -208,8 +234,8 @@ def step(state: EngineState, world: World, params: AosParams, s: Statics, *, v_d
     # keep the last path when frozen or failed (cpp:265-271, 1036-1043)
     use_new = should_replan & success
     raw_path = Path(
-        xy=torch.where(use_new, raw.xy, state.raw_path.xy),
-        yaw=torch.where(use_new, raw.yaw, state.raw_path.yaw),
+        xy=torch.where(lanes(use_new, raw.xy), raw.xy, state.raw_path.xy),
+        yaw=torch.where(lanes(use_new, raw.yaw), raw.yaw, state.raw_path.yaw),
         count=torch.where(use_new, raw.count, state.raw_path.count),
     )
     plan_path = linearize(raw_path, params, s)
@@ -223,7 +249,7 @@ def step(state: EngineState, world: World, params: AosParams, s: Statics, *, v_d
     raw_bits = raw.xy.view(torch.int32)
     old_bits = state.raw_path.xy.view(torch.int32)
     content_changed = use_new & ((raw.count != state.raw_path.count)
-                                 | (raw_bits != old_bits).any())
+                                 | (raw_bits != old_bits).flatten(-2).any(dim=-1))
     robot_in = dataclasses.replace(
         state.robot,
         follow_i=torch.where(content_changed, 0, state.robot.follow_i).to(torch.int32))
@@ -233,10 +259,13 @@ def step(state: EngineState, world: World, params: AosParams, s: Statics, *, v_d
                             plan=plan_path, raw_path=raw_path, last_mod=mod_pub,
                             t=state.t + 1)
 
-    nonfinite = ((~torch.isfinite(robot.xy)).sum(dtype=torch.int32)
-                 + (~torch.isfinite(plan_path.xy)).sum(dtype=torch.int32)
-                 + (~torch.isfinite(raw_path.xy)).sum(dtype=torch.int32)
-                 + (~torch.isfinite(ctrl.goal_xy)).sum(dtype=torch.int32))
+    def n_nonfinite(x, axes):
+        return (~torch.isfinite(x)).sum(dim=axes, dtype=torch.int32)
+
+    nonfinite = (n_nonfinite(robot.xy, -1)
+                 + n_nonfinite(plan_path.xy, (-2, -1))
+                 + n_nonfinite(raw_path.xy, (-2, -1))
+                 + n_nonfinite(ctrl.goal_xy, -1))
     zero = torch.zeros((), dtype=torch.int32, device=nonfinite.device)
     # a /plan that fills max_plan was almost certainly truncated by
     # linearize's fixed buffer
@@ -296,7 +325,8 @@ def replay_episode(pc_frames: PointCloud, poly: Polygon, params: AosParams, excl
 
 def episode(world: World, params: AosParams, s: Statics, n_steps: int, *, v_dt=0.12):
     """Closed-loop rollout as a Python loop. Returns (final state, per-step
-    metrics stacked along a leading axis)."""
+    metrics stacked along a leading axis). A world with leading lane axes
+    runs every lane's episode in the same ticks (metrics [n_steps, *B, ...])."""
     st = initial_state(world, s)
     per_step = []
     for _ in range(n_steps):

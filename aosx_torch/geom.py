@@ -6,6 +6,7 @@ import math
 
 import torch
 
+from .ops import lanes, take
 from .types import Polygon
 
 TWO_PI_F32 = torch.tensor(2 * math.pi, dtype=torch.float32).item()
@@ -15,19 +16,29 @@ def point_in_polygon(px, py, poly: Polygon):
     """Ray-casting point-in-polygon, faithful to the reference
     (aos_seed_gen_node.cpp:1231-1255): a crossing counts only when
     |dy| > 1e-9. px/py: broadcastable f32 tensors. Polygons with
-    count < 3 return False."""
-    P = poly.pts.shape[0]
+    count < 3 return False. With leading world axes B on the polygon (pts
+    [*B, P, 2], count [*B]), px and py carry B as their leading axes and
+    each lane is tested against its own polygon."""
+    P = poly.pts.shape[-2]
+    nb = poly.pts.dim() - 2
     idx = torch.arange(P, device=poly.pts.device)
-    valid = idx < poly.count
-    jdx = torch.where(idx == 0, poly.count - 1, idx - 1)
+    count = poly.count[..., None]
+    valid = idx < count
+    jdx = torch.where(idx == 0, count - 1, idx - 1)
     pi = poly.pts
-    pj = poly.pts[torch.clamp(jdx, 0, P - 1).long()]
+    pj = take(poly.pts, torch.clamp(jdx, 0, P - 1), nb)
 
-    px = px.to(torch.float32)[..., None]
-    py = py.to(torch.float32)[..., None]
+    px = px.to(torch.float32)
+    py = py.to(torch.float32)
+    extra = max(px.dim(), py.dim()) - nb
 
-    xi, yi = pi[:, 0], pi[:, 1]
-    xj, yj = pj[:, 0], pj[:, 1]
+    def per_lane(v):
+        # [*B, P] -> [*B, 1 ..., P] against px's trailing axes
+        return v.reshape(v.shape[:-1] + (1,) * extra + v.shape[-1:])
+
+    xi, yi = per_lane(pi[..., 0]), per_lane(pi[..., 1])
+    xj, yj = per_lane(pj[..., 0]), per_lane(pj[..., 1])
+    px, py = px[..., None], py[..., None]
     dy = yj - yi
     big_dy = torch.abs(dy) > 1e-9
     safe_dy = torch.where(big_dy, dy, torch.ones_like(dy))
@@ -35,10 +46,10 @@ def point_in_polygon(px, py, poly: Polygon):
         big_dy
         & ((yi > py) != (yj > py))
         & (px < (xj - xi) * (py - yi) / safe_dy + xi)
-        & valid
+        & per_lane(valid)
     )
     inside = crosses.to(torch.int32).sum(-1) % 2 == 1
-    return inside & (poly.count >= 3)
+    return inside & lanes(poly.count >= 3, inside)
 
 
 def active_bounds(poly: Polygon, clip_xy, margin):

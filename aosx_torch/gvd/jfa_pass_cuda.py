@@ -11,6 +11,13 @@ three carried planes (the TPU kernel's interface: shifted pass-start planes
 folded by ``voronoi.jacobi_fold``), ``jfa_flood_plain`` gathers
 ``table[owner]`` and loops it over the steps.
 
+World axis: ``jfa_flood`` and the plain versions take owner planes
+[*B, H, W], seed tables [*B, S + 1, 2] and origins of shape B, as
+``jax.vmap`` maps the TPU kernel; every world runs the same pass list, from
+its own origin and table. The kernel floods a whole group in one launch (a
+counted launch a chunk of worlds where the group exceeds the card's
+co-resident blocks); [H, W] is the same call with one world.
+
 ``jfa_flood`` takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises. Unlike the TPU kernel it has no
 step limit: every pass of the flood, 1 to 1024, runs through it.
@@ -20,31 +27,34 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from .. import cuda_build
 from . import voronoi as _voronoi
-from ..ops import fma
-from ..perceive.raster import iota2, shift2d
+from ..ops import fma, take
+from ..perceive.raster import to_plane, iota2, shift2d
 
 FAR = 1e9
 MAX_STEPS = 32
 
 def cell_coords(shape, origin_x, origin_y, res: float, device):
-    """(cellx, celly) f32 planes: origin + f32(index) * res rounded once, as
-    the fused multiply-add XLA:CPU makes of ``aosx/gvd/voronoi.py``'s
-    cell coordinates."""
+    """(cellx, celly) f32 planes [*B, H, W] (``shape`` is (H, W), the
+    origins 0-d or of shape B): origin + f32(index) * res rounded once, as
+    the fused multiply-add XLA:CPU makes of ``aosx/gvd/voronoi.py``'s cell
+    coordinates."""
     iy, ix = iota2(shape, device)
     resf = torch.tensor(res, dtype=torch.float32, device=device)
-    ox = torch.as_tensor(origin_x, dtype=torch.float32, device=device)
-    oy = torch.as_tensor(origin_y, dtype=torch.float32, device=device)
+    ox = to_plane(torch.as_tensor(origin_x, dtype=torch.float32, device=device))
+    oy = to_plane(torch.as_tensor(origin_y, dtype=torch.float32, device=device))
     return fma(ix.to(torch.float32), resf, ox), fma(iy.to(torch.float32), resf, oy)
 
 
 def jfa_pass_plain(owner, ox, oy, step: int, S: int, origin_x, origin_y, res: float):
-    """One Jacobi pass in plain PyTorch. Returns (owner, ox, oy)."""
-    cellx, celly = cell_coords(owner.shape, origin_x, origin_y, res, owner.device)
+    """One Jacobi pass in plain PyTorch over planes [*B, H, W]. Returns
+    (owner, ox, oy)."""
+    cellx, celly = cell_coords(owner.shape[-2:], origin_x, origin_y, res, owner.device)
     neighbors = [
         (shift2d(owner, dys * step, dxs * step, S),
          shift2d(ox, dys * step, dxs * step, FAR),
@@ -58,9 +68,10 @@ def jfa_pass_plain(owner, ox, oy, step: int, S: int, origin_x, origin_y, res: fl
 
 def jfa_flood_plain(owner, table, steps, S: int, origin_x, origin_y, res: float):
     """The passes at ``steps`` in plain PyTorch, from an owner plane (i32
-    [H, W], owners in 0..S) and the seed table (f32 [S + 1, 2], row S =
-    (1e9, 1e9)). Returns (owner, ox, oy)."""
-    pos = table[owner.long()]
+    [*B, H, W], owners in 0..S) and the seed table (f32 [*B, S + 1, 2], row
+    S = (1e9, 1e9)). Returns (owner, ox, oy)."""
+    nb = owner.dim() - 2
+    pos = take(table, owner.flatten(-2), nb).reshape(owner.shape + (2,))
     state = (owner, pos[..., 0].contiguous(), pos[..., 1].contiguous())
     for step in steps:
         state = jfa_pass_plain(*state, int(step), S, origin_x, origin_y, res)
@@ -74,8 +85,8 @@ _int = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib():
     fn = cuda_build.load("jfa_pass").jfa_flood
-    fn.argtypes = [_vp, _vp, _vp, _vp, _vp, ctypes.POINTER(_int), _int, _int, _int, _int,
-                   ctypes.c_float, _vp, _vp, _vp]
+    fn.argtypes = [_vp, _vp, _vp, _vp, _vp, ctypes.POINTER(_int), _int, _int, _int, _int, _int,
+                   ctypes.c_float, _vp, _vp, ctypes.POINTER(_int), _vp]
     fn.restype = _int
     return fn
 
@@ -83,16 +94,18 @@ def _lib():
 def jfa_flood(owner, table, steps, S: int, origin_x, origin_y, res: float,
               want_positions: bool = False):
     """The 8-direction Jacobi passes at ``steps`` (a single pass is
-    ``steps=[k]``) over the owner plane (i32 [H, W], owners in 0..S with S =
-    none), positions read from ``table`` (f32 [S + 1, 2], row S = (1e9,
-    1e9)). Returns the owner plane, or (owner, ox, oy) with
+    ``steps=[k]``) over the owner planes (i32 [*B, H, W], owners in 0..S
+    with S = none), positions read from ``table`` (f32 [*B, S + 1, 2], row S
+    = (1e9, 1e9)), each world of the leading axes B from its own origin
+    (0-d or of shape B). Returns the owner planes, or (owner, ox, oy) with
     ``want_positions``.
 
     CPU tensors take the plain version. CUDA tensors launch kernel K1: one
-    call into the library and one cooperative launch for the whole flood,
-    with no host read (``jfa_flood.launches`` counts them,
-    ``jfa_flood.passes`` the passes they ran); ``owner`` is then one plane
-    of the ping-pong pair and is OVERWRITTEN."""
+    call into the library and one cooperative launch for the whole flood of
+    the whole group (a launch a chunk of worlds where the group exceeds the
+    card's co-resident blocks), with no host read (``jfa_flood.launches``
+    counts the launches, ``jfa_flood.passes`` the passes they ran);
+    ``owner`` is then one plane of the ping-pong pair and is OVERWRITTEN."""
     steps = [int(k) for k in steps]
     if owner.device.type == "cpu":
         out = jfa_flood_plain(owner, table, steps, S, origin_x, origin_y, res)
@@ -100,33 +113,42 @@ def jfa_flood(owner, table, steps, S: int, origin_x, origin_y, res: float,
     dev = owner.device
     if dev.type != "cuda":
         raise ValueError(f"jfa_flood: unsupported device {dev}")
-    if owner.dtype != torch.int32 or owner.dim() != 2 or not owner.is_contiguous():
-        raise ValueError("jfa_flood: owner must be a contiguous 2-D int32 tensor")
-    if (table.dtype != torch.float32 or tuple(table.shape) != (S + 1, 2)
+    if owner.dtype != torch.int32 or owner.dim() < 2 or not owner.is_contiguous():
+        raise ValueError("jfa_flood: owner must be a contiguous [*B, H, W] int32 tensor")
+    B = owner.shape[:-2]
+    if (table.dtype != torch.float32 or tuple(table.shape) != B + (S + 1, 2)
             or not table.is_contiguous() or table.device != dev):
-        raise ValueError(f"jfa_flood: table must be a contiguous float32 [{S + 1}, 2] tensor "
-                         "on the owner plane's device")
-    H, W = owner.shape
+        raise ValueError(f"jfa_flood: table must be a contiguous float32 {list(B)} + "
+                         f"[{S + 1}, 2] tensor on the owner plane's device")
+    H, W = owner.shape[-2:]
+    G = math.prod(B)
     if W % 4 != 0:
         raise ValueError(f"jfa_flood: the plane's width {W} must be a multiple of 4")
     if not 1 <= len(steps) <= MAX_STEPS or any(k < 1 for k in steps):
         raise ValueError(f"jfa_flood: 1 to {MAX_STEPS} steps, each >= 1: {steps}")
-    gx = cuda_build.device_scalar(origin_x, torch.float32, dev)
-    gy = cuda_build.device_scalar(origin_y, torch.float32, dev)
+
+    def per_world(v):
+        v = torch.as_tensor(v).to(device=dev, dtype=torch.float32)
+        return v.expand(B).contiguous().reshape(G)
+
+    gx, gy = per_world(origin_x), per_world(origin_y)
     other = torch.empty_like(owner)
     ox = oy = None
     if want_positions:
         ox = torch.empty(owner.shape, dtype=torch.float32, device=dev)
         oy = torch.empty_like(ox)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib()(owner.data_ptr(), other.data_ptr(), table.data_ptr(), gx.data_ptr(),
-                    gy.data_ptr(), (_int * len(steps))(*steps), len(steps), H, W, int(S),
-                    float(res), ox.data_ptr() if want_positions else None,
-                    oy.data_ptr() if want_positions else None, stream)
-    cuda_build.check(rc, "jfa_flood")
-    jfa_flood.launches += 1
-    jfa_flood.passes += len(steps)
+    launches = _int(0)
+    if G > 0:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = _lib()(owner.data_ptr(), other.data_ptr(), table.data_ptr(), gx.data_ptr(),
+                        gy.data_ptr(), (_int * len(steps))(*steps), len(steps), G, H, W, int(S),
+                        float(res), ox.data_ptr() if want_positions else None,
+                        oy.data_ptr() if want_positions else None, ctypes.byref(launches),
+                        stream)
+        jfa_flood.launches += launches.value
+        jfa_flood.passes += launches.value * len(steps)
+        cuda_build.check(rc, "jfa_flood")
     result = other if len(steps) % 2 else owner
     return (result, ox, oy) if want_positions else result
 

@@ -7,7 +7,9 @@ lexicographic (d2, owner) min, ties to the lower seed index. The flood
 carries the owner plane alone: a cell's owner position is the seed table's
 row, ``table[owner]``, at the start and after every pass. All passes of a
 flood are one call of kernel K1 (``jfa_pass_cuda.jfa_flood``) with no host
-read in it.
+read in it. Grids and seed sets with a leading world axis flood in that one
+call too: each world keeps its own origin, live bounds and table, and runs
+the same pass list (``_passes`` is static).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..config import Statics
-from ..ops import fma
+from ..ops import fma, lanes
 from ..perceive.raster import f32, live_mask
 from ..types import GridWorld, SeedSet
 
@@ -36,24 +38,26 @@ def _passes(s: Statics):
 
 
 def _jfa_init(grid: GridWorld, seeds: SeedSet, s: Statics):
-    """Seed scatter -> (owner [H,W] i32 with S = no owner, table [S+1, 2] f32
-    = seeds.xy with the row (1e9, 1e9) of "no owner" appended). Seeds sharing
-    a cell: the lowest valid seed index wins (scatter-min), so every cell's
-    owner position is table[owner]."""
-    h, w = grid.occ.shape
+    """Seed scatter -> (owner [*B, H,W] i32 with S = no owner, table
+    [*B, S+1, 2] f32 = seeds.xy with the row (1e9, 1e9) of "no owner"
+    appended). Seeds sharing a cell: the lowest valid seed index wins
+    (scatter-min, which no order of the writes changes), so every cell's
+    owner position is table[owner]. Each world scatters into its own plane."""
+    h, w = grid.occ.shape[-2:]
     dev = grid.occ.device
+    B = seeds.valid.shape[:-1]
     res = f32(s.resolution, dev)
-    S = seeds.xy.shape[0]
-    sx = torch.floor((seeds.xy[:, 0] - grid.origin_x) / res).to(torch.int32)
-    sx = torch.minimum(torch.clamp(sx, min=0), grid.w_cells - 1)
-    sy = torch.floor((seeds.xy[:, 1] - grid.origin_y) / res).to(torch.int32)
-    sy = torch.minimum(torch.clamp(sy, min=0), grid.h_cells - 1)
+    S = seeds.xy.shape[-2]
+    sx = torch.floor((seeds.xy[..., 0] - lanes(grid.origin_x, seeds.valid)) / res).to(torch.int32)
+    sx = torch.minimum(torch.clamp(sx, min=0), lanes(grid.w_cells, sx) - 1)
+    sy = torch.floor((seeds.xy[..., 1] - lanes(grid.origin_y, seeds.valid)) / res).to(torch.int32)
+    sy = torch.minimum(torch.clamp(sy, min=0), lanes(grid.h_cells, sy) - 1)
     flat = (sy.long() * w + sx.long())
     sidx = torch.where(seeds.valid, torch.arange(S, dtype=torch.int32, device=dev), S)
-    owner = torch.full((h * w,), S, dtype=torch.int32, device=dev)
-    owner = owner.scatter_reduce(0, flat, sidx, reduce="amin", include_self=True)
-    far = torch.full((1, 2), 1e9, dtype=torch.float32, device=dev)
-    return owner.reshape(h, w), torch.cat([seeds.xy.to(torch.float32), far])
+    owner = torch.full(B + (h * w,), S, dtype=torch.int32, device=dev)
+    owner = owner.scatter_reduce(-1, flat, sidx, reduce="amin", include_self=True)
+    far = torch.full(B + (1, 2), 1e9, dtype=torch.float32, device=dev)
+    return owner.reshape(B + (h, w)), torch.cat([seeds.xy.to(torch.float32), far], dim=-2)
 
 
 def jacobi_fold(o0, x0, y0, neighbors, S: int, cellx, celly):
@@ -82,12 +86,12 @@ def jacobi_fold(o0, x0, y0, neighbors, S: int, cellx, celly):
 
 
 def jump_flood(grid: GridWorld, seeds: SeedSet, s: Statics):
-    """Nearest-seed ownership over the live region. Returns owner [H,W]
+    """Nearest-seed ownership over the live region. Returns owner [*B, H,W]
     i32: seed index, or -1 outside the live region / with no seeds.
     Distances are measured from cell corners (world = origin + cell*res)."""
     from .jfa_pass_cuda import jfa_flood
 
-    S = seeds.xy.shape[0]
+    S = seeds.xy.shape[-2]
     owner, table = _jfa_init(grid, seeds, s)
     owner = jfa_flood(owner, table, _passes(s), S, grid.origin_x, grid.origin_y, s.resolution)
     return torch.where(live_mask(grid) & (owner < S), owner, -1)

@@ -4,29 +4,36 @@ compact_true: order-preserving compaction of a boolean mask into the flat
 indices of its first K true elements. ``aosx`` takes ``lax.top_k`` of the
 negated priorities; here a stable ascending sort of the same priorities
 takes its place (``torch.topk`` leaves the order of ties unspecified).
+
+Batch axes: the compactions, the segment reductions, ``compact_take`` and
+``scatter_set`` work along the LAST axis of their mask, ids or indices;
+leading axes are lanes (the worlds of a group, the axes ``aosx`` maps with
+``jax.vmap``), each handled on its own and bit for bit as alone.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 
 def _first_k(prio, k: int):
-    """The k smallest priorities, ascending."""
-    return torch.sort(prio, stable=True).values[:k]
+    """The k smallest priorities along the last axis, ascending."""
+    return torch.sort(prio, dim=-1, stable=True).values[..., :k]
 
 
 def compact_true(mask_flat, k: int):
-    """First-K true positions of mask_flat in index order.
+    """First-K true positions of mask_flat [*B, n] in index order, per lane.
 
-    Returns (indices [min(k, n)] i32, -1 padded; count i32)."""
-    n = mask_flat.shape[0]
+    Returns (indices [*B, min(k, n)] i32, -1 padded; count [*B] i32)."""
+    n = mask_flat.shape[-1]
     k = min(k, n)
     ar = torch.arange(n, dtype=torch.int32, device=mask_flat.device)
     prio = torch.where(mask_flat, ar, torch.full_like(ar, n))
     sel = _first_k(prio, k)
     ok = sel < n
-    count = ok.to(torch.int32).sum(dtype=torch.int32)
+    count = ok.to(torch.int32).sum(dim=-1, dtype=torch.int32)
     return torch.where(ok, sel, torch.full_like(sel, -1)), count
 
 
@@ -38,39 +45,45 @@ def compact_true_hier(mask_flat, k: int, kw: int, win: int = 32,
     yields whenever at most ``kw`` windows hold a true element and what
     ``aosx`` falls back to otherwise. Without it, trailing cells beyond the
     first ``kw`` true windows are dropped (flagged by ``with_overflow``).
+    mask_flat [*B, n]; every lane is compacted on its own.
 
-    Returns (indices [k] i32, -1 padded; count i32 = min(true count, k))."""
+    Returns (indices [*B, k] i32, -1 padded; count [*B] i32 = min(true
+    count, k))."""
     dev = mask_flat.device
-    n = mask_flat.shape[0]
+    B = mask_flat.shape[:-1]
+    n = mask_flat.shape[-1]
     if n % win != 0:
         pad = win - n % win
-        mask_flat = torch.cat([mask_flat, torch.zeros(pad, dtype=torch.bool, device=dev)])
+        mask_flat = torch.cat([mask_flat, torch.zeros(B + (pad,), dtype=torch.bool, device=dev)],
+                              dim=-1)
         n = n + pad
     nw = n // win
     kw = min(kw, nw)
-    m2 = mask_flat.reshape(nw, win)
-    wany = m2.any(dim=1)
-    nw_true = wany.to(torch.int32).sum(dtype=torch.int32)
+    m2 = mask_flat.reshape(B + (nw, win))
+    wany = m2.any(dim=-1)
+    nw_true = wany.to(torch.int32).sum(dim=-1, dtype=torch.int32)
     sentinel = torch.tensor(n, dtype=torch.int32, device=dev)
 
     if exact_fallback:
         ar = torch.arange(n, dtype=torch.int32, device=dev)
         sel = _first_k(torch.where(mask_flat, ar, sentinel), min(k, n))
         if n < k:
-            sel = torch.cat([sel, torch.full((k - n,), n, dtype=torch.int32, device=dev)])
+            sel = torch.cat([sel, torch.full(B + (k - n,), n, dtype=torch.int32, device=dev)],
+                            dim=-1)
     else:
         wsel, _ = compact_true(wany, kw)
         wsafe = torch.clamp(wsel, min=0).long()
-        cand = m2[wsafe] & (wsel >= 0)[:, None]
-        orig = (wsafe.to(torch.int32)[:, None] * win
-                + torch.arange(win, dtype=torch.int32, device=dev)[None, :])
-        prio = torch.where(cand, orig, sentinel).reshape(-1)
+        cand = take(m2, wsafe, len(B)) & (wsel >= 0)[..., None]
+        orig = (wsafe.to(torch.int32)[..., None] * win
+                + torch.arange(win, dtype=torch.int32, device=dev))
+        prio = torch.where(cand, orig, sentinel).reshape(B + (-1,))
         kk = min(k, kw * win)
         sel = _first_k(prio, kk)
         if kk < k:
-            sel = torch.cat([sel, torch.full((k - kk,), n, dtype=torch.int32, device=dev)])
+            sel = torch.cat([sel, torch.full(B + (k - kk,), n, dtype=torch.int32, device=dev)],
+                            dim=-1)
     ok = sel < n
-    count = ok.to(torch.int32).sum(dtype=torch.int32)
+    count = ok.to(torch.int32).sum(dim=-1, dtype=torch.int32)
     out = torch.where(ok, sel, torch.full_like(sel, -1))
     if with_overflow:
         return out, count, nw_true > kw
@@ -88,11 +101,20 @@ def while_loop(cond, body, state, check_every: int = CHECK_EVERY):
     ``cond`` may return a tensor of lanes (the batch axes of a vmapped
     loop): the loop runs while ANY lane is active, every lane in lockstep,
     as ``jax.vmap`` of a ``while_loop`` runs it. Sound only for bodies that
-    leave each lane's state unchanged once that lane's ``cond`` is false:
-    the bodies in this package either are such no-ops by construction or
-    mask each lane's update with the lane's own ``cond`` (see each caller),
-    so neither the extra iterations between host checks nor the iterations
-    a lane spends waiting for the slowest lane change it."""
+    leave each lane's state unchanged once that lane's ``cond`` is false,
+    so that neither the extra iterations between host checks nor the
+    iterations a lane spends waiting for the slowest lane change it. The
+    callers and how each keeps that:
+
+    - masked with the lane's own condition: ``plan.astar.astar`` (and the
+      DFS of ``plan.plancache.tour_feasibility``), the union-finds
+      ``perceive.rows.union_find_labels`` and ``run_level_labels``;
+    - no-ops by construction once a lane is done (nothing undecided, every
+      ray resolved or fired): ``perceive.seeds.greedy_dedupe``,
+      ``raycast_bounded`` and ``cast_rays_unbounded``, ``gvd.graph.merge_seeds``.
+
+    Each returns one condition per world of a group (the world axis of
+    ``engine.prepare_world``) or per lane of a batch."""
     while bool(cond(state).any()):
         for _ in range(check_every):
             state = body(state)
@@ -100,23 +122,32 @@ def while_loop(cond, body, state, check_every: int = CHECK_EVERY):
 
 
 def segment_sum(vals, segs, num: int):
-    """Sum of vals per segment id in [0, num), adding in index order."""
-    out = torch.zeros((num,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, segs.long(), vals)
+    """Sum of vals [*B, n, *T] per segment id of segs [*B, n] in [0, num),
+    adding in index order; each lane of B has segments of its own.
+    Returns [*B, num, *T]."""
+    B = segs.shape[:-1]
+    T = vals.shape[segs.dim():]
+    G = math.prod(B)
+    off = torch.arange(G, device=segs.device).reshape(B + (1,)) * num
+    out = torch.zeros((G * num,) + T, dtype=vals.dtype, device=vals.device)
+    out.index_add_(0, (segs.long() + off).reshape(-1), vals.reshape((-1,) + T))
+    return out.reshape(B + (num,) + T)
 
 
 def segment_max(vals, segs, num: int):
-    """Max per segment; -inf (or the dtype's min) for empty segments."""
+    """Max per segment along the last axis of segs, per lane; -inf (or the
+    dtype's min) for empty segments."""
     init = -float("inf") if vals.dtype.is_floating_point else torch.iinfo(vals.dtype).min
-    out = torch.full((num,), init, dtype=vals.dtype, device=vals.device)
-    return out.scatter_reduce_(0, segs.long(), vals, reduce="amax", include_self=True)
+    out = torch.full(segs.shape[:-1] + (num,), init, dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce_(-1, segs.long(), vals, reduce="amax", include_self=True)
 
 
 def segment_min(vals, segs, num: int):
-    """Min per segment; +inf (or the dtype's max) for empty segments."""
+    """Min per segment along the last axis of segs, per lane; +inf (or the
+    dtype's max) for empty segments."""
     init = float("inf") if vals.dtype.is_floating_point else torch.iinfo(vals.dtype).max
-    out = torch.full((num,), init, dtype=vals.dtype, device=vals.device)
-    return out.scatter_reduce_(0, segs.long(), vals, reduce="amin", include_self=True)
+    out = torch.full(segs.shape[:-1] + (num,), init, dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce_(-1, segs.long(), vals, reduce="amin", include_self=True)
 
 
 def scatter_set(size: int, fill, idx, vals):
@@ -215,13 +246,28 @@ def cumsum_fixed(x):
 
 
 def compact_take(vals, indices, fill):
-    """Gather vals at compacted indices (-1 padded) with a fill value."""
+    """Gather vals [*B, n, *T] at compacted indices [*B, k] (-1 padded) with
+    a fill value."""
     safe = torch.clamp(indices, min=0).long()
-    out = vals[safe]
+    out = take(vals, safe, indices.dim() - 1)
     mask = indices >= 0
     if out.dim() > mask.dim():
         mask = mask.reshape(mask.shape + (1,) * (out.dim() - mask.dim()))
     return torch.where(mask, out, torch.as_tensor(fill, dtype=out.dtype, device=out.device))
+
+
+def gather_last(arr, idx):
+    """``arr[..., idx]`` per lane: arr [*B, n] and idx [*B, *J] (the same
+    leading axes) give [*B, *J]; ``take`` over all but arr's last axis."""
+    return take(arr, idx, arr.dim() - 1)
+
+
+def chunk_rows(rows: int, lanes_: int, floor: int = 64) -> int:
+    """Rows of a row-chunked pass evaluated at once when ``lanes_`` lanes run
+    together: about ``rows`` rows' worth of temporaries in all, and at least
+    ``floor`` rows a lane. The counts and maxima such passes make do not
+    depend on the chunking."""
+    return max(min(rows, floor), rows // max(lanes_, 1))
 
 
 def fma(a, b, c):

@@ -100,13 +100,15 @@ def make_orchard(key, spec: OrchardSpec, s, device=None):
     """The on-device orchard generator (mirror of ``aosx.orchards.make_orchard``):
     fixed shapes, drawn from ``key`` (``prng.prng_key(seed, device)``) with
     the JAX package's threefry streams. Returns (PointCloud, Polygon) on the
-    key's device.
+    key's device. Keys [G, 2] draw G orchards in one call, every leaf with a
+    leading [G] axis (``jax.vmap`` of ``aosx.orchards.make_orchard``).
 
     Keys, bits, uniforms, normals and the trunk trig equal the JAX
     package's on the CPU bit for bit (``prng``, ``f32math``), and so does
     the cloud (tests/test_torch_orchards.py)."""
     dev = key.device if device is None else torch.device(device)
     key = key.to(dev)
+    G = key.shape[:-1]
     n_trees = int(spec.row_len / spec.tree_spacing) + 1
     n_trunk = spec.n_rows * n_trees * spec.trunk_pts
     n_total = n_trunk + spec.noise_pts
@@ -123,43 +125,44 @@ def make_orchard(key, spec: OrchardSpec, s, device=None):
     cx0 = np.float32(ox) + tt[None, :] * np.float32(spec.tree_spacing)
     # jitter * normal: XLA:CPU folds jitter * sqrt(2) into one f32 constant
     # and fuses its product with the add that follows
-    scale = torch.full((R, T), float(np.float32(spec.jitter) * prng.SQRT2), device=dev)
-    ex = prng.erfinv_uniform(ks[0], (R, T))
-    ey = prng.erfinv_uniform(ks[1], (R, T))
-    cx = fma(scale, ex, cx0.expand(R, T))
+    scale = torch.full(G + (R, T), float(np.float32(spec.jitter) * prng.SQRT2), device=dev)
+    ex = prng.erfinv_uniform(ks[..., 0, :], (R, T))
+    ey = prng.erfinv_uniform(ks[..., 1, :], (R, T))
+    cx = fma(scale, ex, cx0.expand(G + (R, T)))
     if spec.row_curve != 0.0:
         # XLA:CPU folds pi / (T - 1) into one f32 constant, and fuses the
         # bow's product with the jitter it is added to
         arc = (np.float32(np.pi) / np.float32(max(T - 1, 1))) * tt
-        bow = sin_f32(arc)[None, :].expand(R, T)
+        bow = sin_f32(arc)[None, :].expand(G + (R, T))
         cy = cy0 + fma(torch.full_like(bow, float(np.float32(spec.row_curve))), bow, scale * ey)
     else:
-        cy = fma(scale, ey, cy0.expand(R, T))
+        cy = fma(scale, ey, cy0.expand(G + (R, T)))
     cx, cy = cx[..., None], cy[..., None]
 
-    ang = prng.uniform(ks[2], (R, T, P), 0.0, np.float32(2 * np.pi))
-    rad = prng.uniform(ks[3], (R, T, P), 0.0, spec.trunk_radius)
-    z = prng.uniform(ks[4], (R, T, P), -0.2, 0.4)
+    ang = prng.uniform(ks[..., 2, :], (R, T, P), 0.0, np.float32(2 * np.pi))
+    rad = prng.uniform(ks[..., 3, :], (R, T, P), 0.0, spec.trunk_radius)
+    z = prng.uniform(ks[..., 4, :], (R, T, P), -0.2, 0.4)
     # cx + rad * cos(ang) rounded once: XLA:CPU fuses it
     px = fma(rad, cos_f32(ang), cx.expand_as(rad))
     py = fma(rad, sin_f32(ang), cy.expand_as(rad))
-    trunk = torch.stack([px, py, z], -1).reshape(n_trunk, 3)
+    trunk = torch.stack([px, py, z], -1).reshape(G + (n_trunk, 3))
 
     minx, maxx = ox - 2, ox + spec.row_len + 2
     miny, maxy = oy - 2, oy + (spec.n_rows - 1) * spec.row_spacing + 2
-    noise = prng.uniform(ks[5], (spec.noise_pts, 3), np.array([minx, miny, -0.3], np.float32),
+    noise = prng.uniform(ks[..., 5, :], (spec.noise_pts, 3),
+                         np.array([minx, miny, -0.3], np.float32),
                          np.array([maxx, maxy, 0.4], np.float32))
-    xyz = torch.zeros((s.max_points, 3), dtype=f32, device=dev)
-    xyz[:n_trunk] = trunk
-    xyz[n_trunk:n_total] = noise
-    valid = torch.arange(s.max_points, device=dev) < n_total
+    xyz = torch.zeros(G + (s.max_points, 3), dtype=f32, device=dev)
+    xyz[..., :n_trunk, :] = trunk
+    xyz[..., n_trunk:n_total, :] = noise
+    valid = (torch.arange(s.max_points, device=dev) < n_total).expand(G + (s.max_points,))
     if spec.dropout > 0.0:
         # fixed shapes: a dropped tree keeps its slots, only its validity flips
-        keep_tree = prng.uniform(ks[6], (R, T)) >= np.float32(spec.dropout)
-        trunk_valid = keep_tree.reshape(-1).repeat_interleave(P)
+        keep_tree = prng.uniform(ks[..., 6, :], (R, T)) >= np.float32(spec.dropout)
+        trunk_valid = keep_tree.reshape(G + (-1,)).repeat_interleave(P, dim=-1)
         valid = valid & torch.cat([trunk_valid,
-                                   torch.ones(s.max_points - n_trunk, dtype=torch.bool,
-                                              device=dev)])
+                                   torch.ones(G + (s.max_points - n_trunk,), dtype=torch.bool,
+                                              device=dev)], dim=-1)
     ytop = oy + (spec.n_rows - 1) * spec.row_spacing
     if spec.row_curve > 0.0:
         ytop += spec.row_curve
@@ -167,4 +170,8 @@ def make_orchard(key, spec: OrchardSpec, s, device=None):
                      [ox + spec.row_len + spec.polygon_pad, oy - spec.polygon_pad],
                      [ox + spec.row_len + spec.polygon_pad, ytop + spec.polygon_pad],
                      [ox - spec.polygon_pad, ytop + spec.polygon_pad]], np.float32)
-    return PointCloud(xyz=xyz, valid=valid), Polygon.from_array(poly, s, dev)
+    polygon = Polygon.from_array(poly, s, dev)
+    if G:
+        polygon = Polygon(pts=polygon.pts.expand(G + polygon.pts.shape).contiguous(),
+                          count=polygon.count.expand(G).contiguous())
+    return PointCloud(xyz=xyz, valid=valid.contiguous()), polygon

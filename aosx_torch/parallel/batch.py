@@ -12,15 +12,21 @@ What differs from the JAX package, and why:
   call evaluates the same worlds in both packages. The harness also takes
   ``clouds``, a callable rollout id -> cloud ``(xyz float32 [n, 3],
   polygon [k, 2])``, in place of the keys.
-- **Lanes.** ``aosx`` vmaps begin/chunk/finish over lanes. Here the
-  cached ``begin`` of a group (``rollout_begin_group``) builds its worlds
-  one after the other (``prepare_world``'s loops end on the data), stacks
-  them on a leading lane axis and builds the group's plan caches in one
-  batched call over worlds x rows x A* candidates; the full Worlds are
-  dropped right after. The cached chunk is lane-batched: ``chunk_steps``
-  calls of ``plancache.step_cached`` on [L, ...] leaves. The uncached
-  begin and chunk (``engine.step``: per-tick A* and linearize loops that
-  end on the data) run their lanes one after the other; right and slow.
+- **Lanes.** ``aosx`` vmaps begin/chunk/finish over lanes; here they run
+  as one batched call over a leading lane axis. A group's ``begin``
+  (``_begin_group``, ``rollout_begin_group``, the uncached ``_begin``)
+  draws its orchards from the group's keys in one ``make_orchard``, builds
+  its worlds in one ``engine.prepare_world`` (K1, K2 and K3 launched once a
+  group; every loop that ends on the data runs while any world is active,
+  each world masked with its own condition), then, when cached, the
+  group's plan caches in one ``build_plan_cache`` over worlds x rows x A*
+  candidates; the full Worlds are dropped right after. The chunk is
+  lane-batched too: ``chunk_steps`` calls of ``plancache.step_cached``
+  (cached) or of the lane-aware ``engine.step`` (uncached) on [L, ...]
+  leaves. ``batched_rollouts`` begins all its keys in one call and runs
+  one lane-aware episode. ``looped_worlds`` builds a group one world at a
+  time through unbatched calls: the reference the tests and the smoke
+  run hold the batched build against, not a path of the harness.
 - **Meshes.** ``sharded_rollouts`` and ``sustained_rollouts(mesh=)`` split
   the lanes into one block per device of a ``parallel.spatial.Mesh``; block
   ``k`` is built, stepped and read on ``mesh.devices[k]``. Lanes are
@@ -42,7 +48,7 @@ import torch
 from .. import engine, prng, tree
 from ..config import AosParams, Statics
 from ..convert import to_numpy
-from ..ops import sqrt
+from ..ops import sqrt, sum_fixed
 from ..orchards import OrchardSpec, make_orchard
 from ..plan import plancache
 from ..types import PointCloud, Polygon
@@ -103,33 +109,38 @@ def _invalidate_flagged(summary, s: Statics):
 
 
 def rollout_summary(final, metrics, s: Statics):
-    """Small per-orchard result from an episode's stacked per-step metrics."""
+    """Small per-orchard result from an episode's stacked per-step metrics
+    ([n_steps, *B, ...] for lanes B). travel sums a lane's segments in one
+    fixed order (``ops.sum_fixed``), so a lane's record is the same bits
+    alone or beside others, on every device."""
     done = metrics["completed"]
     n = done.shape[0]
     dev = done.device
-    first_done = torch.where(done, torch.arange(n, device=dev), n).min().to(torch.int32)
+    steps = torch.arange(n, device=dev).reshape((n,) + (1,) * (done.dim() - 1))
+    first_done = torch.where(done, steps, n).min(dim=0).values.to(torch.int32)
     seg = metrics["xy"][1:] - metrics["xy"][:-1]
     # bitwise OR over the steps, bit by bit
     bit = torch.arange(31, dtype=torch.int32, device=dev)
-    guards = ((((metrics["guards"][:, None] >> bit) & 1) != 0).any(dim=0).to(torch.int32)
-              << bit).sum(dtype=torch.int32)
+    guards = ((((metrics["guards"][..., None] >> bit) & 1) != 0).any(dim=0).to(torch.int32)
+              << bit).sum(dim=-1, dtype=torch.int32)
     return _invalidate_flagged(dict(
         completed=final.mission.exploration_completed,
         steps_to_complete=first_done,
         final_status=metrics["status"][-1],
-        travel_distance=_norm(seg).sum(),
+        travel_distance=sum_fixed(_norm(seg).movedim(0, -1)),
         final_dist_to_origin=_norm(final.robot.xy),
         waypoints=final.wp.count,
         guards=guards,
-        feasible=_i32(-1, dev),  # one-shot path: not classified
+        feasible=torch.full(done.shape[1:], -1, dtype=torch.int32, device=dev),
     ), s)
 
 
 def rollout_one(key, spec: OrchardSpec, params: AosParams, s: Statics, n_steps: int,
                 ror_method: str = "sorted", v_dt=None, device=None):
     """One procedural orchard drawn from ``key``: generate -> perceive -> GVD
-    -> closed loop of n_steps ticks. v_dt: per-tick travel of the stand-in
-    robot (engine.episode's default 0.12)."""
+    -> closed loop of n_steps ticks; keys [B, 2] run B of them as lanes of
+    one call. v_dt: per-tick travel of the stand-in robot (engine.episode's
+    default 0.12)."""
     device = default_device() if device is None else device
     world = _world(make_orchard(key, spec, s, device), params, s, ror_method)
     kw = {} if v_dt is None else {"v_dt": v_dt}
@@ -139,10 +150,11 @@ def rollout_one(key, spec: OrchardSpec, params: AosParams, s: Statics, n_steps: 
 
 def batched_rollouts(keys, spec, params, s, n_steps, ror_method="sorted", v_dt=None,
                      device=None):
-    """rollout_one over keys [B, 2], one after the other; every field gains a
-    leading axis."""
-    return tree.stack([rollout_one(k, spec, params, s, n_steps, ror_method, v_dt, device)
-                       for k in keys])
+    """rollout_one over keys [B, 2] as one batched call (the orchards, the
+    worlds, and one lane-aware episode); every field gains a leading axis,
+    each lane bitwise the key's rollout alone."""
+    return rollout_one(torch.as_tensor(keys, dtype=torch.int64), spec, params, s, n_steps,
+                       ror_method, v_dt, device)
 
 
 def sharded_rollouts(keys, spec, params, s, n_steps, mesh, ror_method="sorted"):
@@ -168,17 +180,20 @@ def sharded_rollouts(keys, spec, params, s, n_steps, mesh, ror_method="sorted"):
 # ---------------------------------------------------------------------------
 
 
-def _acc_init(s: Statics, n_steps_total: int, device):
+def _acc_init(s: Statics, n_steps_total: int, device, lanes_=()):
+    def full(shape, v, dtype):
+        return torch.full(lanes_ + shape, v, dtype=dtype, device=device)
+
     return dict(
-        first_done=_i32(n_steps_total, device),
-        travel=torch.zeros((), dtype=torch.float32, device=device),
-        last_xy=torch.zeros(2, dtype=torch.float32, device=device),
-        has_prev=torch.zeros((), dtype=torch.bool, device=device),
-        last_status=_i32(0, device),
-        guards=_i32(0, device),
+        first_done=full((), n_steps_total, torch.int32),
+        travel=full((), 0.0, torch.float32),
+        last_xy=full((2,), 0.0, torch.float32),
+        has_prev=full((), False, torch.bool),
+        last_status=full((), 0, torch.int32),
+        guards=full((), 0, torch.int32),
         # -1 not classified, 0 infeasible (stalls under the reference's own
         # semantics), 1 feasible (plancache.tour_feasibility)
-        feasible=_i32(-1, device),
+        feasible=full((), -1, torch.int32),
     )
 
 
@@ -202,8 +217,10 @@ def _fold(acc, m, tick):
 
 def _begin(orchard, params: AosParams, s: Statics, n_steps_total: int, ror_method: str,
            classify: bool):
+    """(world, state, acc) of an orchard, or of a group of orchards with a
+    leading [G] axis on every leaf, built in one call."""
     world = _world(orchard, params, s, ror_method)
-    acc = _acc_init(s, n_steps_total, orchard[0].xyz.device)
+    acc = _acc_init(s, n_steps_total, orchard[0].xyz.device, orchard[0].xyz.shape[:-2])
     if classify:
         cache = plancache.build_plan_cache(world, params, s)
         feas = plancache.tour_feasibility(cache, world.waypoints, params, s)
@@ -214,17 +231,18 @@ def _begin(orchard, params: AosParams, s: Statics, n_steps_total: int, ror_metho
 def rollout_begin(key, spec: OrchardSpec, params: AosParams, s: Statics, n_steps_total: int,
                   ror_method: str = "sorted", classify: bool = False, device=None):
     """World + initial state + summary accumulator for the orchard of
-    ``key``. classify=True also builds the plan cache for its
-    tour_feasibility."""
+    ``key`` (or, for keys [G, 2], of the group in one call).
+    classify=True also builds the plan cache for its tour_feasibility."""
     device = default_device() if device is None else device
     return _begin(make_orchard(key, spec, s, device), params, s, n_steps_total, ror_method,
                   classify)
 
 
 def rollout_chunk(world, st, acc, params, s: Statics, n: int, offset):
-    """Advance one rollout (no lane axis) by n control ticks of engine.step,
-    folding first completion step, sequential travel and last status into
-    the accumulator."""
+    """Advance rollouts by n control ticks of engine.step, folding first
+    completion step, sequential travel and last status into the
+    accumulator. Every leaf may carry a leading lane axis [L] (offset then
+    [L] too, each lane's age); the lanes step together."""
     offset = torch.as_tensor(offset, dtype=torch.int32, device=st.t.device)
     for i in range(n):
         st, m = engine.step(st, world, params, s)
@@ -254,38 +272,46 @@ def rollout_finish(st, acc, s: Statics):
 # ---------------------------------------------------------------------------
 
 
-def _begin_group(orchards, params: AosParams, s: Statics, n_steps_total: int,
-                 ror_method: str, lane_params: bool = False):
-    """(lite, cache, state, acc) of a group of orchards, every leaf with a
-    leading [G] axis: what ``jax.vmap(rollout_begin_cached)`` gives.
+def looped_worlds(orchards, params: AosParams, s: Statics, ror_method: str,
+                  lane_params: bool = False):
+    """The worlds of a group of orchards built one at a time through
+    unbatched ``prepare_world`` calls and stacked: what the batched build
+    equals bit for bit. ``orchards`` is a list of single orchards. Used by
+    the tests and the smoke run, never by the harness."""
+    return tree.stack([_world(o, tree.lane(params, i) if lane_params else params, s, ror_method)
+                       for i, o in enumerate(orchards)])
 
-    Each world is built on its own (``prepare_world``'s loops end on the
-    data; K1 and K2 launch once a world). The worlds are then stacked and
-    the group's plan caches come from ONE ``build_plan_cache`` (one batched
-    plan_current_path and one linearize over worlds x rows x A* candidates)
-    and one ``tour_feasibility``; the initial states and accumulators are
-    made per lane. ``params``: one AosParams for the group or, with
-    ``lane_params``, one whose leaves carry the [G] axis. The full Worlds
-    are temporaries of this function."""
-    G = len(orchards)
-    per = [tree.lane(params, i) if lane_params else params for i in range(G)]
-    worlds = [_world(o, p, s, ror_method) for o, p in zip(orchards, per)]
-    world = tree.stack(worlds)
+
+def _begin_group(orchard, params: AosParams, s: Statics, n_steps_total: int,
+                 ror_method: str):
+    """(lite, cache, state, acc) of a group of orchards (every leaf of
+    ``orchard`` with a leading [G] axis), every leaf with the [G] axis: what
+    ``jax.vmap(rollout_begin_cached)`` gives.
+
+    One call builds the group: its worlds in one ``prepare_world`` (K1, K2
+    and K3 launched once a group), its plan caches in one
+    ``build_plan_cache`` (one batched plan_current_path and one linearize
+    over worlds x rows x A* candidates) and one ``tour_feasibility``, its
+    initial states and accumulators. ``params``: one AosParams for the
+    group, or one whose leaves carry the [G] axis. The full Worlds are
+    temporaries of this function."""
+    device = orchard[0].xyz.device
+    G = orchard[0].xyz.shape[:-2]
+    world = _world(orchard, params, s, ror_method)
     cache = plancache.build_plan_cache(world, params, s)
     feas = plancache.tour_feasibility(cache, world.waypoints, params, s)
-    device = orchards[0][0].xyz.device
-    acc = tree.stack([_acc_init(s, n_steps_total, device) for _ in range(G)])
+    acc = _acc_init(s, n_steps_total, device, G)
     acc["feasible"] = feas["feasible"].to(torch.int32)
     # step_cached never reads the per-point yaw rows (a serving payload)
     cache = dataclasses.replace(cache, plan_yaw=cache.plan_yaw[..., :0])
-    return (plancache.world_lite(world), cache,
-            tree.stack([plancache.initial_cached_state(w, s) for w in worlds]), acc)
+    return (plancache.world_lite(world), cache, plancache.initial_cached_state(world, s), acc)
 
 
 def _begin_cached(orchard, params: AosParams, s: Statics, n_steps_total: int,
                   ror_method: str):
     """The group begin of one orchard, without the group axis."""
-    return tree.lane(_begin_group([orchard], params, s, n_steps_total, ror_method), 0)
+    one = tree.tree_map(lambda x: x[None], orchard)
+    return tree.lane(_begin_group(one, params, s, n_steps_total, ror_method), 0)
 
 
 def rollout_begin_cached(key, spec: OrchardSpec, params: AosParams, s: Statics,
@@ -302,11 +328,11 @@ def rollout_begin_cached(key, spec: OrchardSpec, params: AosParams, s: Statics,
 def rollout_begin_group(keys, spec: OrchardSpec, params: AosParams, s: Statics,
                         n_steps_total: int, ror_method: str = "sorted", device=None):
     """rollout_begin_cached over keys [G, 2] as one group (the refill group
-    of ``sustained_rollouts``): every leaf gains a leading [G] axis, each
-    lane bitwise the single key's begin."""
+    of ``sustained_rollouts``) in one call: every leaf gains a leading [G]
+    axis, each lane bitwise the single key's begin."""
     device = default_device() if device is None else device
-    return _begin_group([make_orchard(k, spec, s, device) for k in keys], params, s,
-                        n_steps_total, ror_method)
+    return _begin_group(make_orchard(torch.as_tensor(keys, dtype=torch.int64), spec, s, device),
+                        params, s, n_steps_total, ror_method)
 
 
 def rollout_chunk_cached(lite, cache, st, acc, params, s: Statics, n: int, offset):
@@ -385,13 +411,14 @@ def sustained_rollouts(total: int, batch: int, spec: OrchardSpec, params: AosPar
         keys = torch.as_tensor(keys, dtype=torch.int64)
         assert keys.shape[0] == total, (keys.shape, total)
 
-        def orchard(i, dev):
-            return make_orchard(keys[i], spec, s, dev)
+        def orchards(ids, dev):
+            return make_orchard(keys[torch.as_tensor(list(ids), dtype=torch.int64)], spec, s,
+                                dev)
     else:
         assert keys is None, "pass keys or clouds, not both"
 
-        def orchard(i, dev):
-            return cloud_tensors(clouds(i), s, dev)
+        def orchards(ids, dev):
+            return tree.stack([cloud_tensors(clouds(int(i)), s, dev) for i in ids])
 
     swept = params_queue is not None
     if swept:
@@ -405,14 +432,13 @@ def sustained_rollouts(total: int, batch: int, spec: OrchardSpec, params: AosPar
 
     def build(ids, dev):
         """(world, state, acc) of rollout ids ``ids`` (a group), built on
-        ``dev``, every leaf with the group's leading axis."""
+        ``dev`` in one call, every leaf with the group's leading axis."""
+        group = orchards(ids, dev)
+        p = _params(torch.as_tensor(list(ids)), dev)
         if cached:
-            lite, cache, st, acc = _begin_group(
-                [orchard(int(i), dev) for i in ids], _params(torch.as_tensor(list(ids)), dev), s,
-                steps_budget, ror_method, lane_params=swept)
+            lite, cache, st, acc = _begin_group(group, p, s, steps_budget, ror_method)
             return (lite, cache), st, acc
-        return tree.stack([_begin(orchard(int(i), dev), _params(int(i), dev), s, steps_budget,
-                                  ror_method, classify) for i in ids])
+        return _begin(group, p, s, steps_budget, ror_method, classify)
 
     def chunk(blk, ages_blk, dev):
         world_b, st_b, acc_b, params_b = blk
@@ -420,12 +446,7 @@ def sustained_rollouts(total: int, batch: int, spec: OrchardSpec, params: AosPar
         if cached:
             return rollout_chunk_cached(world_b[0], world_b[1], st_b, acc_b, params_b, s,
                                         chunk_steps, off)
-        out = []
-        for ln in range(len(ages_blk)):
-            w, st, acc = tree.lane((world_b, st_b, acc_b), ln)
-            p = tree.lane(params_b, ln) if swept else params_b
-            out.append(rollout_chunk(w, st, acc, p, s, chunk_steps, off[ln]))
-        return tree.stack(out)
+        return rollout_chunk(world_b, st_b, acc_b, params_b, s, chunk_steps, off)
 
     results: dict[str, list] = {}
     recorded = np.zeros(batch, bool)        # lane's current rollout recorded?

@@ -35,7 +35,13 @@ def perceive(pc: PointCloud, poly: Polygon, params: AosParams, exclusions,
     ``perceive_tail``. stencil_mesh: optional ``parallel.spatial.Mesh``; the
     disc inflation and the morph open + Zhang-Suen then run on row bands
     over its devices (``parallel/spatial.py``), bitwise equal to the
-    single-device stages. The other stages run as without a mesh."""
+    single-device stages. The other stages run as without a mesh.
+
+    A cloud and polygon with a leading world axis (xyz [G, N, 3], the
+    polygon's pts [G, P, 2]) perceive a group of worlds in one call, K2 and
+    K3 launched once for the group; a mesh does not take a world axis."""
+    if stencil_mesh is not None and pc.xyz.dim() > 2:
+        raise ValueError("perceive: stencil_mesh does not take a world axis")
     xy, keep, bounds, guards = _points.preprocess(
         pc, poly, params, exclusions, s, ror_method=ror_method)
     grid = _raster.generate_grid(xy, keep, bounds, s)

@@ -9,6 +9,11 @@ perpendicular raycasts, endpoint rays, row endpoint seeds, greedy dedupes.
 - the reference's greedy sequential dedupe is computed with the parallel
   frontier algorithm of ``aosx`` (bit-identical to the sequential loop).
 - all candidate families keep the reference's publish order.
+
+World axis: rows, grids and polygons may carry a leading world axis B (the
+axis ``aosx`` maps with ``jax.vmap``); every ray reads its own world's grid,
+and the lockstep loops run while any world has a ray or a candidate
+undecided, a world's finished lanes unchanged by the extra iterations.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 
 from ..config import AosParams, Statics
 from ..geom import point_in_polygon
-from ..ops import fma, sqrt, while_loop
+from ..ops import chunk_rows, fma, lanes, scatter_set, sqrt, take, while_loop
 from ..types import GridWorld, Polygon, SeedSet, TreeRows
 from .raster import edge_replicated, f32, shift2d
 
@@ -29,17 +34,20 @@ _DEDUPE_CHUNK = 2048
 
 
 def _conflicts(xy, t2):
-    """[C, C] bool: j < i and |xy_i - xy_j|^2 < t2."""
-    C = xy.shape[0]
+    """[*B, C, C] bool: j < i and |xy_i - xy_j|^2 < t2 (t2 0-d or of shape B)."""
+    B = xy.shape[:-2]
+    C = xy.shape[-2]
     dev = xy.device
-    out = torch.empty((C, C), dtype=torch.bool, device=dev)
+    t2 = t2.reshape(t2.shape + (1, 1))
+    out = torch.empty(B + (C, C), dtype=torch.bool, device=dev)
     j = torch.arange(C, device=dev)
-    for r0 in range(0, C, _DEDUPE_CHUNK):
-        a = xy[r0:r0 + _DEDUPE_CHUNK]
-        ddx = a[:, None, 0] - xy[None, :, 0]
-        ddy = a[:, None, 1] - xy[None, :, 1]
+    rc = chunk_rows(_DEDUPE_CHUNK, math.prod(B))
+    for r0 in range(0, C, rc):
+        a = xy[..., r0:r0 + rc, :]
+        ddx = a[..., :, None, 0] - xy[..., None, :, 0]
+        ddy = a[..., :, None, 1] - xy[..., None, :, 1]
         d2 = ddx * ddx + ddy * ddy
-        out[r0:r0 + _DEDUPE_CHUNK] = (d2 < t2) & (j[None, :] < j[r0:r0 + _DEDUPE_CHUNK, None])
+        out[..., r0:r0 + rc, :] = (d2 < t2) & (j[None, :] < j[r0:r0 + rc, None])
     return out
 
 
@@ -47,7 +55,8 @@ def greedy_dedupe(xy, valid, thresh):
     """Accepted mask of the sequential greedy dedupe: candidate i is
     accepted iff valid[i] and no accepted j < i lies within ``thresh``.
     Each round decides every candidate whose earlier conflicts are all
-    decided; once nothing is undecided a round changes nothing."""
+    decided; once nothing is undecided a round changes nothing (which is
+    what makes the lockstep of several worlds sound)."""
     t2 = torch.as_tensor(thresh, dtype=torch.float32, device=xy.device) ** 2
     conflict = _conflicts(xy.to(torch.float32), t2)
 
@@ -58,12 +67,12 @@ def greedy_dedupe(xy, valid, thresh):
     def body(st):
         accepted, rejected = st
         und = undecided(st)
-        conf_acc = (conflict & accepted[None, :]).any(dim=1)
-        conf_und = (conflict & und[None, :]).any(dim=1)
+        conf_acc = (conflict & accepted[..., None, :]).any(dim=-1)
+        conf_und = (conflict & und[..., None, :]).any(dim=-1)
         return accepted | (und & ~conf_acc & ~conf_und), rejected | (und & conf_acc)
 
     zeros = torch.zeros_like(valid)
-    accepted, _ = while_loop(lambda st: undecided(st).any(), body, (zeros, zeros))
+    accepted, _ = while_loop(lambda st: undecided(st).any(dim=-1), body, (zeros, zeros))
     return accepted
 
 
@@ -82,61 +91,67 @@ def dilate_chebyshev(occ01, r: int):
 def raycast_bounded(grid: GridWorld, start, direction, active, max_dist, min_dist, s: Statics):
     """raycastToOccupiedCell (cpp:1730-1771): step = res/2, first occupied
     sample at distance >= min_dist wins; worldToGrid clamps out-of-bounds.
-    start/direction: [N,2]. Returns (hit [N], hit_xy [N,2]).
+    start/direction: [*B, N, 2] (B the grid's world axes). Returns (hit
+    [*B, N], hit_xy [*B, N, 2]).
 
     Coarse-to-fine march (see ``aosx.perceive.seeds.raycast_bounded`` for
     the exactness argument): every 8th fine sample is looked up in the grid
     dilated by Chebyshev radius 3, then flagged 9-lane windows are examined
     exactly in ascending order until the first hit."""
     dev = start.device
+    nb = start.dim() - 2
     res = f32(s.resolution, dev)
     step = s.resolution * 0.5
     n_steps = int(max_dist / step)
     occ_ext = edge_replicated(grid)
-    H, W = occ_ext.shape
-    N = start.shape[0]
+    H, W = occ_ext.shape[-2:]
+    B = start.shape[:-2]
+    N = start.shape[-2]
     C = 8
     NC = (n_steps + C - 1) // C
     LN = C + 1
+    ox = lanes(grid.origin_x, start)
+    oy = lanes(grid.origin_y, start)
+    min_dist = lanes(min_dist, start)
 
     occ01 = (occ_ext == 1).to(torch.uint8)
     dil = dilate_chebyshev(occ01, 3)
 
-    dnorm = sqrt(direction[:, 0] * direction[:, 0] + direction[:, 1] * direction[:, 1])
+    dnorm = sqrt(direction[..., 0] * direction[..., 0] + direction[..., 1] * direction[..., 1])
 
     def cells(px, py):
-        gx = torch.clamp(torch.floor((px - grid.origin_x) / res).to(torch.int32), 0, W - 1)
-        gy = torch.clamp(torch.floor((py - grid.origin_y) / res).to(torch.int32), 0, H - 1)
-        return (gy * W + gx).long()
+        gx = torch.clamp(torch.floor((px - ox) / res).to(torch.int32), 0, W - 1)
+        gy = torch.clamp(torch.floor((py - oy) / res).to(torch.int32), 0, H - 1)
+        return gy * W + gx
 
-    kc = (torch.arange(NC + 1, dtype=torch.float32, device=dev) * C)[None, :]
-    cpx = start[:, 0:1] + direction[:, 0:1] * (kc * step)
-    cpy = start[:, 1:2] + direction[:, 1:2] * (kc * step)
-    cmask = dil.reshape(-1)[cells(cpx, cpy)] == 1
-    cmask = cmask | (dnorm > 1.0 + 1e-6)[:, None]
-    cmask = cmask & active[:, None]
+    kc = torch.arange(NC + 1, dtype=torch.float32, device=dev) * C
+    cpx = start[..., 0:1] + direction[..., 0:1] * (kc * step)
+    cpy = start[..., 1:2] + direction[..., 1:2] * (kc * step)
+    cmask = take(dil.flatten(-2), cells(cpx, cpy), nb) == 1
+    cmask = cmask | (dnorm > 1.0 + 1e-6)[..., None]
+    cmask = cmask & active[..., None]
 
-    occ_flat = occ_ext.reshape(-1)
-    widx = torch.arange(NC + 1, dtype=torch.int32, device=dev)[None, :]
-    lanes = torch.arange(LN, dtype=torch.float32, device=dev)[None, :] - C / 2
+    occ_flat = occ_ext.flatten(-2)
+    widx = torch.arange(NC + 1, dtype=torch.int32, device=dev)
+    lanes_ = torch.arange(LN, dtype=torch.float32, device=dev) - C / 2
 
     def fine_window(w):
-        f = w.to(torch.float32)[:, None] * C + lanes
+        f = w.to(torch.float32)[..., None] * C + lanes_
         ok = (f >= 1.0) & (f <= float(n_steps))
-        px = start[:, 0:1] + direction[:, 0:1] * (f * step)
-        py = start[:, 1:2] + direction[:, 1:2] * (f * step)
-        d = f * step * dnorm[:, None]
-        occ = occ_flat[cells(px, py)] == 1
+        px = start[..., 0:1] + direction[..., 0:1] * (f * step)
+        py = start[..., 1:2] + direction[..., 1:2] * (f * step)
+        d = f * step * dnorm[..., None]
+        occ = take(occ_flat, cells(px, py), nb) == 1
         cand = occ & ok & (d >= min_dist)
-        found = cand.any(dim=1)
-        lane = cand.to(torch.uint8).argmax(dim=1).to(torch.int32)
+        found = cand.any(dim=-1)
+        lane = cand.to(torch.uint8).argmax(dim=-1).to(torch.int32)
         return found, w * C - C // 2 + lane
 
     def body(st):
         resolved, kcur, hit, first_k = st
-        rem = cmask & (widx >= kcur[:, None])
-        has_w = rem.any(dim=1)
-        w = rem.to(torch.uint8).argmax(dim=1).to(torch.int32)
+        rem = cmask & (widx >= kcur[..., None])
+        has_w = rem.any(dim=-1)
+        w = rem.to(torch.uint8).argmax(dim=-1).to(torch.int32)
         found, fk = fine_window(w)
         live = ~resolved & has_w
         newly_hit = live & found
@@ -145,16 +160,18 @@ def raycast_bounded(grid: GridWorld, start, direction, active, max_dist, min_dis
                 hit | newly_hit,
                 torch.where(newly_hit, fk, first_k))
 
-    state0 = (~active | ~cmask.any(dim=1),
-              torch.zeros(N, dtype=torch.int32, device=dev),
-              torch.zeros(N, dtype=torch.bool, device=dev),
-              torch.ones(N, dtype=torch.int32, device=dev))
-    _, _, hit, first_k = while_loop(lambda st: (~st[0]).any(), body, state0)
+    state0 = (~active | ~cmask.any(dim=-1),
+              torch.zeros(B + (N,), dtype=torch.int32, device=dev),
+              torch.zeros(B + (N,), dtype=torch.bool, device=dev),
+              torch.ones(B + (N,), dtype=torch.int32, device=dev))
+    _, _, hit, first_k = while_loop(lambda st: (~st[0]).any(dim=-1), body, state0)
 
     kf = first_k.to(torch.float32)
-    hx = start[:, 0] + direction[:, 0] * (kf * step)
-    hy = start[:, 1] + direction[:, 1] * (kf * step)
-    hit_xy = torch.where(hit[:, None], torch.stack([hx, hy], dim=1), 0.0)
+    # start + direction * (k * step) rounded once: XLA:CPU fuses it (the ray
+    # seeds a polygon does not drop show it)
+    hx = fma(direction[..., 0], kf * step, start[..., 0])
+    hy = fma(direction[..., 1], kf * step, start[..., 1])
+    hit_xy = torch.where(hit[..., None], torch.stack([hx, hy], dim=-1), 0.0)
     return hit, hit_xy
 
 
@@ -162,8 +179,10 @@ def cast_rays_unbounded(grid: GridWorld, start, direction, active, min_dist,
                         step: float, diag_mult: float, s: Statics):
     """castRayFromEndpoint (cpp:1774-1891): march from min_dist with `step`
     until leaving the grid (the clamped boundary point) or hitting an
-    occupied skeleton cell (the sample point). start/direction: [N,2]."""
+    occupied skeleton cell (the sample point). start/direction: [*B, N, 2]
+    (B the grid's world axes)."""
     dev = start.device
+    nb = start.dim() - 2
     res = f32(s.resolution, dev)
     minx = grid.origin_x
     maxx = grid.origin_x + grid.w_cells.to(torch.float32) * res
@@ -172,101 +191,111 @@ def cast_rays_unbounded(grid: GridWorld, start, direction, active, min_dist,
     gw = grid.w_cells.to(torch.float32) * res
     gh = grid.h_cells.to(torch.float32) * res
     abs_max = sqrt(gw * gw + gh * gh) * diag_mult
+    # the per-world bounds against [*B, N] and [*B, N, CH] samples
+    minx2, maxx2, miny2, maxy2 = (v[..., None] for v in (minx, maxx, miny, maxy))
+    minx3, maxx3, miny3, maxy3 = (v[..., None, None] for v in (minx, maxx, miny, maxy))
+    ox3, oy3 = grid.origin_x[..., None, None], grid.origin_y[..., None, None]
+    wc3, hc3 = grid.w_cells[..., None, None], grid.h_cells[..., None, None]
+    abs_max3 = abs_max[..., None, None]
 
     def clamp(p):
-        return torch.stack([torch.minimum(torch.maximum(p[:, 0], minx), maxx),
-                            torch.minimum(torch.maximum(p[:, 1], miny), maxy)], dim=1)
+        return torch.stack([torch.minimum(torch.maximum(p[..., 0], minx2), maxx2),
+                            torch.minimum(torch.maximum(p[..., 1], miny2), maxy2)], dim=-1)
 
-    result0 = clamp(start + direction * abs_max)
-    N = start.shape[0]
+    result0 = clamp(start + direction * abs_max3)
+    B = start.shape[:-2]
+    N = start.shape[-2]
     CH = 256
-    Hc, Wc = grid.occ.shape
-    occ_flat = grid.occ.reshape(-1)
-    k = torch.arange(CH, dtype=torch.float32, device=dev)[None, :]
-    rows = torch.arange(N, device=dev)
+    Hc, Wc = grid.occ.shape[-2:]
+    occ_flat = grid.occ.flatten(-2)
+    k = torch.arange(CH, dtype=torch.float32, device=dev)
 
     def cond(st):
         dist, done, _ = st
-        return (~done & (dist <= abs_max)).any()
+        return (~done & (dist <= abs_max[..., None])).any(dim=-1)
 
     def body(st):
         dist, done, result = st
-        dk = dist[:, None] + k * step
+        dk = dist[..., None] + k * step
         # start + direction * dk rounded once: XLA:CPU fuses it
-        px = fma(direction[:, 0:1], dk, start[:, 0:1])
-        py = fma(direction[:, 1:2], dk, start[:, 1:2])
-        inb = (px >= minx) & (px <= maxx) & (py >= miny) & (py <= maxy)
+        px = fma(direction[..., 0:1], dk, start[..., 0:1])
+        py = fma(direction[..., 1:2], dk, start[..., 1:2])
+        inb = (px >= minx3) & (px <= maxx3) & (py >= miny3) & (py <= maxy3)
         # C-truncation cast toward zero (cpp:1821-1822)
-        mx = ((px - grid.origin_x) / res).to(torch.int32)
-        my = ((py - grid.origin_y) / res).to(torch.int32)
-        ing = (mx >= 0) & (mx < grid.w_cells) & (my >= 0) & (my < grid.h_cells)
-        flat = (torch.clamp(my, 0, Hc - 1) * Wc + torch.clamp(mx, 0, Wc - 1)).long()
-        occ = (occ_flat[flat] == 1) & ing
-        within = dk <= abs_max
+        mx = ((px - ox3) / res).to(torch.int32)
+        my = ((py - oy3) / res).to(torch.int32)
+        ing = (mx >= 0) & (mx < wc3) & (my >= 0) & (my < hc3)
+        flat = torch.clamp(my, 0, Hc - 1) * Wc + torch.clamp(mx, 0, Wc - 1)
+        occ = (take(occ_flat, flat, nb) == 1) & ing
+        within = dk <= abs_max3
         event = (~inb | occ) & within
-        has = event.any(dim=1)
-        first = event.to(torch.uint8).argmax(dim=1)
-        ep = torch.stack([px[rows, first], py[rows, first]], dim=1)
-        e_inb = inb[rows, first]
+        has = event.any(dim=-1)
+        first = event.to(torch.uint8).argmax(dim=-1, keepdim=True)
+        ep = torch.stack([torch.gather(px, -1, first)[..., 0],
+                          torch.gather(py, -1, first)[..., 0]], dim=-1)
+        e_inb = torch.gather(inb, -1, first)[..., 0]
         fire = ~done & has
-        result = torch.where((fire & ~e_inb)[:, None], clamp(ep), result)
-        result = torch.where((fire & e_inb)[:, None], ep, result)
+        result = torch.where((fire & ~e_inb)[..., None], clamp(ep), result)
+        result = torch.where((fire & e_inb)[..., None], ep, result)
         return dist + CH * step, done | fire, result
 
-    dist0 = torch.full((N,), 1.0, dtype=torch.float32, device=dev) * min_dist
+    md = torch.as_tensor(min_dist, dtype=torch.float32, device=dev)
+    dist0 = torch.full(B + (N,), 1.0, dtype=torch.float32, device=dev) * md[..., None]
     _, _, result = while_loop(cond, body, (dist0, ~active, result0))
     return result
 
 
 def _row_dirs(rows: TreeRows):
     d = rows.ep2 - rows.ep1
-    dist = sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+    dist = sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
     safe = torch.clamp(dist, min=1e-6)
-    return d, dist, d / safe[:, None]
+    return d, dist, d / safe[..., None]
 
 
 def virtual_seed_candidates(rows: TreeRows, skel: GridWorld, poly: Polygon,
                             params: AosParams, s: Statics):
     """Ordered candidates of generateVirtualSeeds (cpp:1987-2268): per row
     r, per interval i, the triple (base, perp1-ray seed, perp2-ray seed).
-    Returns (xy [R*I*3, 2], valid [R*I*3])."""
+    Returns (xy [*B, R*I*3, 2], valid [*B, R*I*3])."""
     dev = rows.center.device
+    B = rows.valid.shape[:-1]
     R, I = s.max_rows, s.max_seeds_per_row
     d, dist, rd = _row_dirs(rows)
-    num = torch.floor(dist / params.virtual_seed_interval).to(torch.int32)
-    row_ok = rows.valid & (dist >= params.virtual_seed_interval)
+    interval = lanes(params.virtual_seed_interval, dist)
+    num = torch.floor(dist / interval).to(torch.int32)
+    row_ok = rows.valid & (dist >= interval)
 
     i_idx = torch.arange(1, I + 1, dtype=torch.float32, device=dev)
-    t = i_idx[None, :] / (num[:, None].to(torch.float32) + 1.0)
+    t = i_idx / (num[..., None].to(torch.float32) + 1.0)
     # rounded once, as XLA:CPU evaluates aosx's ep1 + t*d
-    base = fma(t[..., None], d[:, None, :], rows.ep1[:, None, :])
-    iv = row_ok[:, None] & (torch.arange(1, I + 1, device=dev)[None, :] <= num[:, None])
+    base = fma(t[..., None], d[..., :, None, :], rows.ep1[..., :, None, :])
+    iv = row_ok[..., None] & (torch.arange(1, I + 1, device=dev) <= num[..., None])
 
-    perp1 = torch.stack([-rd[:, 1], rd[:, 0]], dim=1)
+    perp1 = torch.stack([-rd[..., 1], rd[..., 0]], dim=-1)
     perp2 = -perp1
 
-    base_f = base.reshape(R * I, 2)
-    iv_f = iv.reshape(R * I)
-    starts = torch.cat([base_f, base_f], dim=0)
+    base_f = base.reshape(B + (R * I, 2))
+    iv_f = iv.reshape(B + (R * I,))
+    starts = torch.cat([base_f, base_f], dim=-2)
     dirs = torch.cat(
-        [perp1[:, None, :].expand(R, I, 2).reshape(R * I, 2),
-         perp2[:, None, :].expand(R, I, 2).reshape(R * I, 2)], dim=0)
-    act = torch.cat([iv_f, iv_f])
+        [perp1[..., :, None, :].expand(B + (R, I, 2)).reshape(B + (R * I, 2)),
+         perp2[..., :, None, :].expand(B + (R, I, 2)).reshape(B + (R * I, 2))], dim=-2)
+    act = torch.cat([iv_f, iv_f], dim=-1)
     hit, hit_xy = raycast_bounded(
         skel, starts, dirs, act, s.seed_raycast_max, params.seed_raycast_min, s)
     miss_xy = starts + dirs * s.seed_raycast_max
-    ray_xy = torch.where(hit[:, None], hit_xy, miss_xy)
-    ray1 = ray_xy[:R * I].reshape(R, I, 2)
-    ray2 = ray_xy[R * I:].reshape(R, I, 2)
+    ray_xy = torch.where(hit[..., None], hit_xy, miss_xy)
+    ray1 = ray_xy[..., :R * I, :].reshape(B + (R, I, 2))
+    ray2 = ray_xy[..., R * I:, :].reshape(B + (R, I, 2))
 
     # ray seeds skipped when inside the polygon (cpp:2128-2135)
     has_poly = poly.count >= 3
-    in1 = point_in_polygon(ray1[..., 0], ray1[..., 1], poly) & has_poly
-    in2 = point_in_polygon(ray2[..., 0], ray2[..., 1], poly) & has_poly
+    in1 = point_in_polygon(ray1[..., 0], ray1[..., 1], poly) & lanes(has_poly, iv)
+    in2 = point_in_polygon(ray2[..., 0], ray2[..., 1], poly) & lanes(has_poly, iv)
 
-    cand = torch.stack([base, ray1, ray2], dim=2)
-    cvalid = torch.stack([iv, iv & ~in1, iv & ~in2], dim=2)
-    return cand.reshape(R * I * 3, 2), cvalid.reshape(R * I * 3)
+    cand = torch.stack([base, ray1, ray2], dim=-2)
+    cvalid = torch.stack([iv, iv & ~in1, iv & ~in2], dim=-1)
+    return cand.reshape(B + (R * I * 3, 2)), cvalid.reshape(B + (R * I * 3,))
 
 
 def _cos_sin_f32(angle_deg: float):
@@ -281,49 +310,51 @@ def endpoint_ray_candidates(rows: TreeRows, skel: GridWorld, poly: Polygon,
     per row, 6 rays (ep1: 0/-90/+90 deg; ep2: 0/-90/+90 deg), kept iff
     inside the grid bounds and outside the polygon."""
     dev = rows.center.device
+    B = rows.valid.shape[:-1]
     R = s.max_rows
     unit_x = torch.tensor([1.0, 0.0], dtype=torch.float32, device=dev)
 
     def ray_dir(ep, other, angle_deg):
         d = other - ep
-        n = sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
-        fwd = torch.where(n[:, None] > 1e-6, d / torch.clamp(n, min=1e-6)[:, None], unit_x)
+        n = sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+        fwd = torch.where(n[..., None] > 1e-6, d / torch.clamp(n, min=1e-6)[..., None], unit_x)
         outward = -fwd
-        perp = torch.stack([-fwd[:, 1], fwd[:, 0]], dim=1)
+        perp = torch.stack([-fwd[..., 1], fwd[..., 0]], dim=-1)
         ca, sa = _cos_sin_f32(angle_deg)
         side = perp if angle_deg > 0 else -perp
         rd = ca * outward + sa * side
-        rn = sqrt(rd[:, 0] * rd[:, 0] + rd[:, 1] * rd[:, 1])
-        return rd / torch.clamp(rn, min=1e-12)[:, None]
+        rn = sqrt(rd[..., 0] * rd[..., 0] + rd[..., 1] * rd[..., 1])
+        return rd / torch.clamp(rn, min=1e-12)[..., None]
 
     starts, dirs = [], []
     for ep, other in ((rows.ep1, rows.ep2), (rows.ep2, rows.ep1)):
         for ang in (0.0, -90.0, 90.0):
             starts.append(ep)
             dirs.append(ray_dir(ep, other, ang))
-    start = torch.stack(starts, dim=1).reshape(R * 6, 2)
-    direction = torch.stack(dirs, dim=1).reshape(R * 6, 2)
-    active = rows.valid.repeat_interleave(6)
+    start = torch.stack(starts, dim=-2).reshape(B + (R * 6, 2))
+    direction = torch.stack(dirs, dim=-2).reshape(B + (R * 6, 2))
+    active = rows.valid[..., None].expand(B + (R, 6)).reshape(B + (R * 6,))
 
     pts = cast_rays_unbounded(skel, start, direction, active,
                               params.seed_raycast_min, 0.1, 3.0, s)
     res = f32(s.resolution, dev)
-    minx = skel.origin_x
-    maxx = skel.origin_x + skel.w_cells.to(torch.float32) * res
-    miny = skel.origin_y
-    maxy = skel.origin_y + skel.h_cells.to(torch.float32) * res
-    in_grid = ((pts[:, 0] >= minx) & (pts[:, 0] <= maxx)
-               & (pts[:, 1] >= miny) & (pts[:, 1] <= maxy))
+    minx = lanes(skel.origin_x, active)
+    maxx = lanes(skel.origin_x + skel.w_cells.to(torch.float32) * res, active)
+    miny = lanes(skel.origin_y, active)
+    maxy = lanes(skel.origin_y + skel.h_cells.to(torch.float32) * res, active)
+    in_grid = ((pts[..., 0] >= minx) & (pts[..., 0] <= maxx)
+               & (pts[..., 1] >= miny) & (pts[..., 1] <= maxy))
     has_poly = poly.count >= 3
-    in_poly = point_in_polygon(pts[:, 0], pts[:, 1], poly) & has_poly
-    finite = torch.isfinite(pts[:, 0]) & torch.isfinite(pts[:, 1])
+    in_poly = point_in_polygon(pts[..., 0], pts[..., 1], poly) & lanes(has_poly, active)
+    finite = torch.isfinite(pts[..., 0]) & torch.isfinite(pts[..., 1])
     return pts, active & finite & in_grid & ~in_poly
 
 
 def endpoint_seed_candidates(rows: TreeRows, s: Statics):
     """Row start/end points (cpp:1450-1497), order [ep1_r, ep2_r] per row."""
-    pts = torch.stack([rows.ep1, rows.ep2], dim=1).reshape(s.max_rows * 2, 2)
-    return pts, rows.valid.repeat_interleave(2)
+    B = rows.valid.shape[:-1]
+    pts = torch.stack([rows.ep1, rows.ep2], dim=-2).reshape(B + (s.max_rows * 2, 2))
+    return pts, rows.valid[..., None].expand(B + (s.max_rows, 2)).reshape(B + (s.max_rows * 2,))
 
 
 def generate_seeds(rows: TreeRows, skel: GridWorld, poly: Polygon,
@@ -331,6 +362,7 @@ def generate_seeds(rows: TreeRows, skel: GridWorld, poly: Polygon,
     """/voronoi_seeds in publish order (cpp:1670-1710): virtual (base+ray,
     deduped), endpoint rays (deduped), row endpoints (deduped)."""
     dev = rows.center.device
+    B = rows.valid.shape[:-1]
     v_xy, v_val = virtual_seed_candidates(rows, skel, poly, params, s)
     r_xy, r_val = endpoint_ray_candidates(rows, skel, poly, params, s)
     e_xy, e_val = endpoint_seed_candidates(rows, s)
@@ -339,21 +371,17 @@ def generate_seeds(rows: TreeRows, skel: GridWorld, poly: Polygon,
     r_acc = greedy_dedupe(r_xy, r_val, params.seed_dedupe_dist)
     e_acc = greedy_dedupe(e_xy, e_val, params.seed_dedupe_dist)
 
-    xy = torch.cat([v_xy, r_xy, e_xy], dim=0)
-    acc = torch.cat([v_acc, r_acc, e_acc], dim=0)
+    xy = torch.cat([v_xy, r_xy, e_xy], dim=-2)
+    acc = torch.cat([v_acc, r_acc, e_acc], dim=-1)
     kind = torch.cat([
-        torch.zeros(v_xy.shape[0], dtype=torch.int8, device=dev),
-        torch.full((r_xy.shape[0],), 2, dtype=torch.int8, device=dev),
-        torch.full((e_xy.shape[0],), 3, dtype=torch.int8, device=dev),
-    ])
+        torch.zeros(v_xy.shape[-2], dtype=torch.int8, device=dev),
+        torch.full((r_xy.shape[-2],), 2, dtype=torch.int8, device=dev),
+        torch.full((e_xy.shape[-2],), 3, dtype=torch.int8, device=dev),
+    ]).expand(acc.shape)
     Smax = s.max_seeds
-    rank = torch.cumsum(acc.to(torch.int32), 0, dtype=torch.int32) - 1
-    tgt = torch.where(acc & (rank < Smax), rank, Smax).long()
-    out_xy = torch.zeros((Smax + 1, 2), dtype=torch.float32, device=dev)
-    out_xy[tgt] = xy
-    out_kind = torch.zeros(Smax + 1, dtype=torch.int8, device=dev)
-    out_kind[tgt] = kind
-    n = torch.clamp(acc.sum(dtype=torch.int32), max=Smax)
-    return SeedSet(xy=out_xy[:Smax],
-                   valid=torch.arange(Smax, device=dev) < n,
-                   kind=out_kind[:Smax])
+    rank = torch.cumsum(acc.to(torch.int32), -1, dtype=torch.int32) - 1
+    tgt = torch.where(acc & (rank < Smax), rank, Smax)
+    n = torch.clamp(acc.sum(dim=-1, dtype=torch.int32), max=Smax)
+    return SeedSet(xy=scatter_set(Smax, 0.0, tgt, xy),
+                   valid=torch.arange(Smax, device=dev) < n[..., None],
+                   kind=scatter_set(Smax, 0, tgt, kind))

@@ -6,7 +6,9 @@ cv::ximgproc::thinning(THINNING_ZHANGSUEN)).
 OpenCV border semantics: erosion treats outside-of-image as 1, dilation as
 0; thinning never modifies the outer 1-pixel ring of the live image. A whole
 thinning, every iteration up to the fixpoint, is one call of kernel K2
-(``skeleton_cuda.zhang_suen_fixpoint``) with no host read in it.
+(``skeleton_cuda.zhang_suen_fixpoint``) with no host read in it; a group of
+grids with a leading world axis is one call too, each world stopping at its
+own fixpoint.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 
 from ..config import Statics
 from ..types import GridWorld
-from .raster import iota2, live_mask, shift2d
+from .raster import to_plane, iota2, live_mask, shift2d
 from .skeleton_cuda import zhang_suen_fixpoint
 
 _CROSS = ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0))
@@ -23,9 +25,9 @@ _CROSS = ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0))
 
 def _outside_live(grid: GridWorld, dy: int, dx: int):
     """Mask of cells whose (y-dy, x-dx) source lies outside the live region."""
-    iy, ix = iota2(grid.occ.shape, grid.occ.device)
+    iy, ix = iota2(grid.occ.shape[-2:], grid.occ.device)
     sy, sx = iy - dy, ix - dx
-    return (sy < 0) | (sy >= grid.h_cells) | (sx < 0) | (sx >= grid.w_cells)
+    return (sy < 0) | (sy >= to_plane(grid.h_cells)) | (sx < 0) | (sx >= to_plane(grid.w_cells))
 
 
 def morph_open(grid: GridWorld) -> GridWorld:

@@ -14,6 +14,13 @@ Plain PyTorch versions beside it: ``zhang_suen_iteration_plain`` mirrors
 int32 words, so that its boolean circuit is held against the byte stencil
 without a card.
 
+World axis: ``zhang_suen_fixpoint``, ``zhang_suen_fixpoint_plain`` and
+``zhang_suen_iteration_plain`` take planes [*B, H, W] with live bounds of
+shape B, as ``jax.vmap`` maps the TPU kernel's loop: each world stops at its
+own fixpoint or at ``max_iters``. The kernel thins a whole group in one
+launch (a counted launch a chunk of worlds where the group exceeds the
+card's co-resident blocks); [H, W] is the same call with one world.
+
 ``zhang_suen_fixpoint`` and ``zhang_suen_iteration`` take the plain version
 only for a tensor on the CPU. For a CUDA tensor they launch the kernel or
 raise.
@@ -23,11 +30,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from .. import cuda_build
-from .raster import iota2, shift2d
+from .raster import to_plane, iota2, shift2d
 
 def _neighbors(p):
     """p2..p9 (N, NE, E, SE, S, SW, W, NW) with row y-1 as N."""
@@ -54,31 +62,42 @@ def _subiter(p, phase: int, interior):
 
 
 def _interior(occ, h_cells, w_cells):
-    iy, ix = iota2(occ.shape, occ.device)
-    return (iy >= 1) & (iy < h_cells - 1) & (ix >= 1) & (ix < w_cells - 1)
+    iy, ix = iota2(occ.shape[-2:], occ.device)
+    return (iy >= 1) & (iy < to_plane(h_cells) - 1) & (ix >= 1) & (ix < to_plane(w_cells) - 1)
 
 
 def zhang_suen_iteration_plain(occ, h_cells, w_cells):
-    """Both sub-iterations in plain PyTorch. Returns (occ u8 [H,W],
-    changed-cell count i32)."""
+    """Both sub-iterations in plain PyTorch. Returns (occ u8 [*B, H, W],
+    changed-cell count i32 [*B])."""
     interior = _interior(occ, h_cells, w_cells)
     q = _subiter(occ, 0, interior)
     q = _subiter(q, 1, interior)
-    return q, (q != occ).sum(dtype=torch.int32)
+    return q, (q != occ).sum(dim=(-2, -1), dtype=torch.int32)
 
 
 def zhang_suen_fixpoint_plain(occ, h_cells, w_cells, max_iters: int):
     """Iterations until one changes nothing, at most ``max_iters``
-    (``aosx.perceive.skeleton.zhang_suen``'s loop). Returns (occ u8 [H,W],
-    iterations run, changed-cell count of the last iteration); the iteration
-    that finds the fixpoint counts."""
-    it, changed = 0, 0
-    while it < max_iters:
-        occ, n = zhang_suen_iteration_plain(occ, h_cells, w_cells)
-        it, changed = it + 1, int(n)
-        if changed == 0:
+    (``aosx.perceive.skeleton.zhang_suen``'s loop). Returns (occ u8
+    [*B, H, W], iterations run, changed-cell count of the last iteration);
+    the iteration that finds the fixpoint counts. With world axes B each
+    world stops on its own (the counts are then i32 tensors of shape B; for
+    one plane, Python ints)."""
+    B = occ.shape[:-2]
+    dev = occ.device
+    its = torch.zeros(B, dtype=torch.int32, device=dev)
+    last = torch.zeros(B, dtype=torch.int32, device=dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    for k in range(max_iters):
+        if not bool(active.any()):
             break
-    return occ, it, changed
+        q, n = zhang_suen_iteration_plain(occ, h_cells, w_cells)
+        occ = torch.where(to_plane(active), q, occ)
+        its = torch.where(active, k + 1, its).to(torch.int32)
+        last = torch.where(active, n, last)
+        active = active & (n != 0)
+    if not B:
+        return occ, int(its), int(last)
+    return occ, its, last
 
 
 # ---------------------------------------------------------------------------
@@ -168,46 +187,64 @@ _int = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib():
     fn = cuda_build.load("zhang_suen").zhang_suen_fixpoint
-    fn.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _vp]
+    fn.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
+                   ctypes.POINTER(_int), _vp]
     fn.restype = _int
     return fn
 
 
+def _world_values(v, B, G: int, dev):
+    """A per-world int32 value (0-d, or of shape B) as a contiguous [G]
+    device tensor: a view, not a copy, where it is one already."""
+    return torch.as_tensor(v).to(device=dev, dtype=torch.int32).expand(B).contiguous().reshape(G)
+
+
 def zhang_suen_fixpoint(occ, h_cells, w_cells, max_iters: int):
-    """Thin ``occ`` (u8 [H, W] holding only 0 and 1: ``morph_open``'s output;
-    the precondition is not checked here, a check would be a host read)
-    until an iteration changes nothing, at most ``max_iters`` iterations.
-    Returns (occ u8 [H, W], stats i32 [2] = iterations run and the last
-    iteration's changed-cell count). CPU tensors take the plain version;
-    CUDA tensors launch kernel K2 once, with no host read (counted in
-    ``zhang_suen_fixpoint.launches``): ``h_cells`` and ``w_cells`` are read
-    on the device."""
+    """Thin ``occ`` (u8 [*B, H, W] holding only 0 and 1: ``morph_open``'s
+    output; the precondition is not checked here, a check would be a host
+    read) until an iteration changes nothing, at most ``max_iters``
+    iterations, each world of the leading axes B on its own (its live
+    bounds 0-d or of shape B). Returns (occ u8 [*B, H, W], stats i32
+    [*B, 2] = iterations run and the last iteration's changed-cell count, per
+    world). CPU tensors take the plain version; CUDA tensors launch kernel
+    K2 once for the group, or once a chunk of worlds where the group
+    exceeds the card's co-resident blocks, with no host read (counted in
+    ``zhang_suen_fixpoint.launches``): the bounds are read on the device."""
+    B = occ.shape[:-2]
     if occ.device.type == "cpu":
         out, it, changed = zhang_suen_fixpoint_plain(occ, h_cells, w_cells, max_iters)
-        return out, torch.tensor([it, changed], dtype=torch.int32)
+        if not B:
+            return out, torch.tensor([it, changed], dtype=torch.int32)
+        return out, torch.stack([it, changed], dim=-1)
     if occ.device.type != "cuda":
         raise ValueError(f"zhang_suen_fixpoint: unsupported device {occ.device}")
-    if occ.dtype != torch.uint8 or occ.dim() != 2 or not occ.is_contiguous():
-        raise ValueError("zhang_suen_fixpoint: occ must be a contiguous 2-D uint8 tensor")
+    if occ.dtype != torch.uint8 or occ.dim() < 2 or not occ.is_contiguous():
+        raise ValueError("zhang_suen_fixpoint: occ must be a contiguous [*B, H, W] uint8 tensor")
     if not 0 <= max_iters <= 4096:
         raise ValueError(f"zhang_suen_fixpoint: max_iters {max_iters} outside 0..4096")
-    H, W = occ.shape
+    H, W = occ.shape[-2:]
+    G = math.prod(B)
     dev = occ.device
-    hc = cuda_build.device_scalar(h_cells, torch.int32, dev)
-    wc = cuda_build.device_scalar(w_cells, torch.int32, dev)
+    hc = _world_values(h_cells, B, G, dev)
+    wc = _world_values(w_cells, B, G, dev)
     out = torch.empty_like(occ)
-    stats = torch.empty(2, dtype=torch.int32, device=dev)
-    # per-iteration changed counts, then the edge rows the bands exchange:
-    # (even, odd iteration) x blocks (at most one an SM) x (first two, last
-    # two rows) x words of a row
+    stats = torch.empty(B + (2,), dtype=torch.int32, device=dev)
+    if G == 0:
+        return out, stats
+    # per-world and per-iteration changed counts, the group's per-iteration
+    # totals, then the edge rows the bands exchange: (even, odd iteration) x
+    # blocks (at most one an SM) x (first two, last two rows) x words of a row
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    scratch = torch.empty(max_iters + 8 * sms * -(-W // 32), dtype=torch.int32, device=dev)
+    scratch = torch.empty(min(G, sms) * max_iters + max_iters + 8 * sms * -(-W // 32),
+                          dtype=torch.int32, device=dev)
+    launches = _int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib()(occ.data_ptr(), out.data_ptr(), hc.data_ptr(), wc.data_ptr(),
-                    stats.data_ptr(), scratch.data_ptr(), H, W, max_iters, stream)
+                    stats.data_ptr(), scratch.data_ptr(), G, H, W, max_iters,
+                    ctypes.byref(launches), stream)
+    zhang_suen_fixpoint.launches += launches.value
     cuda_build.check(rc, "zhang_suen_fixpoint")
-    zhang_suen_fixpoint.launches += 1
     return out, stats
 
 
@@ -216,6 +253,6 @@ zhang_suen_fixpoint.launches = 0
 
 def zhang_suen_iteration(occ, h_cells, w_cells):
     """One thinning iteration: the fixpoint kernel capped at one. Returns
-    (occ u8 [H,W], changed-cell count i32 0-d tensor)."""
+    (occ u8 [*B, H, W], changed-cell count i32 of shape B)."""
     out, stats = zhang_suen_fixpoint(occ, h_cells, w_cells, 1)
-    return out, stats[1]
+    return out, stats[..., 1]

@@ -16,7 +16,7 @@ import torch
 
 from ..config import AosParams, Statics
 from ..guards import GUARD_DEGREE_CAP
-from ..ops import lanes, sqrt, sum_fixed, take, take_row, while_loop
+from ..ops import gather_last, lanes, sqrt, sum_fixed, take, take_row, while_loop
 from ..types import GvdGraph
 
 INF = 3.4e38
@@ -36,33 +36,37 @@ class CsrCosts:
 def cost_matrix(graph: GvdGraph, s: Statics) -> CsrCosts:
     """Edge list -> padded-CSR adjacency. Both directions of every valid
     edge are slotted onto their source row; slot = rank among same-source
-    entries (one stable sort + a segmented cumulative max)."""
+    entries (one stable sort + a segmented cumulative max). A graph with
+    leading world axes gives each world its own [N, D] adjacency."""
     dev = graph.edges.device
     N, D = s.max_nodes, s.max_degree
-    E = graph.edges.shape[0]
-    a = torch.where(graph.edge_valid, graph.edges[:, 0], N).to(torch.int32)
-    b = torch.where(graph.edge_valid, graph.edges[:, 1], N).to(torch.int32)
+    B = graph.edge_valid.shape[:-1]
+    E = graph.edges.shape[-2]
+    a = torch.where(graph.edge_valid, graph.edges[..., 0], N).to(torch.int32)
+    b = torch.where(graph.edge_valid, graph.edges[..., 1], N).to(torch.int32)
     lens = torch.where(graph.edge_valid, graph.edge_lengths, INF)
-    src = torch.cat([a, b])
-    dst = torch.cat([b, a])
-    c = torch.cat([lens, lens])
+    src = torch.cat([a, b], dim=-1)
+    dst = torch.cat([b, a], dim=-1)
+    c = torch.cat([lens, lens], dim=-1)
 
-    order = torch.argsort(src, stable=True)
-    ss = src[order]
+    order = torch.argsort(src, dim=-1, stable=True)
+    ss = gather_last(src, order)
     pos = torch.arange(2 * E, dtype=torch.int32, device=dev)
-    is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), ss[1:] != ss[:-1]])
-    slot = pos - torch.cummax(torch.where(is_start, pos, 0), dim=0).values
+    is_start = torch.cat([torch.ones(B + (1,), dtype=torch.bool, device=dev),
+                          ss[..., 1:] != ss[..., :-1]], dim=-1)
+    slot = pos - torch.cummax(torch.where(is_start, pos, 0), dim=-1).values
 
     live = ss < N
     ok = live & (slot < D)
-    overflow = (live & (slot >= D)).any()
+    overflow = (live & (slot >= D)).any(dim=-1)
     flat = (torch.where(ok, ss, N).long() * D + torch.clamp(slot, max=D - 1).long())
-    idx = torch.full(((N + 1) * D,), N, dtype=torch.int32, device=dev)
-    idx[flat] = dst[order]
-    cost = torch.full(((N + 1) * D,), INF, dtype=torch.float32, device=dev)
-    cost[flat] = c[order]
+    idx = torch.full(B + ((N + 1) * D,), N, dtype=torch.int32, device=dev)
+    idx.scatter_(-1, flat, gather_last(dst, order))
+    cost = torch.full(B + ((N + 1) * D,), INF, dtype=torch.float32, device=dev)
+    cost.scatter_(-1, flat, gather_last(c, order))
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    return CsrCosts(idx=idx[:N * D].reshape(N, D), cost=cost[:N * D].reshape(N, D),
+    return CsrCosts(idx=idx[..., :N * D].reshape(B + (N, D)),
+                    cost=cost[..., :N * D].reshape(B + (N, D)),
                     guards=torch.where(overflow, GUARD_DEGREE_CAP, zero))
 
 

@@ -8,25 +8,26 @@ import torch
 
 from ..config import AosParams
 from ..geom import normalized_angle
-from ..ops import sqrt
+from ..ops import sqrt, take_row
 from ..types import ControlState, Path
 
 
 def on_path(state: ControlState, path: Path) -> ControlState:
     """pathCallback (cpp:60-77): adopt the new goal (last pose of /plan)
-    only when it differs from the current goal."""
+    only when it differs from the current goal. Leaves may carry leading
+    lane axes."""
     has = path.count > 0
-    gi = torch.clamp(path.count - 1, min=0).long()
-    new_xy = path.xy[gi]
-    new_yaw = path.yaw[gi]
-    changed = has & (~state.goal_initialized | (new_xy != state.goal_xy).any()
+    gi = torch.clamp(path.count - 1, min=0)
+    new_xy = take_row(path.xy, gi)
+    new_yaw = take_row(path.yaw, gi)
+    changed = has & (~state.goal_initialized | (new_xy != state.goal_xy).any(dim=-1)
                      | (new_yaw != state.goal_yaw))
     return ControlState(
         mode=state.mode,
         is_path_received=state.is_path_received | changed,
         goal_initialized=state.goal_initialized | changed,
         odom_cnt=state.odom_cnt,
-        goal_xy=torch.where(changed, new_xy, state.goal_xy),
+        goal_xy=torch.where(changed[..., None], new_xy, state.goal_xy),
         goal_yaw=torch.where(changed, new_yaw, state.goal_yaw),
     )
 

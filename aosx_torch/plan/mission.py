@@ -41,47 +41,51 @@ def build_waypoints(graph: GvdGraph, params: AosParams, s: Statics) -> Waypoints
     """Even cluster BR->BL, odd TL->TR; tail TR on the last cluster when the
     max cluster index is even, BL when odd; consecutive waypoints <= 0.2 m
     apart are dropped (cpp:588-702). The last slot is reserved for the
-    origin-return waypoint."""
+    origin-return waypoint. A graph with leading world axes gives each
+    world its own tour (the sequential filter runs over the worlds at once)."""
     dev = graph.nodes.device
+    B = graph.num_nodes.shape
+    nb = len(B)
     C = s.max_rows
-    ln = graph.label_node                      # [C,4] TL,TR,BL,BR
-    present = (ln >= 0).any(dim=1)
+    ln = graph.label_node                      # [*B, C,4] TL,TR,BL,BR
+    present = (ln >= 0).any(dim=-1)
     cidx = torch.arange(C, device=dev)
-    max_c = torch.where(present, cidx, -1).max()
+    max_c = torch.where(present, cidx, -1).max(dim=-1).values
     last_odd = (max_c % 2) == 1
-    is_last = cidx == max_c
+    is_last = cidx == max_c[..., None]
     even = (cidx % 2) == 0
 
-    n0 = torch.where(even, ln[:, 3], ln[:, 0])   # BR | TL
-    n1 = torch.where(even, ln[:, 2], ln[:, 1])   # BL | TR
-    tail_even = is_last & ~last_odd & even
-    tail_odd = is_last & last_odd & ~even
-    n2 = torch.where(tail_even, ln[:, 1], torch.where(tail_odd, ln[:, 2], -1))
-    slots = torch.stack([n0, n1, n2], dim=1)
-    slot_ok = present[:, None] & (slots >= 0) & (slots < graph.num_nodes)
-    flat = slots.reshape(-1)
-    ok = slot_ok.reshape(-1)
-    pos = graph.nodes[torch.clamp(flat, min=0).long()]
+    n0 = torch.where(even, ln[..., 3], ln[..., 0])   # BR | TL
+    n1 = torch.where(even, ln[..., 2], ln[..., 1])   # BL | TR
+    tail_even = is_last & ~last_odd[..., None] & even
+    tail_odd = is_last & last_odd[..., None] & ~even
+    n2 = torch.where(tail_even, ln[..., 1], torch.where(tail_odd, ln[..., 2], -1))
+    slots = torch.stack([n0, n1, n2], dim=-1)
+    slot_ok = present[..., None] & (slots >= 0) & (slots < graph.num_nodes[..., None, None])
+    flat = slots.reshape(B + (-1,))
+    ok = slot_ok.reshape(B + (-1,))
+    pos = take(graph.nodes, torch.clamp(flat, min=0), nb)
 
     # sequential consecutive-distance filter (3C entries)
     T = 3 * C
-    keep = torch.zeros(T, dtype=torch.bool, device=dev)
-    last_xy = torch.full((2,), 1e9, dtype=torch.float32, device=dev)
-    any_kept = torch.zeros((), dtype=torch.bool, device=dev)
+    dmin = lanes(params.min_waypoint_distance, ok[..., 0])
+    keep = torch.zeros(B + (T,), dtype=torch.bool, device=dev)
+    last_xy = torch.full(B + (2,), 1e9, dtype=torch.float32, device=dev)
+    any_kept = torch.zeros(B, dtype=torch.bool, device=dev)
     for i in range(T):
-        p = pos[i]
+        p = pos[..., i, :]
         d = _norm2(p - last_xy)
-        k = ok[i] & (~any_kept | (d > params.min_waypoint_distance))
-        keep[i] = k
-        last_xy = torch.where(k, p, last_xy)
+        k = ok[..., i] & (~any_kept | (d > dmin))
+        keep[..., i] = k
+        last_xy = torch.where(k[..., None], p, last_xy)
         any_kept = any_kept | k
 
     W = s.max_waypoints
-    rank = torch.cumsum(keep.to(torch.int32), 0, dtype=torch.int32) - 1
+    rank = torch.cumsum(keep.to(torch.int32), -1, dtype=torch.int32) - 1
     tgt = torch.where(keep & (rank < W - 1), rank, W)
     return Waypoints(xy=scatter_set(W, 0.0, tgt, pos),
                      node_idx=scatter_set(W, -1, tgt, flat),
-                     count=torch.clamp(keep.sum(dtype=torch.int32), max=W - 1))
+                     count=torch.clamp(keep.sum(dim=-1, dtype=torch.int32), max=W - 1))
 
 
 def labeled_cluster_total(graph: GvdGraph):
@@ -295,7 +299,8 @@ _TRIM_FAR = 3.4e38
 
 def trim_distance_plane(skel: GridWorld, s: Statics):
     """Per-cell min distance (m, f32) to an occupied skeleton cell within
-    s.trim_max_distance (3.4e38 where none), computed once per world."""
+    s.trim_max_distance (3.4e38 where none), computed once per world (for
+    every world of a leading world axis at once)."""
     occ1 = (skel.occ == 1).to(torch.uint8)
     far = torch.tensor(_TRIM_FAR, dtype=torch.float32, device=skel.occ.device)
     out = torch.full(skel.occ.shape, _TRIM_FAR, dtype=torch.float32, device=skel.occ.device)

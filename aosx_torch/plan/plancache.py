@@ -314,7 +314,8 @@ def initial_cached_state(world, s: Statics) -> CachedEngineState:
     st = initial_state(world, s)
     return CachedEngineState(
         robot=st.robot, mission=st.mission, control=st.control, wp=st.wp,
-        adopted=torch.tensor(s.max_waypoints + 4, dtype=torch.int32, device=st.t.device),
+        adopted=torch.full(st.t.shape, s.max_waypoints + 4, dtype=torch.int32,
+                           device=st.t.device),
         last_mod=st.last_mod, t=st.t)
 
 

@@ -4,7 +4,9 @@ bits and f32 ``uniform`` under JAX's partitionable threefry scheme (the
 default, ``jax_threefry_partitionable=True``), and the erfinv of a uniform
 that ``jax.random.normal`` scales.
 
-A key is an int64 tensor [2] (or [..., 2]) holding two u32 words. The u32
+A key is an int64 tensor [2] (or [..., 2]) holding two u32 words; ``split``,
+``bits``, ``uniform`` and ``erfinv_uniform`` take leading key axes, each
+key drawing its own stream (``jax.vmap`` over keys). The u32
 arithmetic runs in int64 masked to 32 bits, since torch's uint32 lacks
 operators on CUDA.
 
@@ -63,17 +65,19 @@ def _counts(n: int, device):
 
 
 def split(key, num: int = 2):
-    """``jax.random.split``: num keys, int64 [num, 2]."""
+    """``jax.random.split``: num keys, int64 [..., num, 2] for keys [..., 2]."""
     hi, lo = _counts(num, key.device)
-    b1, b2 = threefry2x32(key[0], key[1], hi, lo)
-    return torch.stack([b1, b2], dim=1)
+    b1, b2 = threefry2x32(key[..., 0, None], key[..., 1, None], hi, lo)
+    return torch.stack([b1, b2], dim=-1)
 
 
 def bits(key, shape):
-    """32 random bits for each element of ``shape`` (u32 values in int64)."""
+    """32 random bits for each element of ``shape`` (u32 values in int64),
+    [..., *shape] for keys [..., 2]."""
+    shape = tuple(shape)
     hi, lo = _counts(math.prod(shape), key.device)
-    b1, b2 = threefry2x32(key[0], key[1], hi, lo)
-    return (b1 ^ b2).reshape(shape)
+    b1, b2 = threefry2x32(key[..., 0, None], key[..., 1, None], hi, lo)
+    return (b1 ^ b2).reshape(key.shape[:-1] + shape)
 
 
 def uniform(key, shape, minval=0.0, maxval=1.0):

@@ -53,15 +53,16 @@ class Polygon:
         return Polygon(pts=torch.from_numpy(pts).to(device), count=_i32(n, device))
 
     def bbox(self):
-        """(minx, maxx, miny, maxy) of the valid vertices."""
-        idx = torch.arange(self.pts.shape[0], device=self.pts.device)
-        m = idx < self.count
+        """(minx, maxx, miny, maxy) of the valid vertices; with leading world
+        axes on pts [*B, P, 2] and count [*B], each of shape B."""
+        idx = torch.arange(self.pts.shape[-2], device=self.pts.device)
+        m = idx < self.count[..., None]
         big = torch.tensor(3.4e38, dtype=torch.float32, device=self.pts.device)
-        xs, ys = self.pts[:, 0], self.pts[:, 1]
-        minx = torch.where(m, xs, big).min()
-        maxx = torch.where(m, xs, -big).max()
-        miny = torch.where(m, ys, big).min()
-        maxy = torch.where(m, ys, -big).max()
+        xs, ys = self.pts[..., 0], self.pts[..., 1]
+        minx = torch.where(m, xs, big).min(dim=-1).values
+        maxx = torch.where(m, xs, -big).max(dim=-1).values
+        miny = torch.where(m, ys, big).min(dim=-1).values
+        maxy = torch.where(m, ys, -big).max(dim=-1).values
         return minx, maxx, miny, maxy
 
 

@@ -16,13 +16,23 @@ kernel on them:
            S = 256, from one call of the kernel (one cooperative launch) and
            through the plain PyTorch passes: owner, ox and oy bitwise equal,
            single passes from a mid-flood state too; ms a flood and a pass
-           at each step value, against the bound
+           at each step value, against the bound; with the world axis, 32
+           MC_STATICS floods of their own origins, bounds and seeds in one
+           launch against the plain batched flood and each world's
+           single-world flood, bitwise, ms a group beside 32 single-world
+           launches, against the group's bound; 2,400 tiny worlds, more
+           than the co-resident blocks, in a counted launch a chunk
   phase 3  K2: Zhang-Suen to the fixpoint in one cooperative launch on the
            bench and the Monte-Carlo orchard's opened grids and on live
            regions that divide by nothing, against the plain loop: plane,
            iteration count and changed count bitwise equal, also capped at 3,
            1 and 0 iterations; ms a thinning (CUDA events, no host read),
-           against the bound
+           against the bound; with the world axis, 32 MC_STATICS orchards'
+           opened grids (whose fixpoints end at different iterations) and 2
+           bench ones in one launch each against the plain batched loop and
+           each world's single-world run, bitwise, also capped; ms a group
+           beside the single-world launches, against the group's bound;
+           SMs + 9 small worlds, in a counted launch a chunk
   phase 4  the slice at TEST_STATICS (stage_full + 20 ticks), CUDA against
            the port on the CPU
   phase 5  stage_full at BENCH_STATICS on CUDA: the kernels' launch counts,
@@ -30,7 +40,9 @@ kernel on them:
            (tests/torch_reference/bench_np_seed0.json); per-stage times
   phase 6  K3: all-pairs ROR counts of 131,072 points (the bench orchard,
            parked as ror_counts parks it, and a uniform cloud at its
-           density) through the kernel and the plain version; bitwise equal
+           density) through the kernel and the plain version; bitwise equal;
+           with the world axis, 32 MC orchards' clouds in one launch against
+           the plain batched counts and each cloud's single-world launch
   phase 7  the serving loop at BENCH_STATICS with ror_method="pallas" over
            seven map frames (levels 0, 2, 2, 2, 2, 0, 3), 20 ticks each, then
            serve_control_tick fed the replay's poses: held against the JAX
@@ -52,15 +64,21 @@ kernel on them:
            layout and in the identity layout, as a diagnostic of the log;
            then the probe entry point (python3 -m
            aosx_torch.probes) for the launch counts
-  phase 9  Monte-Carlo at MC_STATICS: the first refill group's plan caches
-           (32 worlds x 25 rows in one batched build_plan_cache) against
-           the same worlds' caches built one world and one row at a time,
+  phase 9  Monte-Carlo at MC_STATICS: the first refill group's 32 worlds in
+           one batched prepare_world (K1 and K2 one launch each) against
+           the same worlds built one at a time, bitwise, both timed; its plan
+           caches (32 worlds x 25 rows in one batched build_plan_cache)
+           against the same caches built one world and one row at a time,
            bitwise, both timed; 128 rollouts of 1,200 ticks through 64
            lanes with refill groups of 32 (plan-cached), each record held
            against the JAX package's (tests/torch_reference/mc_np_seed0.json);
            8 of them again alone, bitwise equal to their lane's record; a
            2 x 2 parameter sweep whose first configuration equals the unswept
-           records; launches of K1 and K2 per world build; rollouts/s
+           records; launches of K1 and K2 per group build; rollouts/s; the
+           uncached harness (16 rollouts through 8 lanes, refill 4, 300
+           ticks: lane-aware engine.step chunks) bitwise equal to the cached
+           one on the same clouds, its lane-tick; batched_rollouts on 8 keys
+           bitwise equal to the keys one at a time
   phase 10 the operator's surface. (a) At BENCH_STATICS on the bench orchard:
            make_orchard on the card against the CPU port and the JAX
            package's (bitwise); the bench cloud through save_pcd / load_pcd
@@ -146,6 +164,9 @@ MC_REFERENCE = REFERENCE.with_name("mc_np_seed0.json")
 MC_TOTAL, MC_BATCH, MC_REFILL, MC_BUDGET, MC_CHUNK = 128, 64, 32, 1200, 150
 MC_RERUN_IDS = (0, 1, 2, 3, 124, 125, 126, 127)
 MC_SWEEP_SEEDS, MC_SWEEP_BATCH = 8, 16
+# the uncached harness: total, lanes, refill, budget (a refill group at least)
+MC_UNCACHED = (16, 8, 4, 300)
+MC_BATCHED_KEYS, MC_BATCHED_STEPS = 8, 150
 # A rollout's travel is a sequential f32 sum of up to 1,200 segments of about
 # 0.12 m, some 100 m in all (ulp 7.6e-6 m), and a lane retires on its way
 # back, 20 m from the origin. XLA:CPU contracts a segment's x*x + y*y into a
@@ -259,14 +280,15 @@ def read_counts(kernels):
     return out
 
 
-def assert_one_world(counts, worlds, statics, what):
-    """A world build launches K2 once (a whole thinning) and K1's flood once,
-    with every pass of the preset."""
+def assert_group_launches(counts, groups, statics, what):
+    """A group's world build launches K2 once (every world's thinning) and
+    K1 once (every world's flood, with every pass of the preset): ``groups``
+    groups of at most as many worlds as the card holds co-resident."""
     from aosx_torch.gvd import voronoi
 
     npass = len(voronoi._passes(statics))
-    want = {"zhang_suen_fixpoint": worlds, "jfa_flood": worlds,
-            "jfa_flood.passes": worlds * npass}
+    want = {"zhang_suen_fixpoint": groups, "jfa_flood": groups,
+            "jfa_flood.passes": groups * npass}
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"{what}: kernel counts {counts}, expected {want}")
@@ -407,6 +429,27 @@ def k1_case(S, device):
     return grid, seeds
 
 
+def k1_ops_by_pass(before, steps, n, coords):
+    """Each pass's operations bound (ms) from the owner planes ([*B, H, W])
+    it starts from: H + W FP32 FMAs a world for the coordinates, 4 a cell
+    for its own owner and 5 for each other distinct owner among its 8
+    candidates (one without an owner needs no distance, nor one seen
+    before)."""
+    import torch
+    from aosx_torch.perceive.raster import shift2d
+
+    out = []
+    for (o, _, _), step in zip(before, steps):
+        worlds = o[..., 0, 0].numel()
+        nine = torch.stack([shift2d(o, dys * step, dxs * step, n)
+                            for dys in (-1, 0, 1) for dxs in (-1, 0, 1)]).sort(0).values
+        distinct = int((nine[0] < n).sum()) + int(((nine[1:] != nine[:-1]) & (nine[1:] < n)).sum())
+        own = int((o < n).sum())
+        out.append(bound(0, fp32_ops=worlds * coords + 4 * own + 5 * (distinct - own))[0])
+        del nine
+    return out
+
+
 def phase_k1_shape(name, S, device):
     """K1 at one preset's shape: the flood and single passes against the plain
     versions, bitwise; times of the flood and of a pass at each step value;
@@ -414,7 +457,6 @@ def phase_k1_shape(name, S, device):
     import torch
     from aosx_torch.cuda_build import timed_ms
     from aosx_torch.gvd import jfa_pass_cuda, voronoi
-    from aosx_torch.perceive.raster import shift2d
 
     grid, seeds = k1_case(S, device)
     n = S.max_seeds
@@ -482,14 +524,7 @@ def phase_k1_shape(name, S, device):
     # run's states.
     cells = S.grid_h * S.grid_w
     coords = S.grid_h + S.grid_w
-    ops_by_pass = []
-    for (o, _, _), step in zip(before, steps):
-        nine = torch.stack([shift2d(o, dys * step, dxs * step, n)
-                            for dys in (-1, 0, 1) for dxs in (-1, 0, 1)]).sort(0).values
-        distinct = int((nine[0] < n).sum()) + int(((nine[1:] != nine[:-1]) & (nine[1:] < n)).sum())
-        own = int((o < n).sum())
-        ops_by_pass.append(bound(0, fp32_ops=coords + 4 * own + 5 * (distinct - own))[0])
-        del nine
+    ops_by_pass = k1_ops_by_pass(before, steps, n, coords)
     ops_ms = float(np.sum(ops_by_pass))
     bytes_ms, _ = bound(8 * cells + 8 * (n + 1))
     flood_bound = max(bytes_ms, ops_ms)
@@ -522,16 +557,149 @@ def phase_k1_shape(name, S, device):
                 bound_ms=flood_bound / npass, bound_by=b_by)
 
 
+WORLDS = 32
+
+
+def k1_group_case(S, G, device):
+    """G grids of the preset, each with its own origin, live bounds and
+    number of random valid seeds: (GridWorld [G], SeedSet [G])."""
+    import torch
+    from aosx_torch.types import GridWorld, SeedSet
+
+    rng = np.random.default_rng(2)
+    n = S.max_seeds
+    xy = np.zeros((G, n, 2), np.float32)
+    valid = np.zeros((G, n), bool)
+    origin = rng.uniform(-20.0, 20.0, (G, 2)).astype(np.float32)
+    live = np.stack([S.grid_h - 7 * (np.arange(G) % 5), S.grid_w - 12 * (np.arange(G) % 3)],
+                    1).astype(np.int32)
+    for g in range(G):
+        k = max(3, n >> (g % 6))
+        xy[g, :k, 0] = rng.uniform(0.5, live[g, 1] * S.resolution - 0.5, k)
+        xy[g, :k, 1] = rng.uniform(0.5, live[g, 0] * S.resolution - 0.5, k)
+        valid[g, :k] = True
+    xy += origin[:, None, :]
+    f32 = dict(dtype=torch.float32, device=device)
+    o = torch.from_numpy(origin).to(device)
+    lv = torch.from_numpy(live).to(device)
+    grid = GridWorld(occ=torch.zeros((G, S.grid_h, S.grid_w), dtype=torch.uint8, device=device),
+                     origin_x=o[:, 0].contiguous(), origin_y=o[:, 1].contiguous(),
+                     h_cells=lv[:, 0].contiguous(), w_cells=lv[:, 1].contiguous())
+    seeds = SeedSet(xy=torch.from_numpy(xy).to(**f32), valid=torch.from_numpy(valid).to(device),
+                    kind=torch.zeros((G, n), dtype=torch.int8, device=device))
+    return grid, seeds
+
+
+def phase_k1_world_axis(device, S, G=WORLDS):
+    """K1 with a world axis: G floods of their own origins, bounds and seed
+    tables in one launch, against the plain batched flood and against the
+    single-world kernel on each world, bitwise; ms a group beside G
+    single-world launches; the group's bound."""
+    import torch
+    from aosx_torch.cuda_build import timed_ms
+    from aosx_torch.gvd import jfa_pass_cuda, voronoi
+
+    grid, seeds = k1_group_case(S, G, device)
+    n = S.max_seeds
+    steps = voronoi._passes(S)
+    owner0, table = voronoi._jfa_init(grid, seeds, S)
+    ox, oy = grid.origin_x, grid.origin_y
+    args = (n, ox, oy, S.resolution)
+    ref, ms_p = cuda_ms(lambda: jfa_pass_cuda.jfa_flood_plain(owner0, table, steps, *args), 2)
+    zero_counts([jfa_pass_cuda.jfa_flood])
+    got = jfa_pass_cuda.jfa_flood(owner0.clone(), table, steps, *args, want_positions=True)
+    launches = jfa_pass_cuda.jfa_flood.launches
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, ref))
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"K1 group of {G} differs from its plain batched version "
+                             f"(max abs err {err})")
+    for g in range(G):
+        one = jfa_pass_cuda.jfa_flood(owner0[g].clone(), table[g].contiguous(), steps, n, ox[g],
+                                      oy[g], S.resolution, want_positions=True)
+        if not all(torch.equal(a, b[g]) for a, b in zip(one, got)):
+            raise AssertionError(f"K1 group: world {g} differs from its single-world flood")
+    _, ms_k = timed_ms(lambda o: jfa_pass_cuda.jfa_flood(o, table, steps, *args), device,
+                       REPS, owner0.clone)
+    tables = [table[g].contiguous() for g in range(G)]
+    _, ms_1 = timed_ms(lambda os: [jfa_pass_cuda.jfa_flood(o, tables[g], steps, n, ox[g], oy[g],
+                                                           S.resolution)
+                                   for g, o in enumerate(os)],
+                       device, REPS, lambda: [owner0[g].clone() for g in range(G)])
+    # the group's bound: every world's plane in and out and its table, or
+    # every world's passes' operations, counted on this run's states
+    pos = torch.gather(table, 1, owner0.flatten(1).long()[..., None].expand(-1, -1, 2))
+    pos = pos.reshape(owner0.shape + (2,))
+    state, before = (owner0, pos[..., 0].contiguous(), pos[..., 1].contiguous()), []
+    for step in steps:
+        before.append(state)
+        state = jfa_pass_cuda.jfa_pass_plain(*state, step, *args)
+    ops_ms = float(np.sum(k1_ops_by_pass(before, steps, n, S.grid_h + S.grid_w)))
+    del before, state
+    bytes_ms, _ = bound(G * (8 * S.grid_h * S.grid_w + 8 * (n + 1)))
+    b_ms, b_by = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"# phase 2: K1 world axis, {G} MC_STATICS floods ({S.grid_h}x{S.grid_w}, their own "
+        f"origins, live bounds and 3 to {n} seeds; {len(steps)} passes): {launches} launch(es), "
+        f"{ms_k:.4f} ms a group ({ms_k / G:.5f} a world) against {ms_1:.4f} ms for {G} "
+        f"single-world launches; plain batched {ms_p:.2f} ms; owner, ox and oy bitwise equal to "
+        f"the plain batched flood and to each world's single-world flood; bound {b_ms:.4f} ms "
+        f"({b_by}: the planes in and out {bytes_ms:.4f} ms, the passes' operations "
+        f"{ops_ms:.4f} ms), {100 * b_ms / ms_k:.1f} % of it")
+    if launches != 1:
+        raise AssertionError(f"K1 group of {G}: {launches} launches, expected 1")
+    assert_under_bound(f"K1 group of {G}", ms_k, b_ms)
+    return dict(worlds=G, group_ms=ms_k, singles_ms=ms_1, group_plain_ms=ms_p,
+                group_bound_ms=b_ms, group_bound_by=b_by, group_launches=launches,
+                max_abs_err=err)
+
+
+def phase_k1_chunks(device, G=2400, H=8, W=16, S=6):
+    """More worlds than the card holds co-resident blocks: the flood runs as
+    a counted launch a chunk of worlds, and equals the plain batched flood
+    and each world's single flood, bitwise."""
+    import torch
+    from aosx_torch.gvd import jfa_pass_cuda
+
+    rng = np.random.default_rng(4)
+    owner = torch.from_numpy(rng.integers(0, S + 1, (G, H, W)).astype(np.int32)).to(device)
+    table = torch.from_numpy(rng.uniform(-1.0, 2.0, (G, S + 1, 2)).astype(np.float32)).to(device)
+    table[:, S] = 1e9
+    origin = torch.from_numpy(rng.uniform(-0.5, 0.5, (G, 2)).astype(np.float32)).to(device)
+    ox, oy = origin[:, 0].contiguous(), origin[:, 1].contiguous()
+    steps = [1, 8, 4, 2, 1]
+    ref = jfa_pass_cuda.jfa_flood_plain(owner, table, steps, S, ox, oy, 0.125)
+    zero_counts([jfa_pass_cuda.jfa_flood])
+    got = jfa_pass_cuda.jfa_flood(owner.clone(), table, steps, S, ox, oy, 0.125,
+                                  want_positions=True)
+    launches = jfa_pass_cuda.jfa_flood.launches
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"K1 over {G} worlds in chunks differs from the plain batched flood")
+    for g in (0, G // 2, G - 1):
+        one = jfa_pass_cuda.jfa_flood(owner[g].clone(), table[g].contiguous(), steps, S, ox[g],
+                                      oy[g], 0.125)
+        if not torch.equal(one, got[0][g]):
+            raise AssertionError(f"K1 chunks: world {g} differs from its single-world flood")
+    if launches < 2:
+        raise AssertionError(f"K1 over {G} worlds: {launches} launch, expected a launch a chunk")
+    log(f"# phase 2: K1 over {G} worlds of {H}x{W} (more than the co-resident blocks): "
+        f"{launches} counted launches, bitwise equal to the plain batched flood and to single "
+        f"worlds")
+    return launches
+
+
 def phase_k1(device):
     from aosx_torch.config import BENCH_STATICS, MC_STATICS
 
     bench = phase_k1_shape("BENCH_STATICS", BENCH_STATICS, device)
     mc = phase_k1_shape("MC_STATICS", MC_STATICS, device)
+    group = phase_k1_world_axis(device, MC_STATICS)
+    group["chunked_launches"] = phase_k1_chunks(device)
     return dict(bench,
                 mc={k: mc[k] for k in ("ms", "plain_ms", "flood_ms", "flood_plain_ms",
                                        "flood_no_owner_ms", "passes",
                                        "ms_by_step", "bound_ms", "bound_by")},
-                max_abs_err=max(bench["max_abs_err"], mc["max_abs_err"]))
+                world_axis={k: v for k, v in group.items() if k != "max_abs_err"},
+                max_abs_err=max(bench["max_abs_err"], mc["max_abs_err"],
+                                group["max_abs_err"]))
 
 
 # logic operations of K2's circuit for a word of 32 cells and a sub-iteration,
@@ -542,14 +710,17 @@ def phase_k1(device):
 K2_OPS_PER_WORD = 50
 
 
-def opened_grid(S, spec, device):
+def opened_grid(S, spec, device, seeds=(0,)):
     """morph_open of the inflated occupancy grid of an orchard: the thinning's
-    input on the main path."""
+    input on the main path; for several cloud seeds, the group's grids with a
+    leading world axis."""
     import torch
+    from aosx_torch import tree
     from aosx_torch.config import AosParams, params_as_f32
     from aosx_torch.perceive import points, raster, skeleton
 
-    pc, poly = cloud(S, spec, 0, device)
+    pc, poly = cloud(S, spec, seeds[0], device) if len(seeds) == 1 else tree.stack(
+        [cloud(S, spec, i, device) for i in seeds])
     params = params_as_f32(AosParams(), device)
     excl = torch.zeros((S.max_exclusions, 3), device=device)
     xy, keep, bounds, _ = points.preprocess(pc, poly, params, excl, S, ror_method="sorted")
@@ -634,6 +805,96 @@ def phase_k2_shape(name, S, spec, device):
                 fixpoint_plain_ms=ms_p, iterations=it_k, bound_ms=b_ms / it_k, bound_by=b_by)
 
 
+def check_k2_group(name, occ, h_cells, w_cells, max_iters):
+    """K2 over a group (occ [G, H, W]) in one launch against the plain
+    batched loop and the single-world kernel on each world: planes and
+    per-world counts bitwise. Returns (stats [G, 2] as a list, launches,
+    max abs err)."""
+    import torch
+    from aosx_torch.perceive import skeleton_cuda
+
+    G = occ.shape[0]
+    ref, its, last = skeleton_cuda.zhang_suen_fixpoint_plain(occ, h_cells, w_cells, max_iters)
+    zero_counts([skeleton_cuda.zhang_suen_fixpoint])
+    got, stats = skeleton_cuda.zhang_suen_fixpoint(occ, h_cells, w_cells, max_iters)
+    launches = skeleton_cuda.zhang_suen_fixpoint.launches
+    err = float((got.int() - ref.int()).abs().max())
+    if not torch.equal(got, ref) or not torch.equal(stats, torch.stack([its, last], -1)):
+        raise AssertionError(f"K2 group {name}: kernel differs from the plain batched loop "
+                             f"({int((got != ref).sum())} cells; stats {stats.tolist()} vs "
+                             f"{torch.stack([its, last], -1).tolist()})")
+    for g in range(G):
+        one, st1 = skeleton_cuda.zhang_suen_fixpoint(occ[g].contiguous(), h_cells[g], w_cells[g],
+                                                     max_iters)
+        if not torch.equal(one, got[g]) or not torch.equal(st1, stats[g]):
+            raise AssertionError(f"K2 group {name}: world {g} differs from its single-world run")
+    return stats.tolist(), launches, err
+
+
+def phase_k2_world_axis(device, S, spec, name, seeds, caps):
+    """K2 with a world axis on a group of orchards' opened grids: one launch
+    (or one a chunk of worlds) against the plain batched loop and the
+    single-world kernel, bitwise, uncapped and at each cap of ``caps``; ms a
+    group beside the single-world launches; the group's bound."""
+    from aosx_torch.cuda_build import timed_ms
+    from aosx_torch.perceive import skeleton_cuda
+
+    opened = opened_grid(S, spec, device, seeds)
+    occ, hc, wc = opened.occ.contiguous(), opened.h_cells, opened.w_cells
+    G, H, W = occ.shape
+    stats, launches, err = check_k2_group(name, occ, hc, wc, S.skeleton_max_iters)
+    for cap in caps:
+        check_k2_group(f"{name} capped at {cap}", occ, hc, wc, cap)
+    its = [s[0] for s in stats]
+    if len(set(its)) < 2:
+        raise AssertionError(f"K2 group {name}: every world ran {its[0]} iterations")
+    (skel, _), ms_k = timed_ms(lambda: skeleton_cuda.zhang_suen_fixpoint(
+        occ, hc, wc, S.skeleton_max_iters), device, REPS)
+    planes = [occ[g].contiguous() for g in range(G)]
+    _, ms_1 = timed_ms(lambda: [skeleton_cuda.zhang_suen_fixpoint(planes[g], hc[g], wc[g],
+                                                                  S.skeleton_max_iters)
+                                for g in range(G)], device, REPS)
+    # every world's plane in and out, or its iterations of the circuit over
+    # the words still holding a cell, summed over the group
+    words = [int((skeleton_cuda.pack_rows(skel[g]) != 0).sum()) for g in range(G)]
+    bytes_ms, _ = bound(2 * G * H * W)
+    ops_ms, _ = bound(0, int32_ops=sum(it * 2.0 * K2_OPS_PER_WORD * w
+                                       for it, w in zip(its, words)))
+    b_ms, b_by = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"# phase 3: K2 world axis, {G} {name} opened grids ({H}x{W}): {launches} launch(es), "
+        f"iterations per world {its}; {ms_k:.4f} ms a group ({ms_k / G:.5f} a world) against "
+        f"{ms_1:.4f} ms for {G} single-world launches; planes and per-world counts bitwise "
+        f"equal to the plain batched loop and to each world's single-world run, also capped at "
+        f"{list(caps)}; bound {b_ms:.5f} ms ({b_by}), {100 * b_ms / ms_k:.1f} % of it")
+    assert_under_bound(f"K2 group {name}", ms_k, b_ms)
+    return dict(worlds=G, group_ms=ms_k, singles_ms=ms_1, group_bound_ms=b_ms,
+                group_bound_by=b_by, group_launches=launches, iterations=its, max_abs_err=err)
+
+
+def phase_k2_chunks(device, H=40, W=75):
+    """More worlds than SMs: K2 runs as a counted launch a chunk of at most a
+    world an SM, each world stopping at its own fixpoint, and equals the
+    plain batched loop bitwise."""
+    import torch
+    from aosx_torch.perceive import skeleton_cuda
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    G = sms + 9
+    live = np.stack([H - np.arange(G) % 4, W - 3 * (np.arange(G) % 5)], 1).astype(np.int32)
+    occ = torch.from_numpy(np.stack([thick_mask(H, W, int(lh), int(lw), seed=g)
+                                     for g, (lh, lw) in enumerate(live)])).to(device)
+    lv = torch.from_numpy(live).to(device)
+    stats, launches, _ = check_k2_group(f"{G} worlds of {H}x{W}", occ, lv[:, 0].contiguous(),
+                                        lv[:, 1].contiguous(), 64)
+    if launches != -(-G // sms):
+        raise AssertionError(f"K2 over {G} worlds: {launches} launches, expected "
+                             f"{-(-G // sms)}")
+    log(f"# phase 3: K2 over {G} worlds of {H}x{W} (more than the {sms} SMs): {launches} counted "
+        f"launches, iterations {sorted({s[0] for s in stats})}, bitwise equal to the plain "
+        f"batched loop and to each world's single-world run")
+    return launches
+
+
 def phase_k2(device, bench_spec):
     import torch
     from aosx_torch.config import BENCH_STATICS, MC_STATICS
@@ -650,7 +911,17 @@ def phase_k2(device, bench_spec):
     bench = phase_k2_shape("BENCH_STATICS", BENCH_STATICS, bench_spec, device)
     mc_spec = OrchardSpec(**json.loads(MC_REFERENCE.read_text())["spec"])
     mc = phase_k2_shape("MC_STATICS", MC_STATICS, mc_spec, device)
-    return dict(bench, mc={k: v for k, v in mc.items() if k != "max_abs_err"})
+    group_mc = phase_k2_world_axis(device, MC_STATICS, mc_spec, "MC_STATICS", range(WORLDS),
+                                   (12, 3))
+    group_bench = phase_k2_world_axis(device, BENCH_STATICS, bench_spec, "BENCH_STATICS",
+                                      (0, 1), (3,))
+    group_mc["chunked_launches"] = phase_k2_chunks(device)
+    strip = ("max_abs_err",)
+    return dict(bench, mc={k: v for k, v in mc.items() if k not in strip},
+                world_axis={k: v for k, v in group_mc.items() if k not in strip},
+                world_axis_bench={k: v for k, v in group_bench.items() if k not in strip},
+                max_abs_err=max(bench["max_abs_err"], group_mc["max_abs_err"],
+                                group_bench["max_abs_err"]))
 
 
 def run_test_slice(device):
@@ -748,7 +1019,7 @@ def phase_bench_slice(device, bench_spec):
     assert got["waypoints"] >= 4 and got["plan_len"] > 0
     if int(world.guards) != 0:
         raise AssertionError(f"world guard bits {int(world.guards)}")
-    assert_one_world(launches, 1, S, "stage_full")
+    assert_group_launches(launches, 1, S, "stage_full")
 
     # per-stage medians; a stage's time includes its host synchronisations
     _, t_perceive = cuda_ms(lambda: perceive(pc, poly, params, excl, S), REPS)
@@ -806,9 +1077,54 @@ def phase_k3(device, bench_spec):
     bench = out["bench orchard"]
     log(f"# phase 6: K3 bound {b_ms:.3f} ms ({b_by}); kernel at {100 * b_ms / bench['ms']:.1f} % "
         f"of it on the bench cloud")
-    return dict(max_abs_err=max(o["max_abs_err"] for o in out.values()), ms=bench["ms"],
-                plain_ms=bench["plain_ms"], uniform_ms=out["uniform"]["ms"],
-                uniform_plain_ms=out["uniform"]["plain_ms"], bound_ms=b_ms, bound_by=b_by)
+    group = phase_k3_world_axis(device)
+    return dict(max_abs_err=max(group.pop("max_abs_err"),
+                                *(o["max_abs_err"] for o in out.values())),
+                ms=bench["ms"], plain_ms=bench["plain_ms"], uniform_ms=out["uniform"]["ms"],
+                uniform_plain_ms=out["uniform"]["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                world_axis=group)
+
+
+def phase_k3_world_axis(device, G=WORLDS):
+    """K3 with a world axis: the parked clouds of G Monte-Carlo orchards
+    [G, 4096, 3] in one launch against the plain batched counts and the
+    single-world kernel on each cloud, bitwise; ms a group beside G
+    single-world launches; the group's bound."""
+    import torch
+    from aosx_torch import tree
+    from aosx_torch.config import MC_STATICS as S, AosParams
+    from aosx_torch.orchards import OrchardSpec
+    from aosx_torch.perceive import points, ror_cuda
+
+    spec = OrchardSpec(**json.loads(MC_REFERENCE.read_text())["spec"])
+    pc, _ = tree.stack([cloud(S, spec, i, device) for i in range(G)])
+    pts = points.pad_to_block(points.park(pc.xyz, pc.valid), 2048).contiguous()
+    r2 = torch.tensor(AosParams().ror_radius, dtype=torch.float32, device=device) ** 2
+    ref, ms_p = cuda_ms(lambda: ror_cuda.ror_counts_plain(pts, r2), 2)
+    zero_counts([ror_cuda.ror_counts])
+    got = ror_cuda.ror_counts(pts, r2)
+    launches = ror_cuda.ror_counts.launches
+    err = float((got.double() - ref.double()).abs().max())
+    if not torch.equal(got, ref):
+        raise AssertionError(f"K3 group of {G} differs from its plain batched version "
+                             f"(max abs err {err})")
+    singles = [pts[g].contiguous() for g in range(G)]
+    for g in range(G):
+        if not torch.equal(ror_cuda.ror_counts(singles[g], r2), got[g]):
+            raise AssertionError(f"K3 group: cloud {g} differs from its single-world launch")
+    _, ms_k = cuda_ms(lambda: ror_cuda.ror_counts(pts, r2), REPS)
+    _, ms_1 = cuda_ms(lambda: [ror_cuda.ror_counts(c, r2) for c in singles], REPS)
+    m = pts.shape[1]
+    b_ms, b_by = bound(16 * G * m, fp32_ops=6.0 * G * m * m, int32_ops=1.0 * G * m * m)
+    log(f"# phase 6: K3 world axis, {G} MC clouds of {m} points: {launches} launch, "
+        f"{ms_k:.4f} ms a group against {ms_1:.4f} ms for {G} single-world launches; plain "
+        f"batched {ms_p:.2f} ms; bitwise equal to both; bound {b_ms:.4f} ms ({b_by}), "
+        f"{100 * b_ms / ms_k:.1f} % of it")
+    if launches != 1:
+        raise AssertionError(f"K3 group of {G}: {launches} launches, expected 1")
+    return dict(worlds=G, points=m, group_ms=ms_k, singles_ms=ms_1, group_plain_ms=ms_p,
+                group_bound_ms=b_ms, group_bound_by=b_by, group_launches=launches,
+                max_abs_err=err)
 
 
 def serving_frames(ref, statics, device):
@@ -1331,7 +1647,9 @@ def mc_single(cloud, params, S, device, budget, chunk):
 
 def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
                       budget=MC_BUDGET, chunk=MC_CHUNK, rerun_ids=MC_RERUN_IDS,
-                      sweep_seeds=MC_SWEEP_SEEDS, sweep_batch=MC_SWEEP_BATCH):
+                      sweep_seeds=MC_SWEEP_SEEDS, sweep_batch=MC_SWEEP_BATCH,
+                      uncached=MC_UNCACHED, batched_keys=MC_BATCHED_KEYS,
+                      batched_steps=MC_BATCHED_STEPS):
     import torch
     from aosx_torch.config import MC_STATICS as S, AosParams, params_as_f32
     from aosx_torch.gvd import jfa_pass_cuda
@@ -1361,20 +1679,26 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
     if on_card:
         torch.cuda.reset_peak_memory_stats()
 
-    # the first refill group (rollout ids 0 .. refill - 1) built both ways.
-    # Its worlds one at a time, the first alone for its kernel launches; then
-    # the group's plan caches one world and one row at a time through
-    # unbatched calls, and in one batched build_plan_cache: bitwise equal
+    # the first refill group (rollout ids 0 .. refill - 1) built both ways:
+    # its worlds one at a time through unbatched calls, then in one batched
+    # prepare_world (its kernel launches counted), bitwise equal; then the
+    # group's plan caches one world and one row at a time through unbatched
+    # calls, and in one batched build_plan_cache: bitwise equal
     clouds0 = [batch.cloud_tensors(make_orchard_np(spec, seed=i), S, device)
                for i in range(refill)]
+    group0 = tree.stack(clouds0)
+    looped_w, prepare_ms = timed(lambda: batch.looped_worlds(clouds0, params, S, "sorted"))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
-    world, world_ms = timed(lambda: batch._world(clouds0[0], params, S, "sorted"))
-    per_world = read_counts(kernels)
-    rest, rest_ms = timed(lambda: [batch._world(c, params, S, "sorted") for c in clouds0[1:]])
-    worlds = [world] + rest
-    prepare_ms = world_ms + rest_ms
+    group, world_group_ms = timed(lambda: batch._world(group0, params, S, "sorted"))
+    per_group = read_counts(kernels)
+    world_mem = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    assert_trees_equal(looped_w, group, "phase 9: the first refill group's worlds, batched "
+                       "against one at a time")
+    del looped_w
+    worlds = [tree.lane(group, i) for i in range(refill)]
     looped, looped_ms = timed(lambda: [looped_cache(w, params, S) for w in worlds])
-    group = tree.stack(worlds)
     peak_before = torch.cuda.max_memory_allocated() if on_card else 0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -1385,16 +1709,18 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
         assert_caches_bitwise(want, tree.lane(cache_b, i),
                               f"phase 9: world {i} of the first refill group")
     begin_looped = (prepare_ms + looped_ms) / refill
-    begin_batched = (prepare_ms + group_ms + feas_ms) / refill
+    begin_batched = (world_group_ms + group_ms + feas_ms) / refill
     log(f"# phase 9: the first refill group ({refill} MC_STATICS worlds, {S.grid_h}x{S.grid_w}): "
-        f"prepare_world {world_ms:.0f} ms alone with launches {per_world}, "
-        f"{prepare_ms / refill:.0f} ms a world; plan caches one world and one row at a time "
+        f"prepare_world one world at a time {prepare_ms:.0f} ms ({prepare_ms / refill:.1f} a "
+        f"world), in one batched prepare_world {world_group_ms:.0f} ms "
+        f"({world_group_ms / refill:.1f} a world, launches {per_group}, peak allocated "
+        f"{world_mem:.3f} GiB), bitwise equal; plan caches one world and one row at a time "
         f"{looped_ms:.0f} ms ({looped_ms / refill:.0f} a world), in one batched "
         f"build_plan_cache over {refill} x {plancache.num_rows(S)} rows {group_ms:.0f} ms "
         f"({group_ms / refill:.1f} a world, peak allocated {group_mem:.3f} GiB), bitwise equal; "
         f"tour_feasibility {feas_ms:.1f} ms; begin a world looped {begin_looped:.0f} ms, "
-        f"batched {begin_batched:.0f} ms")
-    del looped, group, cache_b, rest, worlds
+        f"batched {begin_batched:.1f} ms")
+    del looped, group, cache_b, worlds
 
     # the main path: the sustained harness, counts set to 0 just before it
     started = []
@@ -1426,11 +1752,11 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
     if n_groups != lanes // refill + (total - lanes) // refill:
         raise AssertionError(f"begin_calls {n_groups}")
     if on_card:
-        assert_one_world(per_world, 1, S, "a Monte-Carlo world build alone")
-        assert_one_world(launches, total, S, "the Monte-Carlo path")
-        log(f"# phase 9: each of the {total} world builds launches K2 once (one thinning to "
-            f"the fixpoint) and K1's flood once ({launches['jfa_flood.passes'] // total} "
-            f"passes in one kernel launch)")
+        assert_group_launches(per_group, 1, S, "the first refill group's world build")
+        assert_group_launches(launches, n_groups, S, "the Monte-Carlo path")
+        log(f"# phase 9: each of the {n_groups} group builds ({total} worlds) launches K2 once "
+            f"(every world's thinning to its fixpoint) and K1 once (every world's flood, "
+            f"{launches['jfa_flood.passes'] // n_groups} passes)")
 
     # every record against the JAX reference
     differ, worst, bad = [], 0.0, []
@@ -1499,6 +1825,44 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
         f"{sweep_ms / 1e3:.1f} s ({sstats['rollouts_per_sec']:.3f} rollouts/s from the first "
         f"chunk): configuration 0 equals the unswept records bitwise; completion rate "
         f"{agg['completion_rate'].tolist()}, mean travel {np.round(agg['travel_mean'], 2).tolist()}")
+    # the uncached harness (lane-aware engine.step chunks) against the cached
+    # one on the same clouds and budget, bitwise
+    unc_total, unc_lanes, unc_refill, unc_budget = uncached
+    unc_clouds = lambda i: make_orchard_np(spec, seed=i)  # noqa: E731
+    kw = dict(chunk_steps=chunk, refill=unc_refill, ror_method="sorted", clouds=unc_clouds,
+              device=device)
+    (cres, cstats), _ = timed(lambda: batch.sustained_rollouts(
+        unc_total, unc_lanes, spec, params, S, unc_budget, cached=True, **kw))
+    (ures, ustats), unc_ms = timed(lambda: batch.sustained_rollouts(
+        unc_total, unc_lanes, spec, params, S, unc_budget, cached=False, classify=True, **kw))
+    bad = [k for k in cres if cres[k].tobytes() != ures[k].tobytes()]
+    if bad:
+        raise AssertionError(f"uncached records differ from the cached ones in {bad}")
+    unc_ticks = ustats["chunk_calls"] * unc_lanes * chunk
+    log(f"# phase 9: uncached sustained_rollouts total={unc_total} lanes={unc_lanes} "
+        f"refill={unc_refill} budget={unc_budget}: records bitwise equal to the cached run's; "
+        f"{ustats['rollouts_per_sec']:.3f} rollouts/s ({unc_ms / 1e3:.1f} s with the fill); "
+        f"begin {1e3 * ustats['begin_s'] / ustats['begin_calls']:.0f} ms a group; chunk "
+        f"{1e3 * ustats['chunk_s'] / ustats['chunk_calls']:.0f} ms a call, "
+        f"{1e6 * ustats['chunk_s'] / unc_ticks:.0f} us a lane-tick (cached on the same run: "
+        f"{1e6 * cstats['chunk_s'] / (cstats['chunk_calls'] * unc_lanes * chunk):.1f})")
+
+    # batched_rollouts (one begin, one lane-aware episode) against the same
+    # keys one at a time
+    from aosx_torch import prng
+
+    keys = prng.split(prng.prng_key(0, torch.device("cpu")), batched_keys)
+    n_steps = batched_steps
+    got, br_ms = timed(lambda: batch.batched_rollouts(keys, spec, params, S, n_steps,
+                                                      device=device))
+    for i, k in enumerate(keys):
+        one = batch.rollout_one(k, spec, params, S, n_steps, device=device)
+        bad = [f for f in one if one[f].cpu().numpy().tobytes() != got[f][i].cpu().numpy().tobytes()]
+        if bad:
+            raise AssertionError(f"batched_rollouts lane {i} differs from its key alone in {bad}")
+    log(f"# phase 9: batched_rollouts on {len(keys)} keys x {n_steps} ticks in {br_ms / 1e3:.1f} "
+        f"s, every lane bitwise equal to its key's rollout_one")
+
     mem = (max(peak_before, torch.cuda.max_memory_allocated()) / 2**30 if on_card
            else float("nan"))
     log(f"# phase 9: peak allocated {mem:.2f} GiB")
@@ -1508,12 +1872,17 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
         begin_group_ms=1e3 * stats["begin_s"] / n_groups, begin_world_ms=1e3 * stats["begin_s"] / total,
         chunk_call_ms=1e3 * stats["chunk_s"] / stats["chunk_calls"],
         lane_tick_us=1e6 * stats["chunk_s"] / lane_ticks, prepare_world_ms=prepare_ms / refill,
+        prepare_world_group_ms=world_group_ms, prepare_world_group_peak_gib=world_mem,
         build_plan_cache_group_ms=group_ms, build_plan_cache_looped_world_ms=looped_ms / refill,
+        uncached_rollouts_per_sec=ustats["rollouts_per_sec"],
+        uncached_lane_tick_us=1e6 * ustats["chunk_s"] / unc_ticks,
+        uncached_begin_group_ms=1e3 * ustats["begin_s"] / ustats["begin_calls"],
+        batched_rollouts_s=br_ms / 1e3,
         begin_world_looped_ms=begin_looped, begin_world_batched_ms=begin_batched,
         group_peak_allocated_gib=group_mem, single_rollout_s=single_s,
         records_differing=len(differ), float_err_m=worst, completed=int(comp.sum()),
         infeasible=int((res["feasible"] == 0).sum()), flagged=int((res["guards"] != 0).sum()),
-        sweep_s=sweep_ms / 1e3, peak_allocated_gib=mem, launches_per_world=per_world)
+        sweep_s=sweep_ms / 1e3, peak_allocated_gib=mem, launches_per_group=per_group)
 
 
 # ---------------------------------------------------------------------------
@@ -1863,7 +2232,7 @@ def mesh_bench(device, bench_spec, devices, name):
     (world, out, _), single_ms = host_ms(lambda: engine.prepare_world_full(
         pc, poly, params, excl, S, ror_method="sorted"))
     single = read_counts(kernels)
-    assert_one_world(single, 1, S, f"phase 11 {name}: the single-device world")
+    assert_group_launches(single, 1, S, f"phase 11 {name}: the single-device world")
     # the banded path, counts set to 0 just before it and read just after
     zero_counts(kernels)
     (world_m, out_m, _), mesh_ms = host_ms(lambda: engine.prepare_world_full(

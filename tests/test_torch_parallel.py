@@ -212,8 +212,8 @@ def test_port_chunk_from_jax_begin(jax_sustained):
 
 
 def test_sustained_uncached_matches_cached(port_sustained, clouds, params):
-    """cached=False (engine.step lanes one after the other, classify=True)
-    records what the cached harness records, bit for bit."""
+    """cached=False (the lanes through one lane-aware engine.step a tick,
+    classify=True) records what the cached harness records, bit for bit."""
     res, stats = batch.sustained_rollouts(
         TOTAL, BATCH, SPEC, params, S, BUDGET, chunk_steps=CHUNK, refill=REFILL,
         ror_method="exact", cached=False, classify=True, clouds=clouds.__getitem__, device=CPU)

@@ -8,12 +8,13 @@ Runs each checkout's own ``chip_smoke.phase_build``, ``phase_serving`` and
 the order other, this, this, other, since host-bound times differ by up to 2x
 between machines. Each turn's full log goes to
 ``chiprun_out/phase_turns_<n>.log``; prints one line per turn (serve_control_tick
-median and max, rollouts/s, the phases' host wall) and a JSON summary.
+median and max, rollouts/s, a refill group's begin, the phases' host wall)
+and a JSON summary. ``--phases 9`` runs phase 9 alone.
 
 Run from the repository root on a machine with the card, the other checkout
 unpacked with ``git archive`` into a directory that .gitignore lists:
 
-    python3 tests/torch_reference/phase_turns.py _archive/parent
+    python3 tests/torch_reference/phase_turns.py _archive/parent [--phases 9]
 """
 
 from __future__ import annotations
@@ -32,33 +33,44 @@ import chip_smoke as c
 sys.path.insert(0, "tests")
 d = torch.device("cuda", 0)
 c.phase_build()
-t0 = time.time(); _, serve = c.phase_serving(d); p7 = time.time() - t0
-t0 = time.time(); _, mc = c.phase_monte_carlo(d); p9 = time.time() - t0
-print("TURN " + json.dumps(dict(serve=serve, mc=mc, phase7_s=p7, phase9_s=p9)))
+out = {{}}
+if 7 in {phases}:
+    t0 = time.time(); _, out["serve"] = c.phase_serving(d); out["phase7_s"] = time.time() - t0
+if 9 in {phases}:
+    t0 = time.time(); _, out["mc"] = c.phase_monte_carlo(d); out["phase9_s"] = time.time() - t0
+print("TURN " + json.dumps(out))
 """
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=pathlib.Path)
+    ap.add_argument("--phases", default="7,9", help="comma-separated: 7, 9 or both")
     args = ap.parse_args(argv)
+    phases = sorted({int(x) for x in args.phases.split(",")})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     turns = []
     for n, (side, root) in enumerate([("other", args.other.resolve()), ("this", ROOT),
                                       ("this", ROOT), ("other", args.other.resolve())]):
-        r = subprocess.run([sys.executable, "-c", TURN], cwd=root, capture_output=True,
-                           text=True)
+        r = subprocess.run([sys.executable, "-c", TURN.format(phases=phases)], cwd=root,
+                           capture_output=True, text=True)
         (out_dir / f"phase_turns_{n}.log").write_text(r.stdout + r.stderr)
         if r.returncode != 0:
             raise SystemExit(f"turn {n} ({side}) failed:\n{r.stderr[-4000:]}")
         res = json.loads(r.stdout[r.stdout.rindex("TURN ") + 5:])
         turns.append(dict(side=side, **res))
-        print(f"turn {n} {side}: serve_control_tick median "
-              f"{res['serve']['serve_control_tick_ms']} ms, max "
-              f"{res['serve']['serve_control_tick_max_ms']} ms; "
-              f"{res['mc']['rollouts_per_sec']} rollouts/s; phase 7 {res['phase7_s']:.1f} s, "
-              f"phase 9 {res['phase9_s']:.1f} s", flush=True)
+        parts = []
+        if "serve" in res:
+            parts.append(f"serve_control_tick median {res['serve']['serve_control_tick_ms']} ms, "
+                         f"max {res['serve']['serve_control_tick_max_ms']} ms; phase 7 "
+                         f"{res['phase7_s']:.1f} s")
+        if "mc" in res:
+            mc = res["mc"]
+            parts.append(f"{mc['rollouts_per_sec']} rollouts/s; begin {mc['begin_group_ms']:.0f} "
+                         f"ms a group; chunk {mc['chunk_call_ms']:.0f} ms a call; phase 9 "
+                         f"{res['phase9_s']:.1f} s")
+        print(f"turn {n} {side}: " + "; ".join(parts), flush=True)
     print(json.dumps(turns))
 
 
