@@ -26,9 +26,10 @@ from typing import Optional
 import torch
 
 from .config import AosParams, Statics
-from .geom import atan2, cos, sin, wrap_angle
+from .f32math import sincos_f32
+from .geom import atan2, wrap_angle
 from .guards import GUARD_NONFINITE, GUARD_PLAN_CAP
-from .ops import lanes, sqrt, take_row
+from .ops import card_graph, fma, lanes, norm2, take_row
 from .tree import tree_map
 from .gvd.graph import build_gvd_graph, merge_seeds
 from .gvd.voronoi import jump_flood
@@ -176,6 +177,41 @@ def initial_state(world: World, s: Statics) -> EngineState:
     )
 
 
+@card_graph
+def _drive(tgt, xy, yaw, mod, goal_yaw, v_dt, yaw_rate):
+    """The follower's move toward tgt and its turn toward the look-ahead
+    point (mode 0, or farther than 1e-6 from the goal) or the goal's yaw
+    (modes 1 and 2 within 0.3 m); mode 3 freezes. Returns (xy, yaw). XLA:CPU's
+    f32 arithmetic (the fused norm and move, glibc's atan2f, sinf and cosf,
+    the jitted wrap), about 230 small kernels, replayed on the card as one
+    CUDA graph (``card_graph``)."""
+    delta = tgt - xy
+    dist = norm2(delta)
+    step = torch.minimum(v_dt, dist)
+    # xy + (delta / dist) * step, rounded as XLA:CPU compiles it where the
+    # reference steps in a scan (engine.episode, rollout_chunk[_cached], the
+    # serving loop): its code for the two coordinates branches on the
+    # moving test, x's product reaches its add in the same block and is
+    # fused into it, y's through a phi after the branches and is not
+    # (jit(step) and vmap(step) fuse both; tests/test_torch_step_batch.py)
+    unit = delta / torch.clamp(dist, min=1e-6)[..., None]
+    moved = torch.stack([fma(unit[..., 0], step, xy[..., 0]),
+                         xy[..., 1] + unit[..., 1] * step], dim=-1)
+    moved = torch.where((dist > 1e-6)[..., None], moved, xy + 0.0)
+    new_xy = torch.where(lanes(mod == 3, delta), xy, moved)
+
+    heading = atan2(delta[..., 1], delta[..., 0])
+    desired = torch.where((mod == 1) | (mod == 2) | (dist <= 1e-6),
+                          torch.where(dist < 0.3, goal_yaw, heading), heading)
+    # desired and yaw lie in [-pi, pi] (atan2, and wrap_angle below), so
+    # their difference is within +-2 pi, inside sin's and cos's |x| < 120
+    # (no host check)
+    dyaw = atan2(*sincos_f32(desired - yaw, check=False))
+    new_yaw = torch.where(mod == 3, yaw, yaw + torch.minimum(torch.maximum(dyaw, -yaw_rate),
+                                                               yaw_rate))
+    return new_xy, wrap_angle(new_yaw)
+
+
 def _move_robot(robot: Robot, mod, plan: Path, goal_xy, goal_yaw, v_dt=0.12, yaw_rate=0.6):
     """Minimal unicycle stand-in for the external controller: follow the
     plan in mode 0, converge on the goal pose in modes 1/2, freeze in 3.
@@ -184,12 +220,10 @@ def _move_robot(robot: Robot, mod, plan: Path, goal_xy, goal_yaw, v_dt=0.12, yaw
     the single-lane call's bit for bit."""
     dev = plan.xy.device
     Q = plan.xy.shape[-2]
-    v_dt = torch.as_tensor(v_dt, dtype=torch.float32, device=dev)
-    yaw_rate = torch.as_tensor(yaw_rate, dtype=torch.float32, device=dev)
     far = torch.tensor(3.4e38, dtype=torch.float32, device=dev)
     idx = torch.arange(Q, device=dev)
     dp = plan.xy - robot.xy[..., None, :]
-    d = sqrt(dp[..., 0] * dp[..., 0] + dp[..., 1] * dp[..., 1])
+    d = norm2(dp)
     # monotone window; the global search when the window is empty
     live_g = idx < plan.count[..., None]
     live_w = live_g & (idx >= robot.follow_i[..., None])
@@ -199,21 +233,11 @@ def _move_robot(robot: Robot, mod, plan: Path, goal_xy, goal_yaw, v_dt=0.12, yaw
     follow_tgt = take_row(plan.xy, look)
 
     tgt = torch.where(lanes(mod == 0, goal_xy), follow_tgt, goal_xy)
-    delta = tgt - robot.xy
-    dist = sqrt(delta[..., 0] * delta[..., 0] + delta[..., 1] * delta[..., 1])
-    step = torch.minimum(v_dt, dist)
-    move = torch.where((dist > 1e-6)[..., None],
-                       delta / torch.clamp(dist, min=1e-6)[..., None] * step[..., None],
-                       torch.zeros_like(delta))
-    new_xy = torch.where(lanes(mod == 3, delta), robot.xy, robot.xy + move)
-
-    heading = atan2(delta[..., 1], delta[..., 0])
-    desired = torch.where((mod == 1) | (mod == 2) | (dist <= 1e-6),
-                          torch.where(dist < 0.3, goal_yaw, heading), heading)
-    dyaw = atan2(sin(desired - robot.yaw), cos(desired - robot.yaw))
-    new_yaw = torch.where(mod == 3, robot.yaw,
-                          robot.yaw + torch.minimum(torch.maximum(dyaw, -yaw_rate), yaw_rate))
-    return Robot(xy=new_xy, yaw=wrap_angle(new_yaw), follow_i=ci.to(torch.int32))
+    f32 = dict(dtype=torch.float32, device=dev)
+    new_xy, new_yaw = _drive(tgt, robot.xy, robot.yaw, torch.as_tensor(mod, device=dev),
+                             goal_yaw, torch.as_tensor(v_dt, **f32),
+                             torch.as_tensor(yaw_rate, **f32))
+    return Robot(xy=new_xy, yaw=new_yaw, follow_i=ci.to(torch.int32))
 
 
 def step(state: EngineState, world: World, params: AosParams, s: Statics, *, v_dt=0.12):

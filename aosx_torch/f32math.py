@@ -11,10 +11,13 @@ symbols its object code calls):
 - ``erfinv_f32``: the chlo.erf_inv decomposition (Giles' single-precision
   polynomial on -log1p(-x^2)), its Horner steps fused;
 - ``sin_f32``, ``cos_f32``: glibc's sinf and cosf (XLA:CPU calls them), which
-  evaluate in f64 after a reduction by pi/2 and round once; |x| < 120 only.
+  evaluate in f64 after a reduction by pi/2 and round once; |x| < 120 only;
+- ``atan2_f32``: glibc's atan2f (XLA:CPU lowers an f32 atan2 to a call to
+  it), the fdlibm single-precision algorithm in f32 arithmetic, which is
+  not correctly rounded (1 ulp off on about 16 % of normal pairs).
 
 Each is held against ``jax`` on millions of inputs by
-tests/test_torch_orchards.py. The f64 steps that glibc's FMA build fuses are
+tests/test_torch_orchards.py and tests/test_torch_xla_f32.py. The f64 steps that glibc's FMA build fuses are
 left unfused here except in the reduction (kept exact as a double-double):
 elsewhere a fused step moves the f64 result by an ulp, which reaches the f32
 result about once in 2^29.
@@ -101,67 +104,170 @@ def erfinv_f32(u):
     return p * u
 
 
-# glibc's __sincosf_table: 2/pi scaled by 2^24, pi/2, the cosine
-# polynomial (negated in the second table) and the sine polynomial
+# glibc's __sincosf_table: 2/pi scaled by 2^24, pi/2 (and its Veltkamp
+# split), the cosine polynomial and the sine polynomial
 _HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")
 _HPI = float.fromhex("0x1.921FB54442D18p0")
+_HPI_HI = (134217729.0 * _HPI) - ((134217729.0 * _HPI) - _HPI)
+_HPI_LO = _HPI - _HPI_HI
 _COS = tuple(float.fromhex(v) for v in ("0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
                                         "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
 _SIN = tuple(float.fromhex(v) for v in ("-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
                                         "-0x1.994eb3774cf24p-13"))
-# the top 12 bits of |x|'s f32 encoding at which glibc switches branches
-_TOP12_PIO4, _TOP12_TINY, _TOP12_120 = 0x3F4, 0x398, 0x42F
+# |x| below which glibc returns x (sinf) and 1 (cosf); above 120 it takes
+# another reduction, which the port does not carry
+_SINCOS_TINY, _SINCOS_MAX = 2.0 ** -12, 120.0
+_TABLES = {}
 
 
-def _sinf_poly(x, x2, neg_cos, want_cos):
-    """glibc's sinf_poly in f64: the sine or (where ``want_cos``) the cosine
-    polynomial, the cosine's coefficients negated where ``neg_cos``."""
-    x3 = x * x2
-    sin = (x + x3 * _SIN[0]) + (x3 * x2) * (_SIN[1] + x2 * _SIN[2])
-    sgn = torch.where(neg_cos, -1.0, 1.0).to(torch.float64)
-    x4 = x2 * x2
-    c1 = sgn * _COS[0] + x2 * (sgn * _COS[1])
-    c2 = sgn * _COS[3] + x2 * (sgn * _COS[4])
-    cos = (c1 + x4 * (sgn * _COS[2])) + (x4 * x2) * c2
-    return torch.where(want_cos, cos, sin)
+def _table(values, like, dtype=None):
+    """A small constant table on ``like``'s device, made once a device."""
+    key = (values, like.device, dtype)
+    t = _TABLES.get(key)
+    if t is None:
+        t = _TABLES[key] = torch.tensor(values, dtype=dtype or like.dtype, device=like.device)
+    return t
 
 
-def _two_split(a):
-    t = 134217729.0 * a
-    hi = t - (t - a)
-    return hi, a - hi
+def _lookup(values, idx, like):
+    """values[idx] for an index tensor of any shape, 0-d included, with no
+    host read (``torch.take``)."""
+    return torch.take(_table(values, like), idx)
 
 
-def _sincos_f32(y, cosine: bool):
-    top = (y.view(torch.int32) >> 20) & 0x7FF
-    if bool((top >= _TOP12_120).any()):
+def sincos_f32(y, check: bool = True):
+    """(glibc's sinf(y), cosf(y)) for f32 y, |y| < 120: what XLA:CPU calls
+    for an f32 sine and cosine, bit for bit. In f64 as glibc evaluates:
+    the reduction y - n pi/2 with the product's rounding error kept (glibc's
+    FMA build), then the sine and the cosine polynomial of the reduced
+    argument, one of them each output's by the parity of n, the cosine's
+    coefficients negated where n & 2 (exactly a negation of its value).
+    Below pi/4 glibc's own branch is this one with n = 0; below 2^-12 sinf
+    returns y and cosf 1. ``check`` raises (a host read) on |y| >= 120: a
+    caller whose domain is bounded by construction passes False and says
+    why."""
+    if check and bool((y.abs() >= _SINCOS_MAX).any()):
         raise ValueError("sin_f32/cos_f32 cover |x| < 120 only")
     x = y.double()
-    # the reduction x - n * pi/2, the product's error kept, as glibc's FMA
-    n = ((x * _HPI_INV).to(torch.int32) + 0x800000) >> 24
-    nd = n.to(torch.float64)
+    n = ((x * _HPI_INV).to(torch.int64) + 0x800000) >> 24      # |x * 2^24 / (pi / 2)| < 2^31
+    nd = n.double()         # |n| <= 77: its Veltkamp split is (nd, 0)
     p = nd * _HPI
-    nh, nl = _two_split(nd)
-    hh, hl = _two_split(torch.full_like(nd, _HPI))
-    err = ((nh * hh - p) + nh * hl + nl * hh) + nl * hl
+    err = (nd * _HPI_HI - p) + nd * _HPI_LO
     s = x - p
     b = s - x
     r = s + (((x - (s - b)) + (-p - b)) - err)
-    sign = torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=torch.float64, device=y.device)[(n & 3).long()]
+    xs = r * _lookup((1.0, -1.0, -1.0, 1.0), n & 3, r)
+    x2 = r * r
+    x3 = xs * x2
+    sin = (xs + x3 * _SIN[0]) + (x3 * x2) * (_SIN[1] + x2 * _SIN[2])
+    x4 = x2 * x2
+    cos = ((_COS[0] + x2 * _COS[1]) + x4 * _COS[2]) + (x4 * x2) * (_COS[3] + x2 * _COS[4])
+    cos = cos * (1 - (n & 2))
     odd = (n & 1) == 1
-    big = _sinf_poly(r * sign, r * r, (n & 2) != 0, ~odd if cosine else odd)
-    false = torch.zeros_like(odd)
-    small = _sinf_poly(x, x * x, false, ~false if cosine else false)
-    tiny = torch.ones_like(x) if cosine else x
-    out = torch.where(top < _TOP12_PIO4, torch.where(top < _TOP12_TINY, tiny, small), big)
-    return out.float()
+    tiny = y.abs() < _SINCOS_TINY
+    return (torch.where(tiny, y, torch.where(odd, cos, sin).float()),
+            torch.where(tiny, 1.0, torch.where(odd, sin, cos).float()))
 
 
-def sin_f32(x):
-    """glibc's sinf (what XLA:CPU calls for an f32 sine), for |x| < 120."""
-    return _sincos_f32(x, False)
+def sin_f32(x, check: bool = True):
+    """glibc's sinf (what XLA:CPU calls for an f32 sine), for |x| < 120
+    (``sincos_f32``)."""
+    return sincos_f32(x, check)[0]
 
 
-def cos_f32(x):
-    """glibc's cosf (what XLA:CPU calls for an f32 cosine), for |x| < 120."""
-    return _sincos_f32(x, True)
+def cos_f32(x, check: bool = True):
+    """glibc's cosf (what XLA:CPU calls for an f32 cosine), for |x| < 120
+    (``sincos_f32``)."""
+    return sincos_f32(x, check)[1]
+
+
+# glibc's (fdlibm's) atanf: the argument's reduction about 0.5, 1, 1.5 and
+# infinity, t = (a x - b) / (a + b x) with (a, b) by interval (1, 0 gives x
+# itself; 0, 1 gives -1/x), atan of the reduction points split in high and
+# low parts (0 and 0 below 7/16, where hi - ((rs - lo) - r) is r - rs), and
+# the polynomial's coefficients, the odd- and the even-indexed chain side by
+# side (pairs, the even chain one step longer)
+# (7/16, 11/16, 19/16, 39/16, 2^25, then NaN: intervals 5 and 6 are replaced)
+_ATAN_BOUNDS = (0x3EE00000, 0x3F300000, 0x3F980000, 0x401C0000, 0x4C000000, 0x7F800001)
+_ATAN_A = (1.0, 2.0, 1.0, 1.0, 0.0, 0.0, 0.0)
+_ATAN_B = (0.0, 1.0, 1.0, 1.5, 1.0, 1.0, 1.0)
+_ATANHI = (0.0, 4.6364760399e-01, 7.8539812565e-01, 9.8279368877e-01, 1.5707962513e+00,
+           1.5707962513e+00, 1.5707962513e+00)
+_ATANLO = (0.0, 5.0121582440e-09, 3.7748947079e-08, 3.4473217170e-08, 7.5497894159e-08,
+           7.5497894159e-08, 7.5497894159e-08)
+_AT = tuple(float(np.float32(v)) for v in (
+    3.3333334327e-01, -2.0000000298e-01, 1.4285714924e-01, -1.1111110449e-01, 9.0908870101e-02,
+    -7.6918758452e-02, 6.6610731184e-02, -5.8335702866e-02, 4.9768779427e-02, -3.6531571299e-02,
+    1.6285819933e-02))
+_AT_CHAINS = tuple((_AT[i], _AT[i - 1]) for i in (10, 8, 6, 4, 2))
+
+
+def _f32(v):
+    """v rounded to f32, as a Python float (the constants of f32 code)."""
+    return float(np.float32(v))
+
+
+_ATAN_INF = _f32(np.float32(_ATANHI[4]) + np.float32(_ATANLO[4]))
+_PI_O_4, _PI_O_2 = _f32(7.8539818525e-01), _f32(1.5707963705e+00)
+_PI, _PI_LO = _f32(3.1415927410e+00), _f32(-8.7422776573e-08)
+_3PI_O_4 = _f32(np.float32(3.0) * np.float32(_PI_O_4))
+_FLT_MIN = 2.0 ** -126
+# [x class * 4 + y class][x sign bit] -> |atan2|, the classes 0 zero,
+# 1 finite (subnormals included), 2 infinite, 3 NaN: y zero gives 0 or pi,
+# x zero (y not) and y infinite (x finite) pi/2, x infinite 0 or pi, both
+# infinite pi/4 or 3 pi/4, a NaN NaN; (finite, finite) is not special
+_NAN = float("nan")
+_ATAN2_SPECIAL = (
+    0.0, _PI, _PI_O_2, _PI_O_2, _PI_O_2, _PI_O_2, _NAN, _NAN,            # x zero
+    0.0, _PI, 0.0, 0.0, _PI_O_2, _PI_O_2, _NAN, _NAN,                     # x finite
+    0.0, _PI, 0.0, _PI, _PI_O_4, _3PI_O_4, _NAN, _NAN,                    # x infinite
+    _NAN, _NAN, _NAN, _NAN, _NAN, _NAN, _NAN, _NAN)                       # x NaN
+
+
+def _atanf_abs(t):
+    """glibc's atanf of t >= 0 (inf and NaN included), in f32 operations:
+    t reduced by interval, atan(c) + atan(reduced) from the odd and even
+    halves of the polynomial; from 2^25 (infinity included) pi/2; NaN
+    stays NaN. (Below 2^-29 glibc returns t, which r - rs is there: rs is
+    under a millionth of t's ulp.)"""
+    it = t.view(torch.int32)
+    k = torch.bucketize(it, _table(_ATAN_BOUNDS, it), right=True)    # interval 0..6
+    a, b = _lookup(_ATAN_A, k, t), _lookup(_ATAN_B, k, t)
+    r = (a * t - b) / (a + b * t)
+    z = r * r
+    w = z * z
+    def pair(i):
+        return _table(_AT_CHAINS[i], t).reshape((2,) + (1,) * t.dim())
+
+    s = pair(0) * w + pair(1)             # [2, ...]: the odd and the even chain
+    for i in (2, 3, 4):
+        s = s * w + pair(i)
+    rs = r * (z * (s[0] * w + _AT[0]) + w * s[1])
+    hi, lo = _lookup(_ATANHI, k, t), _lookup(_ATANLO, k, t)
+    return torch.where(k == 5, _ATAN_INF, hi - ((rs - lo) - r))
+
+
+def atan2_f32(y, x):
+    """glibc's atan2f (what XLA:CPU calls for an f32 atan2), bit for bit,
+    for every pair of f32 values, signed zeros, infinities and NaN
+    included: fdlibm's e_atan2f.c over ``_atanf_abs`` of |y / x| (of y
+    where x is 1) and its special cases, each written as the magnitude it
+    gives before y's sign. (Its overrides for |y / x| beyond 2^+-60 give the
+    bits the general path gives there; they only spare glibc an underflow.)
+    As under XLA:CPU (FTZ and DAZ set), the quotient reads subnormal
+    operands as zeros and flushes a subnormal result, so a pair of
+    subnormals gives NaN, as ``jnp.arctan2`` does."""
+    hx, hy = x.view(torch.int32), y.view(torch.int32)
+    ix, iy = hx & 0x7FFFFFFF, hy & 0x7FFFFFFF
+    q = (y * (iy >= 0x800000)) / (x * (ix >= 0x800000))
+    q = q * (q.abs() >= _FLT_MIN)
+    z = _atanf_abs(torch.where(hx == 0x3F800000, y, q).abs())
+    xneg = hx < 0
+    mag = torch.where(xneg, _PI - (z - _PI_LO), z)
+    # glibc's special cases, NaN's included, by the class of each operand and
+    # x's sign: the magnitudes (a NaN is NaN, glibc's x + y)
+    classes = _table((1, 0x7F800000, 0x7F800001), ix)
+    code = (torch.bucketize(ix, classes, right=True) * 4
+            + torch.bucketize(iy, classes, right=True))
+    mag = torch.where(code != 5, _lookup(_ATAN2_SPECIAL, code * 2 + xneg, z), mag)
+    return torch.copysign(mag, y)

@@ -4,12 +4,15 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from .f32math import atan2_f32
 from .ops import lanes, take
 from .types import Polygon
 
 TWO_PI_F32 = torch.tensor(2 * math.pi, dtype=torch.float32).item()
+INV_TWO_PI_F32 = float(np.float32(1.0) / np.float32(TWO_PI_F32))
 
 
 def point_in_polygon(px, py, poly: Polygon):
@@ -73,24 +76,18 @@ def normalized_angle(a):
 
 
 def wrap_angle(a):
-    """Full wrap to [-pi, pi]; bitwise no-op for |a| <= pi. The divisor is
-    a tensor: CUDA divides by a Python scalar as a multiply by its
-    reciprocal, which rounds differently."""
-    two_pi = torch.full_like(a, TWO_PI_F32)
-    return a - two_pi * torch.round(a / two_pi)
+    """Full wrap to [-pi, pi]; bitwise no-op for |a| <= pi. As XLA:CPU
+    compiles the reference's ``a - 2pi * round(a / 2pi)`` under jit: the
+    division by the constant becomes a product with its f32 reciprocal, and
+    the subtraction a fused multiply-add, here a - k 2pi in f64 rounded
+    once (k 2pi is exact in f64, and a - k 2pi too: k 2pi lies within a
+    factor 2 of a, or k is 0)."""
+    k = torch.round(a * INV_TWO_PI_F32)
+    return (a.double() - k.double() * TWO_PI_F32).float()
 
 
 def atan2(y, x):
-    """f32 atan2 evaluated in f64 and rounded once, so that CPU and CUDA
-    (whose f32 libraries differ in the last bit) agree."""
-    return torch.atan2(y.double(), x.double()).float()
+    """f32 atan2 as XLA:CPU evaluates it (glibc's atan2f,
+    ``f32math.atan2_f32``), the same bits on the CPU and the card."""
+    return atan2_f32(y, x)
 
-
-def sin(a):
-    """f32 sin evaluated in f64 and rounded once (see atan2)."""
-    return torch.sin(a.double()).float()
-
-
-def cos(a):
-    """f32 cos evaluated in f64 and rounded once (see atan2)."""
-    return torch.cos(a.double()).float()

@@ -13,6 +13,7 @@ leading axes are lanes (the worlds of a group, the axes ``aosx`` maps with
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -218,31 +219,105 @@ def set_at(arr, i, value, nb: int):
     return torch.where(hot.reshape(hot.shape + (1,) * T), value, arr)
 
 
-def sum_fixed(x):
-    """Sum over the last axis in one fixed order, a pairwise tree over the
-    axis padded with zeros to a power of two, whatever the leading shape
-    and device (torch.sum's order depends on both on the card). The +0.0
-    added last makes an all -0.0 sum +0.0, as torch.sum gives."""
-    n = x.shape[-1]
-    m = 1 << max(n - 1, 0).bit_length()
-    x = torch.cat([x, x.new_zeros(x.shape[:-1] + (m - n,))], dim=-1)
-    while x.shape[-1] > 1:
-        h = x.shape[-1] // 2
-        x = x[..., :h] + x[..., h:]
-    return x[..., 0] + 0.0
+def _sum_sequential(x):
+    """0 + x[..., 0] + x[..., 1] + ... over the last axis, one add at a time."""
+    acc = torch.zeros_like(x[..., 0])
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
 
 
-def cumsum_fixed(x):
-    """Inclusive prefix sums over the last axis in one fixed order
-    (Hillis-Steele: log2 n rounds of a shifted add), whatever the leading
-    shape and device; torch.cumsum on the card scans one row (CUB) in
-    another order than many rows."""
+# XLA:CPU's reduction rewrite: a reduced axis longer than this is summed in
+# windows of this many elements, recursively
+XLA_REDUCE_WINDOW = 32
+
+
+def sum_xla(x):
+    """Sum over the last axis as XLA:CPU sums an f32 ``jnp.sum``, bit for
+    bit: while the axis is longer than 32 it is padded with zeros to whole
+    windows of 32 (half of the padding in front, the larger half behind)
+    and each window is summed sequentially from 0; the last <= 32 partial
+    sums are then added sequentially from 0. The same order for any leading
+    shape and device, and for the axis reduced alone, along axis 0 or under
+    ``jax.vmap`` (tests/test_torch_xla_f32.py); it does not depend on the
+    host's vector ISA (the same bits under ``--xla_cpu_max_isa=SSE4_2``,
+    ``AVX2`` and AVX-512)."""
+    w = XLA_REDUCE_WINDOW
+    while x.shape[-1] > w:
+        n = x.shape[-1]
+        nb = -(-n // w)
+        pad = nb * w - n
+        lead = x.shape[:-1]
+        x = torch.cat([x.new_zeros(lead + (pad // 2,)), x, x.new_zeros(lead + (pad - pad // 2,))],
+                      dim=-1)
+        x = _sum_sequential(x.reshape(lead + (nb, w)))
+    return _sum_sequential(x)
+
+
+# XLA:CPU's rewrite of a cumulative sum: blocks of this many elements
+XLA_SCAN_BLOCK = 16
+
+
+def cumsum_xla(x):
+    """Inclusive prefix sums over the last axis as XLA:CPU evaluates an f32
+    ``jnp.cumsum``, bit for bit: the axis padded with zeros behind to whole
+    blocks of 16, a sequential scan inside each block (from 0), the block
+    totals scanned the same way (recursively), and each block's exclusive
+    prefix added to its entries. The same order for any leading shape and
+    device (torch.cumsum on the card orders by shape); the same bits as
+    ``jnp.cumsum`` along any axis and under ``jax.vmap``
+    (tests/test_torch_xla_f32.py)."""
+    b = XLA_SCAN_BLOCK
     n = x.shape[-1]
-    k = 1
-    while k < n:
-        x = torch.cat([x[..., :k], x[..., k:] + x[..., :-k]], dim=-1)
-        k *= 2
-    return x
+    lead = x.shape[:-1]
+    nb = max(-(-n // b), 1)
+    blocks = torch.cat([x, x.new_zeros(lead + (nb * b - n,))], dim=-1).reshape(lead + (nb, b))
+    cols = [blocks[..., 0] + 0.0]
+    for j in range(1, b):
+        cols.append(cols[-1] + blocks[..., j])
+    y = torch.stack(cols, dim=-1)
+    if nb > 1:
+        inc = cumsum_xla(y[..., -1])
+        y = y + torch.cat([inc.new_zeros(lead + (1,)), inc[..., :-1]], dim=-1)[..., None]
+    return y.reshape(lead + (nb * b,))[..., :n]
+
+
+def card_graph(fn):
+    """``fn`` of tensors replayed on the card from a CUDA graph, captured at
+    its first call for each device, shape and dtype of its arguments: the
+    same kernels, so the same bits, in one launch, where a chain of dozens
+    of small launches would cost the host far more than the card spends on
+    them. The arguments are copied into the graph's inputs and its outputs
+    cloned. fn must read nothing from the host once it has run once (its
+    constant tables are made then). Arguments on the CPU, or on more than
+    one device, run fn as it is."""
+    graphs = {}
+
+    @functools.wraps(fn)
+    def run(*args):
+        dev = args[0].device
+        if dev.type != "cuda" or any(a.device != dev for a in args):
+            return fn(*args)
+        key = tuple((a.shape, a.dtype) for a in args) + (dev,)
+        entry = graphs.get(key)
+        if entry is None:
+            static = [a.clone() for a in args]
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                fn(*static)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = fn(*static)
+            entry = graphs[key] = (graph, static, out)
+        graph, static, out = entry
+        for s, a in zip(static, args):
+            s.copy_(a)
+        graph.replay()
+        return tuple(o.clone() for o in out) if isinstance(out, tuple) else out.clone()
+
+    return run
 
 
 def compact_take(vals, indices, fill):
@@ -270,24 +345,40 @@ def chunk_rows(rows: int, lanes_: int, floor: int = 64) -> int:
     return max(min(rows, floor), rows // max(lanes_, 1))
 
 
-def fma(a, b, c):
-    """f32 a * b + c rounded once, as a fused multiply-add. XLA:CPU
-    contracts many of aosx's a*b + c expressions this way; the port uses it
-    where the results must agree, and CUDA's __fmaf_rn gives the same bits.
-
-    The f64 product of two f32 values is exact. The f64 sum is made
-    round-to-odd (TwoSum gives its rounding error e; when e != 0 the sum is
-    truncated toward zero and its last bit set), and rounding a 53-bit
-    round-to-odd value to 24 bits equals rounding the exact value once
-    (Boldo and Melquiond), where plain f64 rounding could round twice."""
-    p = a.double() * b.double()
-    c = c.double()
+def _round_odd_f32(p, c):
+    """The exact sum of p (f64, an exact product of two f32 values) and c
+    (f32) rounded once to f32. The f64 sum s is made round-to-odd: TwoSum
+    gives its rounding error e, and where e != 0 s steps one ulp toward
+    zero if the exact sum lies there and its last bit is set. Rounding a
+    53-bit round-to-odd value to 24 bits equals rounding the exact value
+    once (Boldo and Melquiond), where plain f64 rounding could round twice.
+    An infinite or NaN s has a NaN e and is kept."""
     s = p + c
     bb = s - p
     e = (p - (s - bb)) + (c - bb)
-    inexact = (e != 0) & torch.isfinite(s)
-    t = torch.where(inexact & ((e < 0) != (s < 0)), torch.nextafter(s, torch.zeros_like(s)), s)
-    return torch.where(inexact, (t.view(torch.int64) | 1).view(torch.float64), s).float()
+    inexact = e.abs() > 0
+    # e and s of opposite signs (their product neither underflows nor
+    # overflows for sums of f32 products and f32 values)
+    toward_zero = (e * s < 0).long()
+    return ((s.view(torch.int64) - toward_zero) | inexact).view(torch.float64).float()
+
+
+def fma(a, b, c):
+    """f32 a * b + c rounded once, as a fused multiply-add. XLA:CPU
+    contracts many of aosx's a*b + c expressions this way; the port uses it
+    where the results must agree, and CUDA's __fmaf_rn gives the same bits:
+    the f64 product of two f32 values is exact, and the sum is rounded once
+    (``_round_odd_f32``)."""
+    return _round_odd_f32(a.double() * b, c)
+
+
+def norm2(v):
+    """|v| of 2-vectors v [..., 2] as XLA:CPU evaluates the reference's
+    ``jnp.sqrt(jnp.sum(v ** 2, axis=-1))``: its two-term reduction, fused
+    with the squares, adds v1^2 to v0^2 in one multiply-add,
+    sqrt(fma(v1, v1, v0 * v0)), correctly rounded."""
+    v1 = v[..., 1].double()
+    return sqrt(_round_odd_f32(v1 * v1, v[..., 0] * v[..., 0]))
 
 
 def sqrt(x):

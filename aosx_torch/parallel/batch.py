@@ -48,7 +48,7 @@ import torch
 from .. import engine, prng, tree
 from ..config import AosParams, Statics
 from ..convert import to_numpy
-from ..ops import sqrt, sum_fixed
+from ..ops import norm2, sum_xla
 from ..orchards import OrchardSpec, make_orchard
 from ..plan import plancache
 from ..types import PointCloud, Polygon
@@ -90,10 +90,6 @@ def _i32(v, device):
     return torch.tensor(v, dtype=torch.int32, device=device)
 
 
-def _norm(xy):
-    return sqrt(xy[..., 0] * xy[..., 0] + xy[..., 1] * xy[..., 1])
-
-
 def _invalidate_flagged(summary, s: Statics):
     """With exact_fallbacks=False the overflow-correcting fallbacks are
     skipped, so a guard-flagged lane may carry degraded results: force it to
@@ -110,9 +106,9 @@ def _invalidate_flagged(summary, s: Statics):
 
 def rollout_summary(final, metrics, s: Statics):
     """Small per-orchard result from an episode's stacked per-step metrics
-    ([n_steps, *B, ...] for lanes B). travel sums a lane's segments in one
-    fixed order (``ops.sum_fixed``), so a lane's record is the same bits
-    alone or beside others, on every device."""
+    ([n_steps, *B, ...] for lanes B). travel sums a lane's segments in
+    XLA:CPU's order for ``jnp.sum`` (``ops.sum_xla``), so a lane's record
+    is the reference's bits, alone or beside others, on every device."""
     done = metrics["completed"]
     n = done.shape[0]
     dev = done.device
@@ -127,8 +123,8 @@ def rollout_summary(final, metrics, s: Statics):
         completed=final.mission.exploration_completed,
         steps_to_complete=first_done,
         final_status=metrics["status"][-1],
-        travel_distance=sum_fixed(_norm(seg).movedim(0, -1)),
-        final_dist_to_origin=_norm(final.robot.xy),
+        travel_distance=sum_xla(norm2(seg).movedim(0, -1)),
+        final_dist_to_origin=norm2(final.robot.xy),
         waypoints=final.wp.count,
         guards=guards,
         feasible=torch.full(done.shape[1:], -1, dtype=torch.int32, device=dev),
@@ -202,7 +198,7 @@ def _fold(acc, m, tick):
     tick's index in its episode (i32, per lane). travel adds one segment a
     tick, sequentially, in f32."""
     xy = m["xy"]
-    seg = _norm(xy - acc["last_xy"])
+    seg = norm2(xy - acc["last_xy"])
     return dict(
         first_done=torch.minimum(acc["first_done"],
                                  torch.where(m["completed"], tick, acc["first_done"])),
@@ -259,7 +255,7 @@ def rollout_finish(st, acc, s: Statics):
         steps_to_complete=acc["first_done"],
         final_status=acc["last_status"],
         travel_distance=acc["travel"],
-        final_dist_to_origin=_norm(st.robot.xy),
+        final_dist_to_origin=norm2(st.robot.xy),
         waypoints=st.wp.count,
         guards=acc["guards"],
         feasible=acc["feasible"],

@@ -16,7 +16,7 @@ import torch
 
 from ..config import AosParams, Statics
 from ..guards import GUARD_DEGREE_CAP
-from ..ops import gather_last, lanes, sqrt, sum_fixed, take, take_row, while_loop
+from ..ops import gather_last, lanes, norm2, sum_xla, take, take_row, while_loop
 from ..types import GvdGraph
 
 INF = 3.4e38
@@ -70,10 +70,6 @@ def cost_matrix(graph: GvdGraph, s: Statics) -> CsrCosts:
                     guards=torch.where(overflow, GUARD_DEGREE_CAP, zero))
 
 
-def _norm2(v):
-    return sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
-
-
 def _world_axes(costs: CsrCosts) -> int:
     """Number of leading batch axes of a world's leaves."""
     return costs.idx.dim() - 2
@@ -108,7 +104,7 @@ def astar(costs: CsrCosts, nodes, node_valid, start, goal, weight, s: Statics,
     inf = torch.tensor(INF, dtype=torch.float32, device=dev)
     start = start.long()
     goal = torch.as_tensor(goal, device=dev).long().expand(B)
-    h = _norm2(nodes - take(nodes, goal, nw).unsqueeze(-2)) * lanes(weight, goal[..., None])
+    h = norm2(nodes - take(nodes, goal, nw).unsqueeze(-2)) * lanes(weight, goal[..., None])
 
     g0 = torch.full(B + (K, N), INF, dtype=torch.float32, device=dev)
     g0.scatter_(-1, start[..., None], 0.0)
@@ -189,9 +185,9 @@ def astar(costs: CsrCosts, nodes, node_valid, start, goal, weight, s: Statics,
 def path_cost(costs: CsrCosts, nodes, path, path_len):
     """calculatePathCost (cpp:935-973): edge costs along consecutive path
     pairs, euclidean where no edge matches. path [*B, ..., P], path_len
-    [*B, ...], the world's leaves with the batch axes B. Summed in f64 in
-    one fixed order and rounded once, so every device and batch shape gives
-    one value."""
+    [*B, ...], the world's leaves with the batch axes B. Summed in f32 in
+    XLA:CPU's order for ``jnp.sum`` (``ops.sum_xla``), the same on every
+    device and batch shape."""
     nw = _world_axes(costs)
     P = path.shape[-1]
     a = path[..., :-1]
@@ -205,16 +201,16 @@ def path_cost(costs: CsrCosts, nodes, path, path_len):
     has = match.any(dim=-1)
     slot = match.to(torch.uint8).argmax(dim=-1)
     c = take(costs.cost, ai, nw).gather(-1, slot[..., None]).squeeze(-1)
-    eu = _norm2(take(nodes, bi, nw) - take(nodes, ai, nw))
+    eu = norm2(take(nodes, bi, nw) - take(nodes, ai, nw))
     c = torch.where(has, c, eu)
-    return sum_fixed(torch.where(ok, c, 0.0).double()).float()
+    return sum_xla(torch.where(ok, c, 0.0))
 
 
 def k_nearest_nodes(nodes, node_valid, point, k: int):
     """findKNearestNodes (cpp:914-932): k nearest by distance, ties to the
     lower index (a stable sort, as lax.top_k orders ties). point [*B, 2]
     and the nodes of the world of each lane give [*B, k]."""
-    d = _norm2(nodes - point.unsqueeze(-2))
+    d = norm2(nodes - point.unsqueeze(-2))
     d = torch.where(node_valid, d, INF)
     return torch.argsort(d, dim=-1, stable=True)[..., :k].to(torch.int32)
 
@@ -233,7 +229,7 @@ def plan_between(costs: CsrCosts, nodes, node_valid, start_point, goal_node,
                                params.heuristic_weight, s, enabled=enabled)
     usable = found & (lens > 1) & (cands != goal_node[..., None])
     cost = (path_cost(costs, nodes, paths, lens)
-            + _norm2(start_point.unsqueeze(-2) - take(nodes, cands, nw)))
+            + norm2(start_point.unsqueeze(-2) - take(nodes, cands, nw)))
     cost = torch.where(usable, cost, INF)
     best = torch.argmin(cost, dim=-1)
     any_ok = usable.any(dim=-1)

@@ -5,6 +5,14 @@ Recursive regression splitting (max 4 segments; 10 when the goal is the
 origin), 5 cm interpolation, backtracking-point removal. The per-split
 regression sums come from prefix sums; the recursion is an explicit DFS
 stack (left segment first, as the reference calls it).
+
+The f32 arithmetic is XLA:CPU's for the jitted reference (``jax.lax.map``
+of ``linearize``, as ``build_plan_cache`` runs it, and ``engine.step``),
+bit for bit: the prefix sums in its blocked scan (``ops.cumsum_xla``),
+and a fused multiply-add (``ops.fma``) wherever it contracts one, read
+from its optimized HLO and held against it
+(tests/test_torch_linearize_parity.py). In a - b where both are products
+it fuses the first: fma(p, q, -(r*s)).
 """
 
 from __future__ import annotations
@@ -13,7 +21,7 @@ import torch
 
 from ..config import AosParams, Statics
 from ..geom import atan2
-from ..ops import cumsum_fixed, lanes, scatter_set, set_at, sqrt, take, take_row, while_loop
+from ..ops import cumsum_xla, fma, lanes, norm2, scatter_set, set_at, take, take_row, while_loop
 from ..types import Path
 
 SEG_CAP = 1024  # interpolated points cap per segment (51 m at 5 cm)
@@ -21,61 +29,73 @@ _FAR = 3.4e38
 
 
 def _prefix(v):
-    """[..., 0, v0, v0+v1, ...] in f32 over the last axis, accumulated in
-    f64 in one fixed order (``ops.cumsum_fixed``), so that every device and
-    batch shape gives the same sums."""
-    c = cumsum_fixed(v.double()).float()
+    """[..., 0, v0, v0+v1, ...] in f32 over the last axis, in XLA:CPU's
+    order for ``jnp.cumsum`` (``ops.cumsum_xla``), the same on every device
+    and batch shape."""
+    c = cumsum_xla(v)
     return torch.cat([torch.zeros(v.shape[:-1] + (1,), dtype=torch.float32, device=v.device), c],
                      dim=-1)
 
 
 def _fit_tables(xy, count):
     """Prefix sums giving (slope, intercept, mse) of any [s, e] in O(1):
-    [*B, 5, P + 1] rows sx, sy, sxy, sxx, syy, one scan for all five."""
+    [*B, 5, P + 1] rows sy, sx, sxy, sxx, syy, one scan for all five."""
     m = torch.arange(xy.shape[-2], device=xy.device) < count[..., None]
     x = torch.where(m, xy[..., 0], 0.0)
     y = torch.where(m, xy[..., 1], 0.0)
-    return _prefix(torch.stack([x, y, x * y, x * x, y * y], dim=-2))
+    return _prefix(torch.stack([y, x, x * y, x * x, y * y], dim=-2))
 
 
 def _linreg(tab, s_, e_):
     """y = a x + b over inclusive [s, e] (cpp:50-96), for s_ and e_ of the
-    table's batch axes B and more axes J. Returns (a, b, mse) [*B, *J]."""
+    table's batch axes B and more axes J. Returns (a, b, mse) [*B, *J]. The
+    slope's numerator and denominator, n sxy - sx sy and n sxx - sx sx, are
+    one ``fma`` over the table's rows (sxy, sxx) and (sy, sx)."""
     n = (e_ - s_ + 1).to(torch.float32)
     B = tab.shape[:-2]
     J = s_.shape[len(B):]
+    k = len(B)
 
     def rows(i):
         return tab.gather(-1, i.long().reshape(B + (1, -1)).expand(B + (5, -1)))
 
     seg = (rows(e_ + 1) - rows(s_)).reshape(B + (5,) + J)
-    sx, sy, sxy, sxx, syy = seg.unbind(len(B))
-    den = n * sxx - sx * sx
+    sy, sx, sxy, sxx, syy = seg.unbind(k)
+    num, den = fma(n.unsqueeze(k), seg.narrow(k, 2, 2),
+                   -(sx.unsqueeze(k) * seg.narrow(k, 0, 2))).unbind(k)
     degenerate = torch.abs(den) < 1e-9
     nn = torch.clamp(n, min=1.0)
     a = torch.where(degenerate, 0.0,
-                    (n * sxy - sx * sy) / torch.where(degenerate, torch.ones_like(den), den))
-    b = torch.where(degenerate, sy / nn, (sy - a * sx) / nn)
-    err = (syy - 2 * a * sxy - 2 * b * sy + a * a * sxx + 2 * a * b * sx + n * b * b) / nn
+                    num / torch.where(degenerate, torch.ones_like(den), den))
+    b = torch.where(degenerate, sy / nn, fma(-a, sx, sy) / nn)
+    # (syy - 2a sxy - 2b sy + a^2 sxx + 2ab sx + n b^2) / n, one FMA a term
+    err = fma(-(2 * a), sxy, syy)
+    err = fma(-(2 * b), sy, err)
+    err = fma(a * a, sxx, err)
+    err = fma(2 * a * b, sx, err)
+    err = fma(n * b, b, err) / nn
     short = (e_ <= s_) | (e_ - s_ < 2)
     return (torch.where(short, 0.0, a), torch.where(short, 0.0, b),
             torch.where(short, 0.0, torch.clamp(err, min=0.0)))
 
 
-def _best_split(tab, s_, e_, P):
-    """findBestSplitPoint (cpp:99-125): argmin over sp in (s, e) of the
-    count-weighted mean of the two segment MSEs, per lane."""
+def _fit_and_split(tab, s_, e_, P):
+    """The line of [s, e] and findBestSplitPoint (cpp:99-125), the argmin
+    over sp in (s, e) of the count-weighted mean of the MSEs of [s, sp] and
+    [sp, e], per lane: one ``_linreg`` over the 1 + 2P ranges. Returns (a,
+    b, split)."""
     sp = torch.arange(P, dtype=torch.int32, device=s_.device)
     lo, hi = s_[..., None], e_[..., None]
     shape = s_.shape + (P,)
-    _, _, err1 = _linreg(tab, lo.expand(shape), sp.expand(shape))
-    _, _, err2 = _linreg(tab, sp.expand(shape), hi.expand(shape))
+    a, b, err = _linreg(tab, torch.cat([lo, lo.expand(shape), sp.expand(shape)], dim=-1),
+                        torch.cat([hi, sp.expand(shape), hi.expand(shape)], dim=-1))
+    err1, err2 = err[..., 1:P + 1], err[..., P + 1:]
     n1 = (sp - lo + 1).to(torch.float32)
     n2 = (hi - sp + 1).to(torch.float32)
-    tot = (err1 * n1 + err2 * n2) / torch.clamp(n1 + n2, min=1.0)
+    tot = fma(err1, n1, err2 * n2) / torch.clamp(n1 + n2, min=1.0)
     tot = torch.where((sp > lo) & (sp < hi), tot, _FAR)
     best = torch.argmin(tot, dim=-1).to(torch.int32)
-    return torch.where(e_ <= s_ + 1, e_, best)
+    return a[..., 0], b[..., 0], torch.where(e_ <= s_ + 1, e_, best)
 
 
 def _find_breakpoints(xy, count, max_segments, params, P):
@@ -99,12 +119,11 @@ def _find_breakpoints(xy, count, max_segments, params, P):
         top = torch.clamp(sp_ - 1, min=0)
         s_ = at(stack_s, top)
         e_ = at(stack_e, top)
-        a, b, _ = _linreg(tab, s_, e_)
+        a, b, split = _fit_and_split(tab, s_, e_, P)
         interior = (idxs > s_[..., None]) & (idxs < e_[..., None]) & (idxs < count[..., None])
-        dev_ = torch.abs(xy[..., 1] - (a[..., None] * xy[..., 0] + b[..., None]))
+        dev_ = torch.abs(xy[..., 1] - fma(a[..., None], xy[..., 0], b[..., None]))
         max_dev = torch.where(interior, dev_, -1.0).max(dim=-1).values
         skip = (e_ <= s_) | (max_dev < max_dev_ok) | (nbp >= max_segments - 1)
-        split = _best_split(tab, s_, e_, P)
         # an empty path's split is -1, which indexes the last point, as
         # a negative index does in both packages
         si = torch.where(split < 0, split + P, split)
@@ -239,7 +258,7 @@ def linearize(path: Path, params: AosParams, s: Statics) -> Path:
     p1 = take(xy, torch.clamp(s_idx, min=0), nb)
     p2 = take(xy, torch.clamp(e_idx, min=0), nb)
     d = p2 - p1
-    dist = sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+    dist = norm2(d)
     yaw = atan2(d[..., 1], d[..., 0])
     degen = dist < 1e-6
     spacing = lanes(params.linearize_spacing, dist)
@@ -269,8 +288,8 @@ def linearize(path: Path, params: AosParams, s: Statics) -> Path:
     t_q = kq_i.to(torch.float32) * lanes(params.linearize_spacing, kq_i) \
         / torch.clamp(pick(dist), min=1e-9)
     is_end_q = valid_q & (kq_i == pick(n_mid) + 1)
-    px_q = torch.where(is_end_q, pick(p2[..., 0]), pick(p1[..., 0]) + t_q * pick(d[..., 0]))
-    py_q = torch.where(is_end_q, pick(p2[..., 1]), pick(p1[..., 1]) + t_q * pick(d[..., 1]))
+    px_q = torch.where(is_end_q, pick(p2[..., 0]), fma(t_q, pick(d[..., 0]), pick(p1[..., 0])))
+    py_q = torch.where(is_end_q, pick(p2[..., 1]), fma(t_q, pick(d[..., 1]), pick(p1[..., 1])))
     oxy = torch.where(valid_q[..., None], torch.stack([px_q, py_q], dim=-1), 0.0)
     oyaw = torch.where(valid_q, pick(yaw), 0.0)
     oseg = torch.where(valid_q, pick(seg_i.expand(B + (NSEG,))), NSEG)

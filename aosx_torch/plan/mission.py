@@ -22,14 +22,10 @@ import torch
 
 from ..config import AosParams, Statics
 from ..geom import atan2
-from ..ops import fma, lanes, scatter_set, set_at, sqrt, take, take_row
+from ..ops import fma, lanes, norm2, scatter_set, set_at, take, take_row
 from ..perceive.raster import f32, shift2d
 from ..types import GridWorld, GvdGraph, MissionState, Path, Waypoints
 from .astar import INF, plan_between
-
-
-def _norm2(v):
-    return sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
 
 
 # ---------------------------------------------------------------------------
@@ -74,7 +70,7 @@ def build_waypoints(graph: GvdGraph, params: AosParams, s: Statics) -> Waypoints
     any_kept = torch.zeros(B, dtype=torch.bool, device=dev)
     for i in range(T):
         p = pos[..., i, :]
-        d = _norm2(p - last_xy)
+        d = norm2(p - last_xy)
         k = ok[..., i] & (~any_kept | (d > dmin))
         keep[..., i] = k
         last_xy = torch.where(k[..., None], p, last_xy)
@@ -113,7 +109,7 @@ def _append_origin(wp: Waypoints, params: AosParams) -> Waypoints:
     axes."""
     W = wp.xy.shape[-2]
     last = take_row(wp.xy, torch.clamp(wp.count - 1, min=0))
-    near = (wp.count > 0) & (_norm2(last) <= 0.2)
+    near = (wp.count > 0) & (norm2(last) <= 0.2)
     slot = torch.clamp(wp.count, max=W - 1)
     xy = set_at(wp.xy, slot, 0.0, slot.dim())
     node_idx = set_at(wp.node_idx, slot, -1, slot.dim())
@@ -153,7 +149,7 @@ def mission_tick(state: MissionState, wp: Waypoints, robot_xy, control_mod,
 
     # ---- currentPosCallback -------------------------------------------------
     init_wp = torch.stack([params.initial_waypoint_x, params.initial_waypoint_y], dim=-1)
-    d_init = _norm2(robot_xy - init_wp)
+    d_init = norm2(robot_xy - init_wp)
     reach_init = ~state.initial_reached & (d_init <= params.initial_arrive_dist)
     target_wp = torch.where(reach_init & (wp.count > 0), 0, target_wp)
     prev_wp = torch.where(reach_init, -1, prev_wp)
@@ -162,7 +158,7 @@ def mission_tick(state: MissionState, wp: Waypoints, robot_xy, control_mod,
     W = wp.xy.shape[-2]
     tvalid = (target_wp >= 0) & (target_wp < wp.count)
     target = take_row(wp.xy, torch.clamp(target_wp, 0, W - 1))
-    d_target = _norm2(robot_xy - target)
+    d_target = norm2(robot_xy - target)
 
     # Exploration Complete at the origin (cpp:230-246)
     at_origin_goal = (completed & tvalid & (torch.abs(target[..., 0]) < 0.1)
@@ -208,7 +204,7 @@ def rebuild_waypoints(state: MissionState, old_wp: Waypoints, graph: GvdGraph,
                    node_idx=torch.where(use_append, wp2.node_idx, new_wp.node_idx),
                    count=torch.where(use_append, wp2.count, new_wp.count))
 
-    d = _norm2(wp.xy - saved_pos[None, :])
+    d = norm2(wp.xy - saved_pos[None, :])
     d = torch.where(torch.arange(W, device=d.device) < wp.count, d, INF)
     best = torch.argmin(d).to(torch.int32)
     best_ok = (wp.count > 0) & (d[best.long()] < 0.5)
@@ -357,7 +353,7 @@ def plan_current_path(state: MissionState, wp: Waypoints, graph: GvdGraph, costm
     # ---------------- initial straight path (cpp:983-1031) -----------------
     # from the params alone: [*Bp, P] for params of leading axes Bp
     npb = init_wp.dim() - 1
-    dist0 = _norm2(init_wp)
+    dist0 = norm2(init_wp)
     num0 = torch.ceil(dist0 / params.path_step).to(torch.int32)
     t0 = arP.to(torch.float32) / torch.clamp(num0.to(torch.float32), min=1.0)[..., None]
     straight = t0[..., None] * init_wp.unsqueeze(-2)
@@ -379,7 +375,7 @@ def plan_current_path(state: MissionState, wp: Waypoints, graph: GvdGraph, costm
                                       device=dev).expand(start_point.shape)
 
     origin_return = target_node < 0
-    d_to_nodes = _norm2(graph.nodes - target.unsqueeze(-2))
+    d_to_nodes = norm2(graph.nodes - target.unsqueeze(-2))
     nearest_to_target = torch.argmin(torch.where(graph.node_valid, d_to_nodes, INF),
                                      dim=-1).to(torch.int32)
     goal = torch.where(origin_return, nearest_to_target, torch.clamp(target_node, min=0))
@@ -389,7 +385,7 @@ def plan_current_path(state: MissionState, wp: Waypoints, graph: GvdGraph, costm
                                           enabled=astar_enabled)
 
     first_node_xy = take(graph.nodes, torch.clamp(node_path[..., 0], min=0), nw)
-    add_start = _norm2(start_point - first_node_xy) > 0.1
+    add_start = norm2(start_point - first_node_xy) > 0.1
     node_xy = take(graph.nodes, torch.clamp(node_path, min=0), nw)
     node_ok = (arP < plen[..., None]) & (node_path >= 0)
     # drop exact-duplicate consecutive node positions (cpp:1446-1454)
@@ -401,13 +397,13 @@ def plan_current_path(state: MissionState, wp: Waypoints, graph: GvdGraph, costm
     last_node = take_row(node_path, torch.clamp(plen - 1, min=0))
     last_node_xy = take(graph.nodes, torch.clamp(last_node, min=0), nw)
     dtail = target - last_node_xy
-    tail_num = torch.ceil(_norm2(dtail) / params.path_step).to(torch.int32)
+    tail_num = torch.ceil(norm2(dtail) / params.path_step).to(torch.int32)
     it = arP.to(torch.float32) + 1.0
     tt = it / torch.clamp(tail_num.to(torch.float32), min=1.0)[..., None]
     # last_node + t * dtail rounded once: XLA:CPU fuses it
     tail_xy = fma(tt[..., None], dtail.unsqueeze(-2), last_node_xy.unsqueeze(-2))
     tail_ok = (arP < tail_num[..., None]) & origin_return[..., None]
-    target_point_ok = ~origin_return & (_norm2(last_node_xy - target) > 0.01)
+    target_point_ok = ~origin_return & (norm2(last_node_xy - target) > 0.01)
     tail_xy = torch.where((arP == 0)[:, None] & ~origin_return[..., None, None],
                           target.unsqueeze(-2), tail_xy)
     tail_ok = tail_ok | ((arP == 0) & target_point_ok[..., None])

@@ -6,13 +6,12 @@ The clouds are the JAX package's own ``make_orchard(key, SPEC, S)`` for
 ``jax.random.split(PRNGKey(5), 8)``, read back as numpy and handed to the
 port's ``clouds`` argument, so both harnesses run the same eight worlds.
 
-Tolerances. Every int and bool field is bitwise. ``travel_distance`` is a
-sequential f32 sum of one segment a tick in both packages and
-``final_dist_to_origin`` one norm; the port may differ from XLA:CPU by the
-rounding of a segment (XLA contracts x*x + y*y into a fused multiply-add) and
-by the 4-ulp pose bound of tests/test_torch_plancache.py. FLOAT_BOUND_M
-states it in metres; measured: 0 on all eight rollouts of this file (the
-first 60 ticks walk the straight initial leg)."""
+Tolerances. Every field is bitwise, the floats included: ``travel_distance``
+is a sequential f32 sum of one segment a tick in both packages and
+``final_dist_to_origin`` one norm, each segment's x*x + y*y fused as
+XLA:CPU fuses it (``ops.norm2``), and the poses are the reference's bit for
+bit. FLOAT_BOUND_M, in metres, is 0 (it was 8 ulp of 6.72 m while the port
+rounded the norms and the plan path otherwise)."""
 
 import dataclasses
 
@@ -46,8 +45,8 @@ TOTAL, BATCH, REFILL, BUDGET, CHUNK = 8, 4, 2, 60, 20
 INT_FIELDS = ("completed", "steps_to_complete", "final_status", "waypoints", "guards",
               "feasible")
 FLOAT_FIELDS = ("travel_distance", "final_dist_to_origin")
-# metres; 8 ulp of the 6.72 m the budget travels (measured: 0)
-FLOAT_BOUND_M = 8 * float(np.spacing(np.float32(6.72)))
+# metres
+FLOAT_BOUND_M = 0.0
 
 
 def cloud_of(key, s=JS):

@@ -4,15 +4,12 @@ cached episode equals JAX's, and the port's cached episode equals its own
 replan-every-tick ``engine.episode`` (the bit-identity that
 ``aosx/plan/plancache.py`` promises).
 
-Every int and bool leaf is bitwise. The float bounds are those of
-tests/test_torch_slice.py, 4 ulp on linearized plan points and yaws (XLA:CPU
-contracts linearize's interpolation into a fused multiply-add, and its f32
-atan2 is not correctly rounded): the cache's ``plan_xy`` and ``goal_xy``
-(the last plan point), ``plan_yaw`` and ``goal_yaw``. The stand-in robot
-steers at plan points, so its pose inherits that bound: the ``xy``/``yaw``
-metrics and the final state's robot pose and control goal (measured: 1 ulp
-in 3 of the 40 ticks). The robot runs at v_dt = 0.5 m/tick, so that 40
-ticks reach the first waypoints."""
+Every leaf is bitwise, floats included: the cache's plan points and yaws,
+the ``xy``/``yaw`` metrics and the final pose (the port evaluates linearize,
+A* and the follower as XLA:CPU does: ``ops.cumsum_xla``, ``ops.fma``,
+``f32math.atan2_f32``; these carried 4-ulp bounds while it did not). The
+robot runs at v_dt = 0.5 m/tick, so that 40 ticks reach the first
+waypoints."""
 
 import jax
 import jax.numpy as jnp
@@ -33,9 +30,6 @@ from torch_helpers import assert_same, one_torch_thread, orchard_buffers  # noqa
 
 V_DT = 0.5
 TICKS = 40
-FMA = 4
-CACHE_BOUNDS = {k: FMA for k in ("plan_xy", "goal_xy", "plan_yaw", "goal_yaw")}
-POSE_BOUNDS = {k: FMA for k in ("robot.xy", "robot.yaw", "control.goal_xy", "control.goal_yaw")}
 
 
 @pytest.fixture(scope="module")
@@ -58,7 +52,7 @@ def runs():
 
 
 def test_build_plan_cache_matches_jax(runs):
-    assert_same(runs["jcache"], runs["cache"], ulp_bounds=CACHE_BOUNDS)
+    assert_same(runs["jcache"], runs["cache"])
     cache = runs["cache"]
     R = plancache.num_rows(S)
     assert cache.plan_xy.shape == (R, S.max_plan, 2)
@@ -70,12 +64,11 @@ def test_build_plan_cache_matches_jax(runs):
 @pytest.mark.parametrize("key", ["xy", "yaw", "mod", "status", "target_wp", "cluster_idx",
                                  "waiting", "completed", "plan_len", "nonfinite", "guards"])
 def test_episode_cached_metrics_match_jax(runs, key):
-    bounds = {"": FMA} if key in ("xy", "yaw") else None
-    assert_same(runs["jmetrics"][key], runs["metrics"][key], ulp_bounds=bounds)
+    assert_same(runs["jmetrics"][key], runs["metrics"][key])
 
 
 def test_episode_cached_final_state_matches_jax(runs):
-    assert_same(runs["jfinal"], runs["final"], ulp_bounds=POSE_BOUNDS)
+    assert_same(runs["jfinal"], runs["final"])
     # the tour has started: the initial waypoint was reached and a graph
     # leg adopted
     assert bool(runs["final"].mission.initial_reached)
@@ -144,7 +137,7 @@ def test_pin_live_row_and_rows_bitwise_equal_match_jax(runs):
     fresh = plancache.carry_adopted_row(fresh, fresh, torch.tensor(live, dtype=torch.int32))
     fresh = plancache.pin_live_row(fresh, runs["world"], m, runs["world"].waypoints, runs["pt"], S)
     same = plancache.rows_bitwise_equal(fresh, carry, live)
-    assert_same(jfresh, fresh, ulp_bounds=CACHE_BOUNDS)
+    assert_same(jfresh, fresh)
     # the pinned plan starts at waypoint 0, not at the row's assumed 1
     assert bool(same) == bool(jsame) and not bool(same)
     assert bool(plancache.rows_bitwise_equal(fresh, carry, carry))

@@ -11,12 +11,11 @@ every lane equals the unbatched call bitwise.
   from the origin, near it, of 0 and 1 points, and one whose split stops at
   max_segments.
 - build_plan_cache on a group of JAX worlds equals JAX's build_plan_cache
-  of each world leaf for leaf (ints and bools bitwise, the 4-ulp bounds of
-  tests/test_torch_plancache.py on plan_xy, goal_xy, plan_yaw, goal_yaw) and
-  the port's unbatched build of each world bitwise (DRYRUN_STATICS).
+  of each world leaf for leaf, floats included, and the port's unbatched
+  build of each world bitwise (DRYRUN_STATICS).
 - The group begin over the refill keys of tests/test_torch_parallel.py
-  equals JAX's jitted ``jax.vmap(rollout_begin_cached)`` leaf for leaf
-  (same bounds) and the stack of single-key begins bitwise.
+  equals JAX's jitted ``jax.vmap(rollout_begin_cached)`` leaf for leaf and
+  the stack of single-key begins bitwise.
 - build_plan_cache on a group calls plan_current_path and linearize once
   each."""
 
@@ -45,8 +44,6 @@ SPEC_KW = dict(n_rows=2, row_len=4.0, row_spacing=2.0, tree_spacing=1.0,
                trunk_pts=10, noise_pts=16, origin=(2.0, 2.0), polygon_pad=1.0)
 JSPEC = JSpec(**SPEC_KW)
 BUDGET, REFILL = 60, 2
-FMA = 4
-CACHE_BOUNDS = {k: FMA for k in ("plan_xy", "goal_xy", "plan_yaw", "goal_yaw")}
 
 
 def bits(t):
@@ -216,7 +213,7 @@ def test_build_plan_cache_group_matches_jax(jax_group, params):
     world = to_torch(jworld, engine.World, CPU)
     cache = plancache.build_plan_cache(world, params, S)
     assert cache.plan_xy.shape == (REFILL, plancache.num_rows(S), S.max_plan, 2)
-    assert_same(jcache, cache, ulp_bounds=CACHE_BOUNDS)
+    assert_same(jcache, cache)
     for i in range(REFILL):
         assert_bitwise(plancache.build_plan_cache(tree.lane(world, i), params, S),
                        tree.lane(cache, i))
@@ -232,7 +229,7 @@ def test_group_begin_matches_jax_and_single_begins(jax_group, params):
                                     ror_method="exact", device=CPU)
     want = (to_torch(jlite, plancache.WorldLite, CPU), to_torch(jcache, plancache.PlanCache, CPU),
             to_torch(jst, plancache.CachedEngineState, CPU), dict_to_torch(jacc, CPU))
-    assert_same(list(want), list(got), ulp_bounds={f"[1].{k}": b for k, b in CACHE_BOUNDS.items()})
+    assert_same(list(want), list(got))
     singles = [batch.rollout_begin_cached(k, OrchardSpec(**SPEC_KW), params, S, BUDGET,
                                           ror_method="exact", device=CPU) for k in keys]
     assert_bitwise(tree.stack(singles), got)

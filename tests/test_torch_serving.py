@@ -12,11 +12,11 @@ interpret mode (monkeypatched for the run; no file changes), the port's
 through K3's plain version.
 
 Every int and bool leaf is bitwise, levels included. Float leaves are
-bitwise except those tests/test_torch_slice.py bounds at 4 ulp (linearized
-plan points and yaws: XLA:CPU's fused multiply-adds and atan2), the
-graph's ``edge_lengths`` and the A* costs made of them (4 ulp,
-tests/test_torch_gvd_plan.py) and the robot pose and goal that follow plan
-points."""
+bitwise, the plan cache, the ticks' poses and the robot's pose and goal
+included, except the graph's ``edge_lengths`` and the A* costs made of
+them: 4 ulp, as tests/test_torch_gvd_plan.py bounds them, since XLA:CPU
+contracts the squared length otherwise where the JAX graph is built
+outside prepare_world's jit (in the incremental path's graph stage)."""
 
 import dataclasses
 import functools
@@ -44,13 +44,8 @@ from torch_helpers import assert_same, one_torch_thread  # noqa: F401
 FRACS = [0.55, 0.8, 1.0]
 T = 30
 FMA = 4
-_PLAN = ("plan_xy", "goal_xy", "plan_yaw", "goal_yaw")
-STATE_BOUNDS = {"inc.world.graph.edge_lengths": FMA, "inc.world.costmat.cost": FMA,
-                **{f"cache.{k}": FMA for k in _PLAN},
-                **{f"st.{k}": FMA for k in ("robot.xy", "robot.yaw", "control.goal_xy",
-                                            "control.goal_yaw")}}
+STATE_BOUNDS = {"inc.world.graph.edge_lengths": FMA, "inc.world.costmat.cost": FMA}
 INC_BOUNDS = {"world.graph.edge_lengths": FMA, "world.costmat.cost": FMA}
-POSE = {"": FMA}
 CMD_KEYS = ("mod", "status", "target_wp", "cluster_idx", "waiting", "completed", "plan_len",
             "nonfinite", "guards")
 METHODS = ("exact", "pallas")
@@ -118,7 +113,7 @@ def test_replay_matches_jax(setup, method):
     assert set(jm) == set(m)
     assert_same(jm["inc_level"], m["inc_level"])
     for k in jm:
-        assert_same(jm[k], m[k], ulp_bounds=POSE if k in ("xy", "yaw") else None)
+        assert_same(jm[k], m[k])
     levels = m["inc_level"].tolist()
     assert levels[0] == incremental.LEVEL_REUSE_WORLD
     assert incremental.LEVEL_DOWNSTREAM in levels[1:]

@@ -6,12 +6,13 @@ The robot runs at v_dt = 0.5 m/tick (the engine's own knob for shortening
 episodes) so that it reaches the (8, 0) initial waypoint and adopts graph
 paths within the 20 ticks.
 
-Every int and bool leaf is bitwise. Two float leaves of the final state
-have stated bounds of 4 ulp (of the leaf's largest magnitude):
-``plan.xy``, because XLA:CPU contracts linearize's interpolation p1 + t*d
-into a fused multiply-add that the port rounds as two operations, and the
-yaw leaves, because XLA:CPU's f32 atan2 is not correctly rounded while the
-port rounds an f64 atan2 once."""
+Every leaf is bitwise, floats included: the port evaluates linearize (its
+blocked prefix sums and fused multiply-adds), atan2, sin, cos and the
+follower's norms and move as XLA:CPU does (``ops.cumsum_xla``, ``ops.fma``,
+``f32math``); while it did not, ``plan.xy`` and the yaws carried 4-ulp
+bounds. The JAX side runs as ``aosx.dashboard`` runs an episode, the ticks
+in one jitted ``engine.episode`` (a scan), the context whose rounding of the
+follower's move the port follows (engine._move_robot)."""
 
 import jax
 import jax.numpy as jnp
@@ -28,8 +29,6 @@ from torch_helpers import assert_same, one_torch_thread, orchard_buffers  # noqa
 
 V_DT = 0.5
 TICKS = 20
-FMA = 4
-STATE_BOUNDS = {k: FMA for k in ("plan.xy", "plan.yaw", "raw_path.yaw")}
 
 
 @pytest.fixture(scope="module")
@@ -39,12 +38,9 @@ def runs():
     jworld = jax.jit(lambda pc, poly, p, ex: jengine.prepare_world(pc, poly, p, ex, JS))(
         JCloud(xyz=jnp.asarray(buf), valid=jnp.asarray(valid)), JPolygon.from_array(poly, JS),
         jp, jnp.zeros((JS.max_exclusions, 3), jnp.float32))
-    jstep = jax.jit(lambda st, w, p: jengine.step(st, w, p, JS, v_dt=jnp.float32(V_DT)))
-    jst = jengine.initial_state(jworld, JS)
-    jmetrics = []
-    for _ in range(TICKS):
-        jst, m = jstep(jst, jworld, jp)
-        jmetrics.append(m)
+    jst, jstacked = jax.jit(lambda w, p: jengine.episode(w, p, JS, TICKS,
+                                                          v_dt=jnp.float32(V_DT)))(jworld, jp)
+    jmetrics = [{k: v[t] for k, v in jstacked.items()} for t in range(TICKS)]
 
     pt = params_as_f32(AosParams(), "cpu")
     world = engine.prepare_world(
@@ -69,7 +65,7 @@ def test_step_metrics_match_jax(runs, tick):
 
 def test_final_state_matches_jax(runs):
     (_, jst, jm), (_, st, m) = runs
-    assert_same(jst, st, ulp_bounds=STATE_BOUNDS)
+    assert_same(jst, st)
     # the tour has started: the initial waypoint was reached and a graph
     # path adopted
     assert bool(st.mission.initial_reached)

@@ -5,9 +5,8 @@ equal: the bootstrap draws from ``default_rng(seed)`` in both), and one
 2-configuration x 2-orchard cached sweep at DRYRUN_STATICS on the clouds of
 the JAX package's keys.
 
-Tolerances as in tests/test_torch_parallel.py: int and bool fields bitwise,
-``travel_distance`` and ``final_dist_to_origin`` within FLOAT_BOUND_M
-(measured: 0)."""
+Tolerances as in tests/test_torch_parallel.py: every field bitwise
+(FLOAT_BOUND_M, in metres, is 0)."""
 
 import dataclasses
 
@@ -31,7 +30,7 @@ BUDGET, K = 60, 2
 INT_FIELDS = ("completed", "steps_to_complete", "final_status", "waypoints", "guards",
               "feasible")
 FLOAT_FIELDS = ("travel_distance", "final_dist_to_origin")
-FLOAT_BOUND_M = 8 * float(np.spacing(np.float32(6.72)))
+FLOAT_BOUND_M = 0.0
 
 
 def test_grid_params_matches_jax():
