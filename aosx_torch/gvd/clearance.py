@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..config import Statics
-from ..ops import fma, sqrt
+from ..ops import div_const, fma, sqrt
 from ..perceive.raster import f32, iota2, live_mask, shift2d
 from ..types import GridWorld
 
@@ -74,22 +74,20 @@ def edge_clearances(dist_field, grid: GridWorld, pos, edges, edge_valid, s: Stat
     """Least obstacle distance along each edge, sampled like the crossing
     filter (res/2 steps, t in [0, 1]); 0 for invalid edges."""
     dev = dist_field.device
-    res = f32(s.resolution, dev)
     a = pos[torch.clamp(edges[:, 0], min=0).long()]
     b = pos[torch.clamp(edges[:, 1], min=0).long()]
     d = b - a
     length = sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
-    num = torch.clamp((length / (res * 0.5)).to(torch.int32) + 1, max=n_samples - 1)
+    num = torch.clamp(div_const(length, s.resolution * 0.5).to(torch.int32) + 1,
+                      max=n_samples - 1)
     i = torch.arange(n_samples, dtype=torch.float32, device=dev)[None, :]
     t = torch.clamp(i / torch.clamp(num[:, None].to(torch.float32), min=1.0), max=1.0)
     # a + t * (b - a) rounded once: XLA:CPU fuses it
     px = fma(t, d[:, 0:1], a[:, 0:1])
     py = fma(t, d[:, 1:2], a[:, 1:2])
     H, W = dist_field.shape
-    # XLA:CPU divides by the constant res as a product with its f32 reciprocal
-    inv = f32(1.0, dev) / res
-    mx = torch.clamp(((px - grid.origin_x) * inv).to(torch.int32), 0, W - 1)
-    my = torch.clamp(((py - grid.origin_y) * inv).to(torch.int32), 0, H - 1)
+    mx = torch.clamp(div_const(px - grid.origin_x, s.resolution).to(torch.int32), 0, W - 1)
+    my = torch.clamp(div_const(py - grid.origin_y, s.resolution).to(torch.int32), 0, H - 1)
     vals = dist_field.reshape(-1)[(my.long() * W + mx.long())]
     vals = torch.where(i <= num[:, None].to(torch.float32), vals, f32(FAR, dev))
     return torch.where(edge_valid, vals.min(dim=1).values, f32(0.0, dev))

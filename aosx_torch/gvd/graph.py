@@ -38,8 +38,8 @@ from ..guards import (
     GUARD_PROX_PPN,
     GUARD_RIDGE_COMPACT,
 )
-from ..ops import (chunk_rows, compact_take, compact_true, compact_true_hier, fma,
-                   gather_last, lanes, scatter_set, segment_sum, sqrt, take, while_loop)
+from ..ops import (chunk_rows, compact_take, compact_true, compact_true_hier, div_const, fma,
+                   gather_last, lanes, norm2, scatter_set, segment_sum, sqrt, take, while_loop)
 from ..perceive.raster import to_plane, f32, iota2
 from ..perceive.rows import lexsort2
 from ..perceive.seeds import cast_rays_unbounded, dilate_chebyshev
@@ -238,7 +238,6 @@ def _edge_crossing_dense(grid: GridWorld, a, b, valid, num, s: Statics, n_sample
     world's entries against its own grid."""
     dev = a.device
     nb = a.dim() - 2
-    res = f32(s.resolution, dev)
     ab = b - a
     length = sqrt(ab[..., 0] * ab[..., 0] + ab[..., 1] * ab[..., 1])
     Hs, Ws = grid.occ.shape[-2:]
@@ -247,11 +246,9 @@ def _edge_crossing_dense(grid: GridWorld, a, b, valid, num, s: Statics, n_sample
     wc, hc = to_plane(grid.w_cells), to_plane(grid.h_cells)
     numf = num.to(torch.float32)[..., None]
     den = torch.clamp(numf, min=1.0)
-    # a sample's cell: (p - origin) times the f32 reciprocal of res, the
-    # product XLA makes of aosx's division by the constant under jit (a
-    # sample on a cell boundary, y = 8.3 over origin -10, falls in row 366
-    # by the product and in row 365 by a division)
-    inv_res = torch.reciprocal(res)
+    # a sample's cell: the division by res as XLA compiles it (a sample on
+    # a cell boundary, y = 8.3 over origin -10, falls in row 366 by XLA's
+    # product and in row 365 by a division)
     hit = torch.zeros(a.shape[:-1], dtype=torch.bool, device=dev)
     for c0 in range(0, n_samples, _CROSS_CHUNK):
         i = torch.arange(c0, min(c0 + _CROSS_CHUNK, n_samples),
@@ -259,8 +256,8 @@ def _edge_crossing_dense(grid: GridWorld, a, b, valid, num, s: Statics, n_sample
         t = torch.clamp(i / den, max=1.0)
         px = a[..., 0:1] + t * ab[..., 0:1]
         py = a[..., 1:2] + t * ab[..., 1:2]
-        mx = ((px - ox) * inv_res).to(torch.int32)
-        my = ((py - oy) * inv_res).to(torch.int32)
+        mx = div_const(px - ox, s.resolution).to(torch.int32)
+        my = div_const(py - oy, s.resolution).to(torch.int32)
         ing = (mx >= 0) & (mx < wc) & (my >= 0) & (my < hc)
         flat = torch.clamp(my, 0, Hs - 1) * Ws + torch.clamp(mx, 0, Ws - 1)
         occ = take(occ_flat, flat, nb) == 1
@@ -281,11 +278,9 @@ def edge_crossing_packed(grid: GridWorld, a, b, nmax, valid, s: Statics, cap: in
     only accounted, to raise the same guard bits (GUARD_CROSS_DENSE on
     overflow, GUARD_EDGE_COARSE for capped entries), per world."""
     dev = a.device
-    res = f32(s.resolution, dev)
-    step = res * 0.5
     ab = b - a
     length = sqrt(ab[..., 0] * ab[..., 0] + ab[..., 1] * ab[..., 1])
-    num_raw = (length / step).to(torch.int32) + 1
+    num_raw = div_const(length, s.resolution * 0.5).to(torch.int32) + 1
     num = torch.minimum(num_raw, nmax - 1)
     capped = num_raw > nmax - 1
     C4 = s.crossing_coarse_factor
@@ -319,7 +314,6 @@ def _coarse_hits(grid: GridWorld, a, ab, num, numc, nsamp, capped, C4: int, s: S
     every slot of a capped entry."""
     dev = a.device
     nb = a.dim() - 2
-    res = f32(s.resolution, dev)
     Hs, Ws = grid.occ.shape[-2:]
     dil = dilate_chebyshev((grid.occ == 1).to(torch.uint8), C4 // 4 + 1).flatten(-2)
     ox, oy = to_plane(grid.origin_x), to_plane(grid.origin_y)
@@ -332,8 +326,8 @@ def _coarse_hits(grid: GridWorld, a, ab, num, numc, nsamp, capped, C4: int, s: S
         tt = torch.clamp(m * C4 / numf, max=1.0)
         px = a[..., 0:1] + tt * ab[..., 0:1]
         py = a[..., 1:2] + tt * ab[..., 1:2]
-        mx = ((px - ox) / res).to(torch.int32)
-        my = ((py - oy) / res).to(torch.int32)
+        mx = div_const(px - ox, s.resolution).to(torch.int32)
+        my = div_const(py - oy, s.resolution).to(torch.int32)
         flat = torch.clamp(my, 0, Hs - 1) * Ws + torch.clamp(mx, 0, Ws - 1)
         hitc = (take(dil, flat, nb) == 1) | capped[..., None]
         total += (hitc & (m < nsamp[..., None])).sum(dim=(-2, -1), dtype=torch.int32)
@@ -383,8 +377,11 @@ def _ridge_edges_from(lo, hi, pok, vidx, pos, sx, sy, N: int, S: int, E: int):
 
 
 def build_edges(pos, owners, node_valid, grid: GridWorld, seeds: SeedSet,
-                params: AosParams, s: Statics):
-    """Ridge edges + proximity edges, occupied-crossing filtered."""
+                params: AosParams, s: Statics, *, fused_length: bool = True):
+    """Ridge edges + proximity edges, occupied-crossing filtered.
+    fused_length: the squared edge length as XLA:CPU rounds it in aosx's
+    graph build, dy * dy + dx * dx in one FMA; False rounds the two
+    products apart, as it does when the graph computes clearances."""
     dev = pos.device
     B = node_valid.shape[:-1]
     nb = len(B)
@@ -437,7 +434,7 @@ def build_edges(pos, owners, node_valid, grid: GridWorld, seeds: SeedSet,
     T1 = 64
     dab = pb - pa
     length = sqrt(dab[..., 0] * dab[..., 0] + dab[..., 1] * dab[..., 1])
-    num = (length / f32(s.resolution * 0.5, dev)).to(torch.int32) + 1
+    num = div_const(length, s.resolution * 0.5).to(torch.int32) + 1
     nmax_ridge = torch.where(num <= T1 - 1, _i32(T1, dev), _i32(s.crossing_nmax_long, dev))
 
     # ---- proximity edges <= 0.5 m (cpp:861-894), row-chunked --------------
@@ -510,8 +507,12 @@ def build_edges(pos, owners, node_valid, grid: GridWorld, seeds: SeedSet,
     ev = ar_e < n_edges[..., None]
     dd = take(pos, torch.clamp(fb, min=0), nb) - take(pos, torch.clamp(fa, min=0), nb)
     # sqrt(fma(dy, dy, dx * dx)): the fused multiply-add XLA:CPU makes of
-    # aosx's squared length here
-    lengths = torch.where(ev, sqrt(fma(dd[..., 1], dd[..., 1], dd[..., 0] * dd[..., 0])), 0.0)
+    # aosx's squared length here. With clearances the edge-end gathers are
+    # shared with the clearance samples, and the products reach the sum
+    # through a lane shuffle that the backend does not contract
+    dx2 = dd[..., 0] * dd[..., 0]
+    sq = fma(dd[..., 1], dd[..., 1], dx2) if fused_length else dx2 + dd[..., 1] * dd[..., 1]
+    lengths = torch.where(ev, sqrt(sq), 0.0)
     guards = (cross_guards | ridge_guard
               | torch.where(ppn_overflow, GUARD_PROX_PPN, _i32(0, dev)))
     return fa, fb, ev, lengths, n_edges, guards
@@ -558,7 +559,10 @@ def find_labels(pos, node_valid, rows_sorted: TreeRows, skel: GridWorld,
     perp = torch.stack([-main[..., 1], main[..., 0]], dim=-1)
 
     diff = pos[..., None, None, :, :] - eps[..., :, :, None, :]       # [*B, C,4,N,2]
-    dist = sqrt(diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1])
+    # sqrt(fma(dy, dy, dx * dx)) as XLA:CPU fuses it (MC world 67: two
+    # nodes 9e-8 m apart in distance tie in f32 that way, and the lower
+    # index wins)
+    dist = norm2(diff)
     dirn = diff / torch.clamp(dist, min=1e-12)[..., None]
     dot_out = (outward[..., 0, None] * dirn[..., 0]
                + outward[..., 1, None] * dirn[..., 1])
@@ -647,7 +651,7 @@ def build_gvd_graph(seeds: SeedSet, rows_sorted: TreeRows, skel: GridWorld,
         owner = jump_flood(skel, merged, s)
     pos, owners, node_valid = extract_vertices(skel, owner, s)
     ea, eb, ev, lengths, n_edges, edge_guards = build_edges(
-        pos, owners, node_valid, skel, merged, params, s)
+        pos, owners, node_valid, skel, merged, params, s, fused_length=not compute_clearances)
     label_points, label_valid, _ = find_labels(pos, node_valid, rows_sorted, skel, params, s)
     node_labels, label_node = assign_labels(pos, node_valid, label_points, label_valid, params, s)
     edges = torch.stack([ea, eb], dim=-1)

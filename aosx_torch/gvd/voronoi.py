@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..config import Statics
-from ..ops import fma, lanes
+from ..ops import div_const, fma, lanes
 from ..perceive.raster import f32, live_mask
 from ..types import GridWorld, SeedSet
 
@@ -46,11 +46,12 @@ def _jfa_init(grid: GridWorld, seeds: SeedSet, s: Statics):
     h, w = grid.occ.shape[-2:]
     dev = grid.occ.device
     B = seeds.valid.shape[:-1]
-    res = f32(s.resolution, dev)
     S = seeds.xy.shape[-2]
-    sx = torch.floor((seeds.xy[..., 0] - lanes(grid.origin_x, seeds.valid)) / res).to(torch.int32)
+    sx = torch.floor(div_const(seeds.xy[..., 0] - lanes(grid.origin_x, seeds.valid),
+                               s.resolution)).to(torch.int32)
     sx = torch.minimum(torch.clamp(sx, min=0), lanes(grid.w_cells, sx) - 1)
-    sy = torch.floor((seeds.xy[..., 1] - lanes(grid.origin_y, seeds.valid)) / res).to(torch.int32)
+    sy = torch.floor(div_const(seeds.xy[..., 1] - lanes(grid.origin_y, seeds.valid),
+                               s.resolution)).to(torch.int32)
     sy = torch.minimum(torch.clamp(sy, min=0), lanes(grid.h_cells, sy) - 1)
     flat = (sy.long() * w + sx.long())
     sidx = torch.where(seeds.valid, torch.arange(S, dtype=torch.int32, device=dev), S)

@@ -381,6 +381,15 @@ def norm2(v):
     return sqrt(_round_odd_f32(v1 * v1, v[..., 0] * v[..., 0]))
 
 
+def div_const(x, c: float):
+    """f32 x / c for a constant c as XLA compiles aosx's division by a
+    static constant under jit: its algebraic simplifier makes it a product
+    with the f32 reciprocal of f32(c) (20 for a resolution of 0.05 m), which
+    now and then differs from the quotient in the last place, so that a
+    truncating cast puts a point on a cell edge into the next cell."""
+    return x * (1.0 / torch.tensor(c, dtype=torch.float32)).item()
+
+
 def sqrt(x):
     """Square root, correctly rounded for f32 as XLA's and CUDA's are.
     torch's f32 kernel on the CPU is not: it is 1 ulp off on about 0.7 % of

@@ -20,7 +20,7 @@ import math
 import torch
 
 from ..config import Statics
-from ..ops import lanes
+from ..ops import div_const, lanes
 from ..types import GridWorld
 
 
@@ -65,15 +65,17 @@ def generate_grid(xy, keep, bounds, s: Statics) -> GridWorld:
     own [H, W] plane."""
     dev = xy.device
     minx, maxx, miny, maxy = bounds
-    res = f32(s.resolution, dev)
     zero = f32(0.0, dev)
     width = torch.maximum(zero, maxx - minx)
     height = torch.maximum(zero, maxy - miny)
-    w_cells = torch.clamp(torch.ceil(width / res).to(torch.int32), min=1, max=s.grid_w)
-    h_cells = torch.clamp(torch.ceil(height / res).to(torch.int32), min=1, max=s.grid_h)
+    # every division by the resolution as XLA compiles it (ops.div_const)
+    w_cells = torch.clamp(torch.ceil(div_const(width, s.resolution)).to(torch.int32),
+                          min=1, max=s.grid_w)
+    h_cells = torch.clamp(torch.ceil(div_const(height, s.resolution)).to(torch.int32),
+                          min=1, max=s.grid_h)
     # C-truncation cast (points are >= origin after clipping, so trunc == floor)
-    gx = ((xy[..., 0] - minx[..., None]) / res).to(torch.int32)
-    gy = ((xy[..., 1] - miny[..., None]) / res).to(torch.int32)
+    gx = div_const(xy[..., 0] - minx[..., None], s.resolution).to(torch.int32)
+    gy = div_const(xy[..., 1] - miny[..., None], s.resolution).to(torch.int32)
     ok = keep & (gx >= 0) & (gx < w_cells[..., None]) & (gy >= 0) & (gy < h_cells[..., None])
     # dropped points index (-1, -1), which aosx's scatter normalizes to the
     # last row and column of the buffer (negative indices wrap); mirror it.
@@ -146,11 +148,11 @@ def edge_replicated(grid: GridWorld):
     return torch.where(iy >= to_plane(grid.h_cells), last_row, colrep)
 
 
-def world_to_grid_clamped(grid: GridWorld, wx, wy, res):
+def world_to_grid_clamped(grid: GridWorld, wx, wy, res: float):
     """worldToGrid (aos_seed_gen_node.cpp:760-769): floor + clamp to live
     region; wx, wy carry the grid's world axes as their leading axes."""
-    gx = torch.floor((wx - lanes(grid.origin_x, wx)) / res).to(torch.int32)
-    gy = torch.floor((wy - lanes(grid.origin_y, wy)) / res).to(torch.int32)
+    gx = torch.floor(div_const(wx - lanes(grid.origin_x, wx), res)).to(torch.int32)
+    gy = torch.floor(div_const(wy - lanes(grid.origin_y, wy), res)).to(torch.int32)
     gx = torch.minimum(torch.clamp(gx, min=0), lanes(grid.w_cells, gx) - 1)
     gy = torch.minimum(torch.clamp(gy, min=0), lanes(grid.h_cells, gy) - 1)
     return gx, gy
@@ -161,9 +163,8 @@ def mark_polygon_rect(grid: GridWorld, poly, margin, s: Statics) -> GridWorld:
     axis-aligned rectangle (polygon bbox +- margin) boundary; 5-cell borders
     when there is no polygon."""
     minx, maxx, miny, maxy = poly.bbox()
-    res = f32(s.resolution, grid.occ.device)
-    gx0, gy0 = world_to_grid_clamped(grid, minx - margin, miny - margin, res)
-    gx1, gy1 = world_to_grid_clamped(grid, maxx + margin, maxy + margin, res)
+    gx0, gy0 = world_to_grid_clamped(grid, minx - margin, miny - margin, s.resolution)
+    gx1, gy1 = world_to_grid_clamped(grid, maxx + margin, maxy + margin, s.resolution)
     iy, ix = iota2(grid.occ.shape[-2:], grid.occ.device)
     gx0, gy0, gx1, gy1 = (to_plane(v) for v in (gx0, gy0, gx1, gy1))
     on_rect = (

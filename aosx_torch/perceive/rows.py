@@ -73,6 +73,28 @@ def _compress(L):
     return L
 
 
+def compact_inverse(cell_flat, cell_ok, n: int):
+    """inv [*B, n + 1] i32: flat index -> compact index of a cell that
+    cell_ok keeps, M = cell_flat.shape[-1] at every other index and at the
+    pad slot n. Cells scatter to distinct indices and the rest to
+    ``scatter_set``'s drop slot, so no two writes race."""
+    M = cell_flat.shape[-1]
+    tgt = torch.where(cell_ok, torch.clamp(cell_flat, min=0), n + 1)
+    return scatter_set(n + 1, M, tgt, _arange(M, cell_flat.device).expand(cell_flat.shape))
+
+
+def compact_cells(mask, s: Statics):
+    """Scatter-compact the True cells of mask [*B, H, W] into raster order.
+
+    Returns (cell_flat [*B, M] i32 flat index or -1, cell_ok [*B, M] bool,
+    inv [*B, H*W+1] i32 mapping flat index -> compact index, M if not a
+    cell), M = s.max_skel_cells."""
+    h, w = mask.shape[-2:]
+    cell_flat, _ = compact_true(mask.flatten(-2), s.max_skel_cells)
+    cell_ok = cell_flat >= 0
+    return cell_flat, cell_ok, compact_inverse(cell_flat, cell_ok, h * w)
+
+
 def neighbor_table(cell_flat, cell_ok, inv, h: int, w: int):
     """[*B, M, 8] compact indices of 8-neighbours (M = none)."""
     safe = torch.clamp(cell_flat, min=0)
@@ -249,9 +271,8 @@ def cluster_grid(skel: GridWorld, poly: Polygon, params: AosParams, s: Statics):
     L_fast, uf_overflow = run_level_labels(cell_flat, cell_ok, h, w, s)
     if s.exact_fallbacks and bool(uf_overflow.any()):
         # the cell-level fallback for every world, kept where it overflowed
-        inv_tgt = torch.where(cell_ok, safe0, h * w + 1)
-        inv = scatter_set(h * w + 1, M, inv_tgt, _arange(M, dev).expand(B + (M,)))
-        nbrs = neighbor_table(cell_flat, cell_ok, inv, h, w)
+        nbrs = neighbor_table(cell_flat, cell_ok, compact_inverse(cell_flat, cell_ok, h * w),
+                              h, w)
         # run-collapse init keeps each horizontal run label-uniform, so the
         # W (col 3) and E (col 4) neighbours never contribute a new minimum
         nbrs6 = nbrs[..., [0, 1, 2, 5, 6, 7]]

@@ -25,7 +25,7 @@ import torch
 
 from ..config import AosParams, Statics
 from ..geom import point_in_polygon
-from ..ops import chunk_rows, fma, lanes, scatter_set, sqrt, take, while_loop
+from ..ops import chunk_rows, div_const, fma, lanes, scatter_set, sqrt, take, while_loop
 from ..types import GridWorld, Polygon, SeedSet, TreeRows
 from .raster import edge_replicated, f32, shift2d
 
@@ -100,7 +100,6 @@ def raycast_bounded(grid: GridWorld, start, direction, active, max_dist, min_dis
     exactly in ascending order until the first hit."""
     dev = start.device
     nb = start.dim() - 2
-    res = f32(s.resolution, dev)
     step = s.resolution * 0.5
     n_steps = int(max_dist / step)
     occ_ext = edge_replicated(grid)
@@ -120,8 +119,8 @@ def raycast_bounded(grid: GridWorld, start, direction, active, max_dist, min_dis
     dnorm = sqrt(direction[..., 0] * direction[..., 0] + direction[..., 1] * direction[..., 1])
 
     def cells(px, py):
-        gx = torch.clamp(torch.floor((px - ox) / res).to(torch.int32), 0, W - 1)
-        gy = torch.clamp(torch.floor((py - oy) / res).to(torch.int32), 0, H - 1)
+        gx = torch.clamp(torch.floor(div_const(px - ox, s.resolution)).to(torch.int32), 0, W - 1)
+        gy = torch.clamp(torch.floor(div_const(py - oy, s.resolution)).to(torch.int32), 0, H - 1)
         return gy * W + gx
 
     kc = torch.arange(NC + 1, dtype=torch.float32, device=dev) * C
@@ -221,9 +220,12 @@ def cast_rays_unbounded(grid: GridWorld, start, direction, active, min_dist,
         px = fma(direction[..., 0:1], dk, start[..., 0:1])
         py = fma(direction[..., 1:2], dk, start[..., 1:2])
         inb = (px >= minx3) & (px <= maxx3) & (py >= miny3) & (py <= maxy3)
-        # C-truncation cast toward zero (cpp:1821-1822)
-        mx = ((px - ox3) / res).to(torch.int32)
-        my = ((py - oy3) / res).to(torch.int32)
+        # C-truncation cast toward zero (cpp:1821-1822); the division as
+        # XLA compiles it (MC world 106: a sample at y = 9.9 over origin -1
+        # falls in row 218 by XLA's product, in skeleton row 217 by a
+        # division)
+        mx = div_const(px - ox3, s.resolution).to(torch.int32)
+        my = div_const(py - oy3, s.resolution).to(torch.int32)
         ing = (mx >= 0) & (mx < wc3) & (my >= 0) & (my < hc3)
         flat = torch.clamp(my, 0, Hc - 1) * Wc + torch.clamp(mx, 0, Wc - 1)
         occ = (take(occ_flat, flat, nb) == 1) & ing

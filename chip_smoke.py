@@ -41,7 +41,8 @@ kernel on them:
            and each one's card time, and the follower's CUDA graph
            (ops.card_graph) against its launches one by one; then the slice
            at TEST_STATICS (stage_full + 20 ticks), CUDA against the port on
-           the CPU
+           the CPU; perceive.rows.compact_cells and the union-find chain on
+           its output, the card against the CPU port bitwise
   phase 5  stage_full at BENCH_STATICS on CUDA: the kernels' launch counts,
            guard bits, and the JAX package's full-size reference summary
            (tests/torch_reference/bench_np_seed0.json); per-stage times
@@ -175,11 +176,7 @@ YAW_BOUND_RAD = 0.0
 # with its cause as ROADMAP section 3 names it: row -> cause. Phase 7 prints
 # every row that differs and fails on one not named here
 NAMED_CACHE_ROWS = {}
-NAMED_RAW_ROWS = {
-    0: "the straight path to the initial waypoint: the reference closes over params, so XLA "
-       "folds num0 = 40 and divides by it as a product with its f32 reciprocal; the port "
-       "divides (as JAX does with params as arguments, make_mc_reference.py); its plan is equal",
-}
+NAMED_RAW_ROWS = {}
 SERVE_REPS = 3
 PROBES_REFERENCE = REFERENCE.with_name("probes.json")
 MC_REFERENCE = REFERENCE.with_name("mc_np_seed0.json")
@@ -189,24 +186,19 @@ MC_SWEEP_SEEDS, MC_SWEEP_BATCH = 8, 16
 # the uncached harness: total, lanes, refill, budget (a refill group at least)
 MC_UNCACHED = (16, 8, 4, 300)
 MC_BATCHED_KEYS, MC_BATCHED_STEPS = 8, 150
-# The port evaluates the plan path's f32 arithmetic as XLA:CPU does in
-# make_mc_reference.py's jitted begin and chunks (linearize, A*, the
-# follower; ROADMAP section 3), so a record equals JAX's bit for bit, but
-# for one site: the reference script calls rollout_finish outside jit,
-# where XLA does not fuse final_dist_to_origin's x*x + y*y, while
-# sustained_rollouts (both packages) jits it and fuses. That field may be
-# 1 ulp of a distance under 32 m off (6 of 128 records on the CPU port);
-# travel_distance is held bitwise.
-MC_FLOAT_BOUND_M = {"travel_distance": 0.0,
-                    "final_dist_to_origin": float(np.spacing(np.float32(16.0)))}
-# Records beyond that bound: their worlds differ from the reference's in the
-# world build, before any plan (ROADMAP section 3), each printed with both
-# sides and the cache rows whose plan lengths differ. Measured on the CPU
-# port: 2 of 128, steps_to_complete 5 ticks apart at most, the floats 0.38 m
+# The port evaluates the world build's and the plan path's f32 arithmetic
+# as XLA:CPU does in make_mc_reference.py's jitted begin, chunks and finish
+# (ROADMAP section 3), so a record equals JAX's bit for bit
+MC_FLOAT_BOUND_M = {"travel_distance": 0.0, "final_dist_to_origin": 0.0}
+# Records beyond that bound, each printed with both sides and the cache rows
+# whose plan lengths differ: record -> its proven cause. Measured on the CPU
+# port: 1 of 128, steps_to_complete 5 ticks apart, the floats 0.38 m
 MC_NAMED_RECORDS = {
-    102: "world: 73 owner cells of JAX's jitted dynamic-shift flood (same seeds and skeleton)",
-    106: "world: an endpoint-ray seed at x 15.749999 in JAX, 15.75 in the port, whose ray "
-         "then hits a skeleton cell at a cell edge (site not found)",
+    102: "the reference's fault: at an exact tie of two seeds (cell (248, 352), pass 7) its "
+         "jitted flood gives the owner plane seed 85 and the x plane seed 88's x; that phantom "
+         "position then wins 73 cells for seed 85, each 0.035-1.31 m^2 farther than the "
+         "port's owner. JAX's flood run op by op owns every cell as the port does "
+         "(tests/torch_reference/owner_cells.py --world 102)",
 }
 MC_RECORD_BOUND = len(MC_NAMED_RECORDS)
 # ... and even those agree in every other int and bool field, within these
@@ -387,6 +379,7 @@ def phase_environment():
     log(smi)
     log(f"# phase 0: torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
+    return smi
 
 
 def phase_build():
@@ -1068,6 +1061,53 @@ def phase_test_slice(device):
         f"(int/bool bitwise, floats within {worst:g} ulp <= {ULP_BOUND}); "
         f"waypoints {int(gpu[0].waypoints.count)}, plan_len {[int(m['plan_len']) for m in gpu[2]][-1]}; "
         f"host wall s: cuda {t1 - t0:.1f}, cpu {t2 - t1:.1f}")
+
+
+def compact_chain(cells, S):
+    """perceive.rows.compact_cells and the union-find chain on its output,
+    as tests/test_torch_rows.py runs them against the JAX package."""
+    from aosx_torch.perceive import rows
+
+    cell_flat, cell_ok, inv = rows.compact_cells(cells, S)
+    L_fast, overflow = rows.run_level_labels(cell_flat, cell_ok, S.grid_h, S.grid_w, S)
+    nbrs = rows.neighbor_table(cell_flat, cell_ok, inv, S.grid_h, S.grid_w)
+    L_cell = rows.union_find_labels(nbrs[..., [0, 1, 2, 5, 6, 7]], S,
+                                    L0=rows.run_collapse_init(cell_flat, cell_ok, S.grid_w))
+    return dict(cell_flat=cell_flat, cell_ok=cell_ok, inv=inv, L_fast=L_fast,
+                overflow=overflow, nbrs=nbrs, L_cell=L_cell)
+
+
+def phase_compact_cells(device):
+    """Phase 4: compact_cells and the chain on it on the card == the CPU
+    port, every output bitwise, on tests/test_torch_rows.py's masks (random
+    at four densities, the diagonal staircase), one at a time and as one
+    group with a world axis."""
+    import torch
+    from aosx_torch.config import TEST_STATICS as S
+
+    t0 = time.time()
+    masks = []
+    for seed, density in ((0, 0.08), (1, 0.25), (2, 0.6), (3, 0.02)):
+        m = np.zeros((S.grid_h, S.grid_w), bool)
+        m[:48, :64] = np.random.default_rng(seed).random((48, 64)) < density
+        masks.append(m)
+    side = min(S.grid_h, S.grid_w, 200)
+    stair = np.zeros((S.grid_h, S.grid_w), bool)
+    stair[np.arange(side), np.arange(side)] = True
+    masks.append(stair)
+    cases = [(f"mask {i}", torch.from_numpy(m)) for i, m in enumerate(masks)]
+    cases.append(("group of 5", torch.from_numpy(np.stack(masks))))
+    for name, m in cases:
+        cpu = compact_chain(m, S)
+        gpu = compact_chain(m.to(device), S)
+        torch.cuda.synchronize()
+        bad = [k for k in cpu if not torch.equal(cpu[k], gpu[k].cpu())]
+        if bad:
+            raise AssertionError(f"phase 4: compact_cells chain, {name}: card differs from "
+                                 f"the CPU port in {bad}")
+    log(f"# phase 4: perceive.rows.compact_cells + run_level_labels, neighbor_table, "
+        f"union_find_labels at TEST_STATICS: card == CPU port bitwise on {len(masks)} masks "
+        f"and their group; {time.time() - t0:.1f} s")
 
 
 def phase_bench_slice(device, bench_spec):
@@ -2518,12 +2558,13 @@ def main():
             f"({time.time() - started:.1f} s since the start)")
         return out
 
-    phase_environment()
+    card = phase_environment()
     phase(1, phase_build)
     k1 = phase(2, phase_k1, device)
     k2 = phase(3, phase_k2, device, bench_spec)
     phase(4, phase_xla_f32, device)
     phase(4, phase_test_slice, device)
+    phase(4, phase_compact_cells, device)
     launches, stages = phase(5, phase_bench_slice, device, bench_spec)
     k3 = phase(6, phase_k3, device, bench_spec)
     serve_launches, serve_stats = phase(7, phase_serving, device)
@@ -2575,6 +2616,8 @@ def main():
     log(f"# operator's surface: {json.dumps(host_stats)}")
     log(f"# meshes: {json.dumps(mesh_stats)}")
     log(f"# K3 uniform cloud: kernel {k3['uniform_ms']:.3f} ms, plain {k3['uniform_plain_ms']:.3f} ms")
+    # the card's name and power limit again, beside the numbers
+    log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,7 @@ max_plan 1024, exact_fallbacks=False) on the CPU, per cloud:
 
     prepare_world -> build_plan_cache -> tour_feasibility      (one jit)
     -> rollout_chunk_cached (150 ticks, one jit) until the lane retires
-    -> rollout_finish
+    -> rollout_finish (jitted and vmapped, as sustained_rollouts runs it)
 
 A lane retires as ``sustained_rollouts`` retires it: at the first chunk
 boundary at which ``mission.exploration_completed`` is set, or after the
@@ -85,6 +85,13 @@ def main():
 
     chunk = jax.jit(lambda lite, cache, st, acc, params, off: rollout_chunk_cached(
         lite, cache, st, acc, params, s, CHUNK_STEPS, off))
+    # jitted and vmapped, as sustained_rollouts finishes its lanes
+    # (aosx/parallel/batch.py), over a batch of one
+    finish_lanes = jax.jit(jax.vmap(lambda st, acc: rollout_finish(st, acc, s)))
+
+    def finish(st, acc):
+        one = jax.tree_util.tree_map(lambda x: x[None], (st, acc))
+        return jax.tree_util.tree_map(lambda x: x[0], finish_lanes(*one))
 
     def rollout(pc, poly, params):
         lite, cache, st, acc, extra = begin(pc, poly, params)
@@ -92,8 +99,8 @@ def main():
         for c in range(STEPS_BUDGET // CHUNK_STEPS):
             st, acc = chunk(lite, cache, st, acc, params, jnp.int32(c * CHUNK_STEPS))
             if out is None and bool(st.mission.exploration_completed):
-                out = dict(rollout_finish(st, acc, s), chunks=c + 1)
-        full = rollout_finish(st, acc, s)
+                out = dict(finish(st, acc), chunks=c + 1)
+        full = finish(st, acc)
         if out is None:
             out = dict(full, chunks=STEPS_BUDGET // CHUNK_STEPS)
         return out, dict(extra, full_budget=full)

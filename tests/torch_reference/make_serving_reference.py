@@ -96,10 +96,12 @@ def raw_as_plan(raw, params, s):
 
 def raw_rows(world, params, s):
     """(raw xy [R, max_path, 2], raw count [R]) of every plan-cache row:
-    aosx.plan.plancache.build_plan_cache with linearize swapped for a pad."""
+    aosx.plan.plancache.build_plan_cache with linearize swapped for a pad.
+    The params are an argument of the jit, as serve_init receives them: a
+    closed-over num0 would be folded into the A* arithmetic."""
     plancache.linearize = raw_as_plan
     try:
-        cache = jax.jit(lambda w: plancache.build_plan_cache(w, params, s))(world)
+        cache = jax.jit(lambda w, p: plancache.build_plan_cache(w, p, s))(world, params)
     finally:
         plancache.linearize = linearize
     return np.asarray(cache.plan_xy[:, :s.max_path]), np.asarray(cache.plan_count)

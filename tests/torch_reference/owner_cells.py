@@ -21,15 +21,32 @@ the first pass whose owner plane differs from the port's, and where.
 ``analyse`` (torch only; the default) floods the saved inputs with the port's
 plain Jacobi fold (``aosx_torch.gvd.voronoi.jacobi_fold``'s update) under
 several roundings of the cell coordinates and of d2, counts for each the
-cells that differ from every JAX plane, and prints, for every cell where the
-port's rounding differs from the reference, each pass's candidates: owner,
-d2 in f32 under each rounding and in f64.
+cells that differ from every JAX plane, and prints, for the first cells where
+the port's rounding differs from the reference, each pass's candidates:
+owner, d2 in f32 under each rounding and in f64.
+
+``--world N`` does the same for Monte-Carlo world N of
+``make_mc_reference.py`` (``make_orchard_np(MC_SPEC, seed=N)`` at MC_STATICS;
+``chip_smoke.py`` phase 9 names world 102). ``make`` runs JAX's jitted
+``prepare_world_full(with_owner=True)`` with ``jfa_dynamic_shifts=True``, as
+the reference's ``begin`` builds the world, and saves the flood's inputs with
+JAX's owner planes to ``_archive/owner_cells/mc_world<N>_flood_in.npz``
+(gitignored), each as it is ready: that jit's, ``jump_flood`` op by op, the
+static-shift lowering (MC_STATICS' own) with a jit a pass (``static_passes``,
+which also prints each pass's cells whose carried position is not their
+owner's seed), and ``jump_flood`` jitted alone with dynamic shifts (about 2
+min in all). ``analyse`` holds the port's ``jump_flood`` and each rounding of
+its fold against them, and says how much farther (f64) the reference's owner
+lies at each cell where the port's differs.
 
 Run from the repository root:
 
     JAX_PLATFORMS=cpu python tests/torch_reference/owner_cells.py make
     JAX_PLATFORMS=cpu python tests/torch_reference/owner_cells.py passes
     python tests/torch_reference/owner_cells.py analyse
+    JAX_PLATFORMS=cpu python tests/torch_reference/owner_cells.py make --world 102
+    JAX_PLATFORMS=cpu python tests/torch_reference/owner_cells.py passes --world 102
+    python tests/torch_reference/owner_cells.py analyse --world 102
 """
 
 from __future__ import annotations
@@ -49,7 +66,136 @@ REF_OWNER = HERE / "bench_np_seed0_owner.npz"
 JAX_PASSES = ROOT / "_archive" / "owner_cells" / "jax_passes.npz"
 
 
-def make():
+def _files(world):
+    """(flood inputs, JAX's per-pass planes) of the bench orchard or of
+    Monte-Carlo world ``world``."""
+    if world is None:
+        return FLOOD_IN, JAX_PASSES
+    return (JAX_PASSES.with_name(f"mc_world{world}_flood_in.npz"),
+            JAX_PASSES.with_name(f"mc_world{world}_jax_passes.npz"))
+
+
+def _owner_planes(inp, world):
+    """JAX's owner planes of the saved flood, by name."""
+    if world is None:
+        return {"reference (stage_full)": np.load(REF_OWNER)["owner"],
+                "jump_flood alone": inp["owner_alone"],
+                "jump_flood op by op": inp["owner_eager"]}
+    names = {"owner_stage": "reference (prepare_world jit)", "owner_eager": "jump_flood op by op",
+             "owner_static_passes": "static shifts, a jit a pass",
+             "owner_alone": "jump_flood alone"}
+    return {v: inp[k] for k, v in names.items() if k in inp}
+
+
+def make_world(world):
+    """``make --world N``: Monte-Carlo world N's flood inputs and JAX's owner
+    planes (module docstring)."""
+    import jax
+    import jax.numpy as jnp
+
+    sys.path.insert(0, str(HERE))
+    from make_mc_reference import MC_SPEC  # noqa: E402
+
+    from aosx import engine
+    from aosx.config import MC_STATICS, AosParams, params_as_f32
+    from aosx.gvd.graph import merge_seeds
+    from aosx.gvd.voronoi import jump_flood
+    from aosx.orchards import OrchardSpec, make_orchard_np
+    from aosx.types import GridWorld, PointCloud, Polygon, SeedSet
+
+    s = dataclasses.replace(MC_STATICS, jfa_dynamic_shifts=True)
+    xyz, poly = make_orchard_np(OrchardSpec(**MC_SPEC), seed=world)
+    buf = np.zeros((s.max_points, 3), np.float32)
+    buf[:len(xyz)] = xyz
+    valid = np.zeros(s.max_points, bool)
+    valid[:len(xyz)] = True
+
+    @jax.jit
+    def build(pc, poly, params, excl):
+        _, out, owner = engine.prepare_world_full(pc, poly, params, excl, s,
+                                                  ror_method="sorted", with_owner=True)
+        return out.skeleton, merge_seeds(out.seeds, params, s), owner
+
+    skel, merged, owner = jax.block_until_ready(build(
+        PointCloud(xyz=jnp.asarray(buf), valid=jnp.asarray(valid)), Polygon.from_array(poly, s),
+        params_as_f32(AosParams()), jnp.zeros((s.max_exclusions, 3), jnp.float32)))
+    grid = GridWorld(skel.occ, skel.origin_x, skel.origin_y, skel.h_cells, skel.w_cells)
+    seeds = SeedSet(merged.xy, merged.valid, merged.kind)
+    path = _files(world)[0]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    planes = dict(owner_stage=np.asarray(owner))
+
+    def save(name, plane):
+        # saved after each plane, since the jitted floods take long
+        planes[name] = np.asarray(plane)
+        print(f"world {world}, {name}: {int((planes[name] != planes['owner_stage']).sum())} "
+              f"cells differ from the prepare_world jit's", flush=True)
+        np.savez_compressed(
+            path, occ=np.asarray(skel.occ), origin=np.array(
+                [np.asarray(skel.origin_x), np.asarray(skel.origin_y)], np.float32),
+            cells=np.array([int(skel.h_cells), int(skel.w_cells)], np.int32),
+            seeds_xy=np.asarray(merged.xy), seeds_valid=np.asarray(merged.valid),
+            resolution=np.float32(s.resolution), statics="MC_STATICS", **planes)
+
+    with jax.disable_jit():
+        save("owner_eager", jump_flood(grid, seeds, s))
+    save("owner_static_passes", static_passes(grid, seeds, MC_STATICS))
+    save("owner_alone", jax.jit(lambda g, se: jump_flood(g, se, s))(grid, seeds))
+
+
+def static_passes(grid, seeds, s):
+    """aosx.gvd.voronoi.jump_flood's static-shift lowering with every pass
+    jitted on its own (the seed scatter too): the same fold and shifts as
+    the whole static-shift jit, which takes longer than 50 minutes to
+    compile at MC_STATICS on an 8-core CPU, where a pass compiles in
+    seconds."""
+    import jax
+    import jax.numpy as jnp
+
+    from aosx.gvd.voronoi import _jfa_init, _passes, jacobi_fold
+    from aosx.perceive.raster import live_mask, shift2d
+
+    h, w = grid.occ.shape
+    S = seeds.xy.shape[0]
+
+    def fill(a, dy, dx):
+        # shift_fill_s of jump_flood: pad with S, then crop
+        pads = ((max(dy, 0), max(-dy, 0)), (max(dx, 0), max(-dx, 0)))
+        return jnp.pad(a, pads, constant_values=S)[max(-dy, 0):max(-dy, 0) + h,
+                                                   max(-dx, 0):max(-dx, 0) + w]
+
+    def one_pass(g, o0, x0, y0, step):
+        res = jnp.float32(s.resolution)
+        iy = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)
+        ix = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)
+        cellx = g.origin_x + ix.astype(jnp.float32) * res
+        celly = g.origin_y + iy.astype(jnp.float32) * res
+        nb = [(fill(o0, dys * step, dxs * step), shift2d(x0, dys * step, dxs * step),
+               shift2d(y0, dys * step, dxs * step))
+              for dys in (-1, 0, 1) for dxs in (-1, 0, 1) if dys or dxs]
+        return jacobi_fold(o0, x0, y0, nb, S, cellx, celly)
+
+    # where a cell's carried position is not its owner's seed: the jitted
+    # fold updates the owner and the two position planes in fusions of
+    # their own, which can decide a tie apart
+    table = np.concatenate([np.asarray(seeds.xy), [[1e9, 1e9]]]).astype(np.float32)
+    state = jax.jit(lambda g, se: _jfa_init(g, se, s))(grid, seeds)
+    for m, step in enumerate(_passes(s), 1):
+        state = jax.jit(one_pass, static_argnums=4)(grid, *state, step)
+        o, x, y = (np.asarray(a) for a in state)
+        own = table[np.minimum(o, S)]
+        apart = np.argwhere((o < S) & ((x != own[..., 0]) | (y != own[..., 1])))
+        if len(apart):
+            c = tuple(int(v) for v in apart[0])
+            print(f"static shifts, pass {m} (step {step}): {len(apart)} cells hold a position "
+                  f"that is not their owner's seed, the first {c}: owner {o[c]} at "
+                  f"{table[o[c]].tolist()}, position {[float(x[c]), float(y[c])]}", flush=True)
+    return jnp.where(live_mask(grid) & (state[0] < S), state[0], -1)
+
+
+def make(world=None):
+    if world is not None:
+        return make_world(world)
     import jax
     import jax.numpy as jnp
 
@@ -114,17 +260,22 @@ def make():
         owner_alone=np.asarray(alone), owner_eager=eager)
 
 
-def jax_passes():
-    """JAX's jitted dynamic-shift flood stopped after m passes, m = 1..12."""
+def _statics_name(inp):
+    return str(inp["statics"]) if "statics" in inp else "BENCH_STATICS"
+
+
+def jax_passes(world=None):
+    """JAX's jitted dynamic-shift flood stopped after m passes, m = 1..all."""
     import jax
     import jax.numpy as jnp
 
-    from aosx.config import BENCH_STATICS
+    import aosx.config
     from aosx.gvd.voronoi import _jfa_init, _passes, jacobi_fold
     from aosx.types import GridWorld, SeedSet
 
-    inp = dict(np.load(FLOOD_IN))
-    s = BENCH_STATICS
+    flood_in, passes_out = _files(world)
+    inp = dict(np.load(flood_in))
+    s = getattr(aosx.config, _statics_name(inp))
     grid = GridWorld(jnp.asarray(inp["occ"]), jnp.float32(inp["origin"][0]),
                      jnp.float32(inp["origin"][1]), jnp.int32(inp["cells"][0]),
                      jnp.int32(inp["cells"][1]))
@@ -164,8 +315,8 @@ def jax_passes():
     for m in range(1, len(passes) + 1):
         out[f"m{m}"] = np.asarray(jax.jit(lambda g, se: flood(g, se, m))(grid, seeds))
         print(f"passes[:{m}] done", flush=True)
-    JAX_PASSES.parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(JAX_PASSES, **out)
+    passes_out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(passes_out, **out)
 
 
 # ---------------------------------------------------------------------------
@@ -226,10 +377,11 @@ def flood(inp, variant, watch=(), states=None):
     pass the candidates (owner, {variant: d2 f32}, d2 f64) at that cell."""
     import torch
 
-    from aosx_torch.config import BENCH_STATICS
+    import aosx_torch.config
     from aosx_torch.gvd.voronoi import _jfa_init, _passes
     from aosx_torch.types import GridWorld, SeedSet
 
+    s = getattr(aosx_torch.config, _statics_name(inp))
     fused, form = VARIANTS[variant]
     occ = torch.from_numpy(inp["occ"])
     origin, res = inp["origin"], inp["resolution"]
@@ -239,14 +391,14 @@ def flood(inp, variant, watch=(), states=None):
     seeds = SeedSet(sxy, torch.from_numpy(inp["seeds_valid"]),
                     torch.zeros(len(sxy), dtype=torch.int8))
     S = len(sxy)
-    owner, table = _jfa_init(grid, seeds, BENCH_STATICS)
+    owner, table = _jfa_init(grid, seeds, s)
     pos = table[owner.long()]
     o, x, y = owner, pos[..., 0].contiguous(), pos[..., 1].contiguous()
     cellx, celly = _coords(occ.shape, origin, res, fused)
     all_coords = {v: _coords(occ.shape, origin, res, f) for v, (f, _) in VARIANTS.items()}
     inf = torch.tensor(3.4e38)
     trace = {c: [] for c in watch}
-    for step in _passes(BENCH_STATICS):
+    for step in _passes(s):
         cands = _candidates(o, x, y, step, S)
         for (cy_, cx_) in watch:
             rows = []
@@ -283,37 +435,78 @@ def flood(inp, variant, watch=(), states=None):
     return torch.where(live & (o < S), o, -1).numpy(), trace
 
 
-def analyse():
+# cells whose per-pass candidates analyse prints
+TRACED = 8
+
+
+def _port_jump_flood(inp):
+    """The port's own jump_flood (the plain Jacobi fold on the CPU) of the
+    saved inputs."""
+    import torch
+
+    import aosx_torch.config
+    from aosx_torch.gvd.voronoi import jump_flood
+    from aosx_torch.types import GridWorld, SeedSet
+
+    origin = inp["origin"]
+    h_cells, w_cells = (torch.tensor(int(v), dtype=torch.int32) for v in inp["cells"])
+    grid = GridWorld(torch.from_numpy(inp["occ"]), torch.tensor(origin[0]),
+                     torch.tensor(origin[1]), h_cells, w_cells)
+    sxy = torch.from_numpy(inp["seeds_xy"])
+    seeds = SeedSet(sxy, torch.from_numpy(inp["seeds_valid"]),
+                    torch.zeros(len(sxy), dtype=torch.int8))
+    return jump_flood(grid, seeds, getattr(aosx_torch.config, _statics_name(inp))).numpy()
+
+
+def analyse(world=None):
     import torch
 
     torch.set_num_threads(4)
-    inp = dict(np.load(FLOOD_IN))
-    ref = np.load(REF_OWNER)["owner"]
-    planes = {"reference (stage_full)": ref, "jump_flood alone": inp["owner_alone"],
-              "jump_flood op by op": inp["owner_eager"]}
+    flood_in, passes_in = _files(world)
+    inp = dict(np.load(flood_in))
+    planes = _owner_planes(inp, world)
+    ref_name = next(iter(planes))
+    ref = planes[ref_name]
     for a, pa in planes.items():
         for b, pb in planes.items():
             if a < b:
                 print(f"JAX {a} vs JAX {b}: {int((pa != pb).sum())} cells differ")
     port, _ = flood(inp, "port")
+    own = _port_jump_flood(inp)
+    print(f"the port's jump_flood vs its fold here ('port'): {int((own != port).sum())} cells "
+          "differ; vs JAX's planes: " + json.dumps(
+              {a: int((own != pa).sum()) for a, pa in planes.items()}), flush=True)
     cells = [tuple(int(v) for v in c) for c in np.argwhere(port != ref)]
     summary = {}
     for v in VARIANTS:
         got = port if v == "port" else flood(inp, v)[0]
         summary[v] = {a: int((got != pa).sum()) for a, pa in planes.items()}
         print(f"port flood, {v}: cells differing from " + json.dumps(summary[v]), flush=True)
-    print(f"cells where the port differs from the reference: {cells}")
-    _, trace = flood(inp, "port", watch=cells)
-    for c in cells:
-        print(f"\ncell (row, col) {c}: reference owner {ref[c]}, port {port[c]}, "
-              f"alone {inp['owner_alone'][c]}, op by op {inp['owner_eager'][c]}")
+    print(f"cells where the port differs from the reference: {len(cells)}, "
+          f"the first {cells[:TRACED]}")
+    # f64 squared distance from a cell's corner to each plane's owner there
+    xy, org = inp["seeds_xy"].astype(np.float64), inp["origin"].astype(np.float64)
+    res = float(np.float32(inp["resolution"]))
+
+    def d2_64(c, k):
+        return float(((xy[k] - (org + np.array([c[1], c[0]]) * res)) ** 2).sum())
+
+    gaps = [d2_64(c, ref[c]) - d2_64(c, port[c]) for c in cells]
+    if gaps:
+        print(f"at those cells the reference's owner lies farther than the port's (f64 d2, "
+              f"m^2): {sum(g > 0 for g in gaps)} of {len(gaps)} cells, by "
+              f"{min(gaps)!r} to {max(gaps)!r}")
+    _, trace = flood(inp, "port", watch=cells[:TRACED])
+    for c in cells[:TRACED]:
+        print(f"\ncell (row, col) {c}: port {port[c]} (f64 d2 {d2_64(c, port[c])!r}), "
+              + ", ".join(f"{a} {pa[c]} ({d2_64(c, pa[c])!r})" for a, pa in planes.items()))
         for step, rows in trace[c]:
             print(f"  pass step {step}:")
             for k, d32, d64 in rows:
                 vals = " ".join(f"{v}={d!r}" for v, d in d32)
                 print(f"    owner {k}: f64 {d64!r}  f32 {vals}")
-    if JAX_PASSES.exists():
-        jp = np.load(JAX_PASSES)
+    if passes_in.exists():
+        jp = np.load(passes_in)
         print("\nJAX's jitted flood stopped after m passes against the port's state after m "
               "passes, cells that differ under each rounding:")
         for v in VARIANTS:
@@ -338,5 +531,11 @@ def analyse():
 
 
 if __name__ == "__main__":
-    mode = sys.argv[1] if len(sys.argv) > 1 else "analyse"
-    {"make": make, "passes": jax_passes, "analyse": analyse}[mode]()
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("mode", nargs="?", default="analyse", choices=("make", "passes", "analyse"))
+    ap.add_argument("--world", type=int, default=None,
+                    help="a Monte-Carlo world of make_mc_reference.py in place of the bench orchard")
+    a = ap.parse_args()
+    {"make": make, "passes": jax_passes, "analyse": analyse}[a.mode](a.world)
