@@ -50,7 +50,11 @@ kernel on them:
            parked as ror_counts parks it, and a uniform cloud at its
            density) through the kernel and the plain version; bitwise equal;
            with the world axis, 32 MC orchards' clouds in one launch against
-           the plain batched counts and each cloud's single-world launch
+           the plain batched counts and each cloud's single-world launch;
+           clouds of sizes that are no multiple of the kernel's tile (1, 33,
+           2,047, 2,049, 5,000 points, and 3 worlds of 3,000 with r2 each
+           its own), bitwise; the run fails if K3 beats its bound (the
+           n (n + 1) / 2 pairs a world of the all-pairs function)
   phase 7  the serving loop at BENCH_STATICS with ror_method="pallas" over
            seven map frames (levels 0, 2, 2, 2, 2, 0, 3), 20 ticks each, then
            serve_control_tick fed the replay's poses: held against the JAX
@@ -1188,53 +1192,95 @@ def phase_bench_slice(device, bench_spec):
                           stage_full_ms=t_total)
 
 
-def phase_k3(device, bench_spec):
+def k3_clouds(device, bench_spec):
+    """K3's single-world inputs at BENCH_STATICS: the bench orchard parked
+    and padded as ror_counts parks and pads it, and a uniform cloud at its
+    density (its bounding box stretched along x to hold as many points).
+    Returns ((name, [N, 3] points), ...), r2."""
     import torch
     from aosx_torch.config import BENCH_STATICS as S, AosParams
-    from aosx_torch.perceive import points, ror_cuda
+    from aosx_torch.perceive import points
 
     r2 = torch.tensor(AosParams().ror_radius, dtype=torch.float32, device=device) ** 2
     pc, _ = cloud(S, bench_spec, 0, device)
     n = S.max_points
     n_valid = int(pc.valid.sum())
-    # a uniform cloud at the orchard's density: its bounding box stretched
-    # along x to hold n points
     xyz = pc.xyz[pc.valid].cpu().numpy()
     lo, hi = xyz.min(0), xyz.max(0)
     hi_x = lo[0] + (hi[0] - lo[0]) * n / n_valid
     rng = np.random.default_rng(1)
     uniform = np.stack([rng.uniform(lo[0], hi_x, n), rng.uniform(lo[1], hi[1], n),
                         rng.uniform(lo[2], hi[2], n)], 1).astype(np.float32)
-    clouds = (("bench orchard", points.pad_to_block(points.park(pc.xyz, pc.valid), 2048)),
-              ("uniform", torch.from_numpy(uniform).to(device)))
+    return ((("bench orchard", points.pad_to_block(points.park(pc.xyz, pc.valid), 2048)),
+             ("uniform", torch.from_numpy(uniform).to(device))), r2)
+
+
+def k3_group(device, G=WORLDS):
+    """K3's world-axis input: the parked clouds of G Monte-Carlo orchards,
+    [G, 4096, 3], and r2."""
+    import torch
+    from aosx_torch import tree
+    from aosx_torch.config import MC_STATICS as S, AosParams
+    from aosx_torch.orchards import OrchardSpec
+    from aosx_torch.perceive import points
+
+    spec = OrchardSpec(**json.loads(MC_REFERENCE.read_text())["spec"])
+    pc, _ = tree.stack([cloud(S, spec, i, device) for i in range(G)])
+    pts = points.pad_to_block(points.park(pc.xyz, pc.valid), 2048).contiguous()
+    r2 = torch.tensor(AosParams().ror_radius, dtype=torch.float32, device=device) ** 2
+    return pts, r2
+
+
+def k3_bound(G, m):
+    """K3's bound for G worlds of m points: (ms, "bytes" or "operations",
+    ms of the all-ordered-pairs count). The all-pairs function the TPU
+    kernel defines compares every pair's d2 with r2, so its least work is
+    the m (m + 1) / 2 distinct and self pairs a world (d2 is symmetric bit
+    for bit; a schedule that skipped far or parked pairs is not counted),
+    each 6 FP32 instructions (1 mul + 2 fma for a.b, the sum of
+    norms, 1 fma for the difference, the compare) and an INT32 add; the
+    input is read once (12 B a point), the counts written once (4 B). The
+    second count charges all m^2 ordered pairs, as an implementation that
+    evaluates both orders does."""
+    pairs = G * m * (m + 1) / 2
+    b_ms, b_by = bound(16 * G * m, fp32_ops=6.0 * pairs, int32_ops=pairs)
+    square_ms, _ = bound(16 * G * m, fp32_ops=6.0 * G * m * m, int32_ops=1.0 * G * m * m)
+    return b_ms, b_by, square_ms
+
+
+def phase_k3(device, bench_spec):
+    import torch
+    from aosx_torch.cuda_build import timed_ms
+    from aosx_torch.perceive import ror_cuda
+
+    # the kernel's ms with the card kept busy ahead of the launch, as K1's,
+    # K2's and the probes'
+    clouds, r2 = k3_clouds(device, bench_spec)
     out = {}
     for name, pts in clouds:
-        got, ms_k = cuda_ms(lambda: ror_cuda.ror_counts(pts, r2), REPS)
+        got, ms_k = timed_ms(lambda: ror_cuda.ror_counts(pts, r2), device, REPS)
         ref, ms_p = cuda_ms(lambda: ror_cuda.ror_counts_plain(pts, r2), 2)
         equal = torch.equal(got, ref)
         err = float((got.double() - ref.double()).abs().max())
+        b_ms, b_by, square_ms = k3_bound(1, pts.shape[0])
         log(f"# phase 6: K3 ROR counts, {name} cloud, N = {pts.shape[0]}, r = 0.2: kernel "
             f"{ms_k:.3f} ms, plain {ms_p:.3f} ms, bitwise equal {equal}, mean count "
-            f"{float(got.float().mean()):.2f}")
+            f"{float(got.float().mean()):.2f}; bound {b_ms:.3f} ms ({b_by}), "
+            f"{100 * b_ms / ms_k:.1f} % of it (all ordered pairs: {square_ms:.3f} ms, "
+            f"{100 * square_ms / ms_k:.1f} %)")
         if not equal:
             raise AssertionError(f"K3 differs from its plain version on the {name} cloud "
                                  f"(max abs err {err})")
-        out[name] = dict(ms=ms_k, plain_ms=ms_p, max_abs_err=err)
-    # N^2 pairs of 6 FP32 instructions (1 mul + 2 fma for a.b, the sum of
-    # norms, 1 fma for the difference, the compare) and an INT32 add each,
-    # 7 to dispatch; the input is read once (12 B a point), the counts
-    # written once (4 B)
-    m = clouds[0][1].shape[0]
-    b_ms, b_by = bound(16 * m, fp32_ops=6.0 * m * m, int32_ops=1.0 * m * m)
-    bench = out["bench orchard"]
-    log(f"# phase 6: K3 bound {b_ms:.3f} ms ({b_by}); kernel at {100 * b_ms / bench['ms']:.1f} % "
-        f"of it on the bench cloud")
+        assert_under_bound(f"K3 {name} cloud", ms_k, b_ms)
+        out[name] = dict(ms=ms_k, plain_ms=ms_p, max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
     group = phase_k3_world_axis(device)
+    phase_k3_odd_sizes(device)
+    bench = out["bench orchard"]
     return dict(max_abs_err=max(group.pop("max_abs_err"),
                                 *(o["max_abs_err"] for o in out.values())),
                 ms=bench["ms"], plain_ms=bench["plain_ms"], uniform_ms=out["uniform"]["ms"],
-                uniform_plain_ms=out["uniform"]["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                world_axis=group)
+                uniform_plain_ms=out["uniform"]["plain_ms"], bound_ms=bench["bound_ms"],
+                bound_by=bench["bound_by"], world_axis=group)
 
 
 def phase_k3_world_axis(device, G=WORLDS):
@@ -1243,15 +1289,10 @@ def phase_k3_world_axis(device, G=WORLDS):
     single-world kernel on each cloud, bitwise; ms a group beside G
     single-world launches; the group's bound."""
     import torch
-    from aosx_torch import tree
-    from aosx_torch.config import MC_STATICS as S, AosParams
-    from aosx_torch.orchards import OrchardSpec
-    from aosx_torch.perceive import points, ror_cuda
+    from aosx_torch.cuda_build import timed_ms
+    from aosx_torch.perceive import ror_cuda
 
-    spec = OrchardSpec(**json.loads(MC_REFERENCE.read_text())["spec"])
-    pc, _ = tree.stack([cloud(S, spec, i, device) for i in range(G)])
-    pts = points.pad_to_block(points.park(pc.xyz, pc.valid), 2048).contiguous()
-    r2 = torch.tensor(AosParams().ror_radius, dtype=torch.float32, device=device) ** 2
+    pts, r2 = k3_group(device, G)
     ref, ms_p = cuda_ms(lambda: ror_cuda.ror_counts_plain(pts, r2), 2)
     zero_counts([ror_cuda.ror_counts])
     got = ror_cuda.ror_counts(pts, r2)
@@ -1264,19 +1305,51 @@ def phase_k3_world_axis(device, G=WORLDS):
     for g in range(G):
         if not torch.equal(ror_cuda.ror_counts(singles[g], r2), got[g]):
             raise AssertionError(f"K3 group: cloud {g} differs from its single-world launch")
-    _, ms_k = cuda_ms(lambda: ror_cuda.ror_counts(pts, r2), REPS)
-    _, ms_1 = cuda_ms(lambda: [ror_cuda.ror_counts(c, r2) for c in singles], REPS)
+    _, ms_k = timed_ms(lambda: ror_cuda.ror_counts(pts, r2), device, REPS)
+    _, ms_1 = timed_ms(lambda: [ror_cuda.ror_counts(c, r2) for c in singles], device, REPS)
     m = pts.shape[1]
-    b_ms, b_by = bound(16 * G * m, fp32_ops=6.0 * G * m * m, int32_ops=1.0 * G * m * m)
+    b_ms, b_by, square_ms = k3_bound(G, m)
     log(f"# phase 6: K3 world axis, {G} MC clouds of {m} points: {launches} launch, "
         f"{ms_k:.4f} ms a group against {ms_1:.4f} ms for {G} single-world launches; plain "
         f"batched {ms_p:.2f} ms; bitwise equal to both; bound {b_ms:.4f} ms ({b_by}), "
-        f"{100 * b_ms / ms_k:.1f} % of it")
+        f"{100 * b_ms / ms_k:.1f} % of it (all ordered pairs: {square_ms:.4f} ms, "
+        f"{100 * square_ms / ms_k:.1f} %)")
     if launches != 1:
         raise AssertionError(f"K3 group of {G}: {launches} launches, expected 1")
+    assert_under_bound(f"K3 group of {G}", ms_k, b_ms)
     return dict(worlds=G, points=m, group_ms=ms_k, singles_ms=ms_1, group_plain_ms=ms_p,
                 group_bound_ms=b_ms, group_bound_by=b_by, group_launches=launches,
                 max_abs_err=err)
+
+
+K3_ODD_SIZES = (1, 33, 2047, 2049, 5000)
+K3_ODD_GROUP = (3, 3000)
+
+
+def phase_k3_odd_sizes(device):
+    """K3 on clouds whose size is no multiple of its tile, single worlds and
+    a group with r2 each its own: bitwise its plain version, one launch a
+    call."""
+    import torch
+    from aosx_torch.perceive import ror_cuda
+    from torch_helpers import far_cloud
+
+    cases = [(f"n = {n}", far_cloud((n, 3), n), np.float32(0.2) ** 2) for n in K3_ODD_SIZES]
+    G, n = K3_ODD_GROUP
+    cases.append((f"{G} worlds of {n}", far_cloud((G, n, 3), 7),
+                  np.float32([0.2, 0.3, 0.15]) ** 2))
+    for name, xyz, r2 in cases:
+        pts = torch.from_numpy(xyz).to(device)
+        r2 = torch.from_numpy(np.asarray(r2)).to(device)
+        zero_counts([ror_cuda.ror_counts])
+        got = ror_cuda.ror_counts(pts, r2)
+        if ror_cuda.ror_counts.launches != 1:
+            raise AssertionError(f"K3 {name}: {ror_cuda.ror_counts.launches} launches")
+        ref = ror_cuda.ror_counts_plain(pts, r2)
+        if not torch.equal(got, ref):
+            err = float((got.double() - ref.double()).abs().max())
+            raise AssertionError(f"K3 {name} differs from its plain version (max abs err {err})")
+    log(f"# phase 6: K3 bitwise its plain version on {', '.join(c[0] for c in cases)}")
 
 
 def serving_frames(ref, statics, device):

@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from aosx_torch.perceive import points, ror_cuda
-from torch_helpers import cuda_device, one_torch_thread  # noqa: F401
+from torch_helpers import cuda_device, far_cloud, one_torch_thread  # noqa: F401
 
 R = 0.2
 TIE_ULP = 4
@@ -209,15 +209,71 @@ def test_pallas_method_matches_pallas_interpret_far_from_origin():
 
 
 # ---------------------------------------------------------------------------
+# K3's premise: each unordered pair evaluated once
+# ---------------------------------------------------------------------------
+
+
+def _d2(pts):
+    """The plain version's d2 plane of one [n, 3] world, every ordered pair."""
+    sq = ror_cuda._dot3(pts, pts)
+    dot = ror_cuda._dot3(pts[:, None, :], pts[None, :, :])
+    return (sq[:, None] + sq[None, :]) - 2.0 * dot
+
+
+def _upper_triangle_counts(pts, r2):
+    """Counts from each unordered pair evaluated once (i < j), both ends
+    credited, plus each point's self pair once: K3's schedule."""
+    out = []
+    for world, r2w in zip(pts.reshape(-1, *pts.shape[-2:]), r2.reshape(-1)):
+        n = world.shape[0]
+        d2 = _d2(world)
+        upper = torch.ones(n, n, dtype=torch.bool).triu(1)
+        hit = (d2 <= r2w) & upper
+        self_hit = torch.diagonal(d2) <= r2w
+        out.append(hit.sum(1) + hit.sum(0) + self_hit)
+    return torch.stack(out).reshape(pts.shape[:-1]).to(torch.int32)
+
+
+@pytest.mark.parametrize("cloud", ["orchard", "near origin"])
+def test_plain_d2_is_bitwise_symmetric(cloud):
+    """d2(a, b) == d2(b, a) bit for bit under the plain formula (fma, * and
+    + commute exactly), and d2(a, a) == 0, parked and -1e9 points included:
+    the premise that lets K3 evaluate each unordered pair once."""
+    if cloud == "orchard":
+        xyz = far_cloud((3000, 3), 21)
+    else:
+        xyz = _parked(*_cloud(n=3000, seed=21, invalid=40))
+    d2 = _d2(torch.from_numpy(xyz))
+    assert torch.equal(d2, d2.T)
+    assert torch.equal(torch.diagonal(d2), torch.zeros(len(xyz)))
+
+
+@pytest.mark.parametrize("G", [1, 3])
+def test_upper_triangle_counts_equal_plain(G):
+    """Counting each unordered pair once, crediting both ends and the self
+    pair once, gives ror_counts_plain's counts exactly, on orchard
+    coordinates with parked and padding points; for a group, each world
+    with its own r2."""
+    shape = (G, 3000, 3) if G > 1 else (3000, 3)
+    pts = torch.from_numpy(far_cloud(shape, 5 + G))
+    r2 = torch.tensor([0.2, 0.3, 0.15][:G]).reshape(shape[:-2]) ** 2
+    ref = ror_cuda.ror_counts_plain(pts, r2)
+    got = _upper_triangle_counts(pts, r2)
+    assert torch.equal(got, ref)
+    assert int(ref[..., :2000].min()) >= 1 and float(ref[..., :2000].float().mean()) > 2
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [2048, 131072])
+@pytest.mark.parametrize("n", [1, 33, 2047, 2048, 2049, 5000, 131072])
 def test_ror_kernel_matches_plain(cuda_device, n):  # noqa: F811
     """K3 against its plain version on the card, bitwise on every point,
-    parked and padded ones included."""
+    parked and padded ones included, at sizes that are and are not
+    multiples of its tile."""
     xyz, valid = _cloud(n=n, seed=11, invalid=n // 40)
     pts = torch.from_numpy(_parked(xyz, valid)).to(cuda_device)
     pts[-7:] = -1e9
@@ -243,3 +299,19 @@ def test_pallas_method_on_card_matches_cpu(cuda_device, method):  # noqa: F811
     got, _ = points.ror_counts(*(a.to(cuda_device) for a in args), R, method=method)
     assert ror_cuda.ror_counts.launches == n0 + 1
     assert torch.equal(ref, got.cpu())
+
+
+@pytest.mark.cuda
+def test_ror_kernel_group_matches_plain(cuda_device):  # noqa: F811
+    """K3 on a group of 3 worlds of 3,000 points, r2 each its own: one
+    launch, bitwise the plain batched version and each world's own
+    launch."""
+    pts = torch.from_numpy(far_cloud((3, 3000, 3), 7)).to(cuda_device)
+    r2 = torch.tensor([0.2, 0.3, 0.15], device=cuda_device) ** 2
+    n0 = ror_cuda.ror_counts.launches
+    got = ror_cuda.ror_counts(pts, r2)
+    torch.cuda.synchronize()
+    assert ror_cuda.ror_counts.launches == n0 + 1
+    assert torch.equal(ror_cuda.ror_counts_plain(pts, r2), got)
+    for g in range(3):
+        assert torch.equal(ror_cuda.ror_counts(pts[g].contiguous(), r2[g]), got[g])

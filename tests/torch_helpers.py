@@ -36,6 +36,22 @@ def orchard_buffers(statics, seed=0, spec=SPEC):
     return buf, valid, poly
 
 
+def far_cloud(shape, seed):
+    """K3's odd-size input: points at orchard coordinates (150-190 m out,
+    where the dot formula cancels) of the given [*B, n, 3] shape, the last
+    tenth of each world parked as ``points.park`` parks it and the last 7
+    points at -1e9 as ``points.pad_to_block`` pads. Used by
+    tests/test_torch_ror.py and chip_smoke.py."""
+    rng = np.random.default_rng(seed)
+    n = shape[-2]
+    xyz = np.stack([rng.uniform(150.0, 156.0, shape[:-1]), rng.uniform(184.0, 190.0, shape[:-1]),
+                    rng.uniform(-0.3, 0.4, shape[:-1])], -1).astype(np.float32)
+    parked = n - n // 10
+    xyz[..., parked:, :] = 1e9 + np.arange(parked, n, dtype=np.float32)[:, None] * 1e3
+    xyz[..., max(n - 7, 1):, :] = -1e9
+    return xyz
+
+
 def blobby_mask(h, w, seed, density=0.004, live_h=None, live_w=None):
     """Random dilated blobs confined to the live region (the thinning input
     of tests/test_pallas_kernels.py)."""

@@ -20,30 +20,14 @@ unpacked with ``git archive`` into a directory that .gitignore lists:
 from __future__ import annotations
 
 import argparse
-import importlib
-import importlib.util
 import json
 import pathlib
-import sys
 
 import torch
 
-ROOT = pathlib.Path(__file__).resolve().parents[2]
-sys.path.insert(0, str(ROOT))
+from turns import in_turns, load_other
 
-from aosx_torch import probes  # noqa: E402
-from aosx_torch.cuda_build import timed_ms  # noqa: E402
-
-
-def load_other(root: pathlib.Path):
-    """The ``aosx_torch.probes`` module of the checkout at ``root``."""
-    pkg = root.resolve() / "aosx_torch"
-    spec = importlib.util.spec_from_file_location(
-        "aosx_torch_other", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules["aosx_torch_other"] = mod
-    spec.loader.exec_module(mod)
-    return importlib.import_module("aosx_torch_other.probes")
+from aosx_torch import probes
 
 
 def main(argv=None):
@@ -52,7 +36,7 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=9)
     args = ap.parse_args(argv)
     device = torch.device("cuda", 0)
-    sides = {"other": load_other(args.other), "this": probes}
+    sides = {"other": load_other(args.other, "probes"), "this": probes}
     seed = probes.seed_tensor(device)
     probe_in = probes.gather_rows_inputs(device)
     random_in = probes.gather_rows_random_inputs(device)
@@ -63,20 +47,7 @@ def main(argv=None):
         ("P3 random input", lambda m: m.gather_rows(*random_in)),
     ]
     print(f"# {torch.cuda.get_device_name(device)}", flush=True)
-    summary = {}
-    for name, fn in cases:
-        results, times = {}, []
-        for side in ("other", "this", "this", "other"):
-            out, ms = timed_ms(lambda: fn(sides[side]), device, args.reps)
-            out = out if isinstance(out, tuple) else (out,)
-            if side in results and not all(torch.equal(a, b) for a, b in zip(out, results[side])):
-                raise AssertionError(f"{name}: {side} differs between its own calls")
-            results[side] = out
-            times.append((side, ms))
-            print(f"{name}: {side} {ms:.4f} ms", flush=True)
-        if not all(torch.equal(a, b) for a, b in zip(results["other"], results["this"])):
-            raise AssertionError(f"{name}: the two checkouts differ")
-        summary[name] = {s: [ms for side, ms in times if side == s] for s in ("other", "this")}
+    summary = in_turns(cases, sides, ["other", "this", "this", "other"], device, args.reps)
     print(json.dumps(summary))
 
 
