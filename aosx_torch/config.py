@@ -13,12 +13,15 @@ Two kinds of configuration:
 ``AosParams`` -- runtime scalars; ``params_as_f32`` turns them into 0-d
                  tensors on an explicit device.
 
-Three fields exist only for field parity and are ignored here:
 ``jfa_pass_pallas``, ``skeleton_pallas`` and ``jfa_dynamic_shifts`` choose
 between TPU/XLA lowerings in ``aosx``. In this package every jump-flood pass
 and every thinning iteration runs through its hand-written CUDA kernel when
 the tensors live on a CUDA device (``gvd/jfa_pass_cuda.py``,
-``perceive/skeleton_cuda.py``).
+``perceive/skeleton_cuda.py``), whatever they say. ``skeleton_pallas``
+exists only for field parity. ``jfa_pass_pallas`` and ``jfa_dynamic_shifts``
+choose how each flood pass rounds its squared distances: as ``aosx``'s
+XLA:CPU build of the lowering they select for that pass
+(``gvd/voronoi.py``'s ``pass_roundings``).
 """
 
 from __future__ import annotations
@@ -72,10 +75,12 @@ class Statics:
     trim_max_distance: float = 0.2
     skeleton_max_iters: int = 64
     ccl_max_iters: int = 32
-    # kept for field parity with aosx; no effect in this package
+    # with jfa_pass_pallas: the flood's rounding (gvd/voronoi.py's
+    # pass_roundings)
     jfa_dynamic_shifts: bool = False
     exact_fallbacks: bool = True
-    # kept for field parity with aosx; no effect in this package
+    # the flood's rounding: aosx's Pallas pass kernel's for steps <= 128
+    # (gvd/voronoi.py's pass_roundings)
     jfa_pass_pallas: bool = False
     # kept for field parity with aosx; no effect in this package
     skeleton_pallas: bool = False

@@ -12,7 +12,10 @@
 // Neighbours outside the grid read owner S; owners >= S never win (their d2 is
 // 3.4e38). Cell coordinates are fma((float)index, res, origin) and d2 is
 // fma(dx, dx, dy * dy): each rounded once, as XLA:CPU fuses the reference's
-// expressions.
+// expressions in its XLA lowering. The passes that aosx runs through the TPU
+// kernel round d2 as XLA:CPU builds that kernel's owner plane inside a jit:
+// a rounding a direction, the same in every cell and band (Rounding below,
+// aosx_torch/gvd/voronoi.py's ROUNDINGS). The call gives each pass its code.
 //
 // Bound on the H100. The carried positions are redundant: the flood starts
 // with (ox, oy) = table[owner] for table = seeds.xy with a row (1e9, 1e9)
@@ -51,6 +54,17 @@
 //     world's table and walks that world's plane only. A group of more worlds
 //     than co-resident blocks is launched in chunks (the entry point counts
 //     its launches). One plane is G = 1.
+//   - In a Pallas-rounded pass the d2 of one owner depends on the direction,
+//     so a neighbour with the cell's current owner cannot simply be skipped.
+//     The fold is a lexicographic min over the candidates' (d2, owner), which
+//     no order changes, so the pass folds the candidates of each form apart,
+//     each fold skipping an owner it holds (same owner, same position, same
+//     form: the same d2), and takes the smaller of the two results. The cell's
+//     own owner is in the alt fold; its d2 in the other form is computed with
+//     it (a mul and an FMA or add), so that an X neighbour with the cell's
+//     owner needs no gather. It folds a thread's 4 cells one at a time, so
+//     that only one cell's two folds hold registers. The pass is a template on
+//     the rounding; each pass of the launch picks its instance.
 //   - Built with -fmad=false and written with __fsub_rn/__fmul_rn/__fmaf_rn so
 //     that the compiler contracts nothing on its own: the cell coordinates and
 //     d2 round exactly as the plain version's (ops.fma where the reference
@@ -69,9 +83,24 @@ constexpr float kInf = 3.4e38f;
 constexpr int kMaxSteps = 32;
 constexpr int kMaxThreads = 1024;
 
+// A pass's rounding of d2 for dx = px - cx, dy = py - cy. X is
+// fma(dx, dx, dy * dy) for every candidate. The Pallas roundings give the
+// cell's own owner and some neighbours m of fold order (dys, dxs) = (-1, -1),
+// (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1) another form,
+// "alt":
+//   kPallas: alt = fma(dy, dy, dx * dx) for m = 0, 1;
+//   kPallasLast (a flood's last pass, whose position planes XLA drops):
+//     alt = dx * dx + dy * dy, each product rounded, for m = 0, 1, 2, 4.
+enum Rounding { kXla = 0, kPallas = 1, kPallasLast = 2 };
+
+__host__ __device__ constexpr bool takes_alt(int R, int m) {
+  return R == kPallas ? m <= 1 : R == kPallasLast ? (m <= 2 || m == 4) : false;
+}
+
 struct Steps {
   int n;
   int v[kMaxSteps];
+  int rounding[kMaxSteps];
 };
 
 // fma(dx, dx, dy * dy): the fused multiply-add XLA:CPU makes of the
@@ -80,6 +109,26 @@ __device__ __forceinline__ float dist2(float2 p, float cx, float cy) {
   const float dx = __fsub_rn(p.x, cx);
   const float dy = __fsub_rn(p.y, cy);
   return __fmaf_rn(dx, dx, __fmul_rn(dy, dy));
+}
+
+// d2 in the alt form of rounding R
+template <int R>
+__device__ __forceinline__ float dist2_alt(float2 p, float cx, float cy) {
+  const float dx = __fsub_rn(p.x, cx);
+  const float dy = __fsub_rn(p.y, cy);
+  return R == kPallas ? __fmaf_rn(dy, dy, __fmul_rn(dx, dx))
+                      : __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+}
+
+// d2 in both forms of rounding R: x = fma(dx, dx, dy * dy), y = alt
+template <int R>
+__device__ __forceinline__ float2 dist2_both(float2 p, float cx, float cy) {
+  const float dx = __fsub_rn(p.x, cx);
+  const float dy = __fsub_rn(p.y, cy);
+  const float dy2 = __fmul_rn(dy, dy);
+  const float alt = R == kPallas ? __fmaf_rn(dy, dy, __fmul_rn(dx, dx))
+                                 : __fadd_rn(__fmul_rn(dx, dx), dy2);
+  return make_float2(__fmaf_rn(dx, dx, dy2), alt);
 }
 
 // Fold candidate owner `no` into the state (o, d2) of the cell at (cx, cy).
@@ -97,8 +146,40 @@ __device__ __forceinline__ void fold(int no, int S, const float2* __restrict__ t
   }
 }
 
-// One pass at offset `step`: src -> dst, over the 4-cell groups this thread
-// owns. out_x/out_y, when not null, receive the new owners' positions.
+// The same for the alt fold of Pallas rounding R.
+template <int R>
+__device__ __forceinline__ void fold_alt(int no, int S, const float2* __restrict__ table,
+                                         float cx, float cy, int& o, float& d2) {
+  if (no == o || no >= S) return;
+  const float nd = dist2_alt<R>(table[no], cx, cy);
+  if (nd < d2 || (nd == d2 && no < o)) {
+    o = no;
+    d2 = nd;
+  }
+}
+
+// The same for the X fold of a Pallas rounding, which starts empty (o = S,
+// d2 = 3.4e38): a neighbour with the cell's own owner `own` takes `own_x`, the
+// X form of that owner's d2, without a gather.
+__device__ __forceinline__ void fold_x(int no, int S, const float2* __restrict__ table, float cx,
+                                       float cy, int own, float own_x, int& o, float& d2) {
+  if (no == o || no >= S) return;
+  const float nd = no == own ? own_x : dist2(table[no], cx, cy);
+  if (nd < d2 || (nd == d2 && no < o)) {
+    o = no;
+    d2 = nd;
+  }
+}
+
+// Component k of a 4-cell group.
+__device__ __forceinline__ int lane(int4 v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// One pass at offset `step` in rounding R: src -> dst, over the 4-cell groups
+// this thread owns. out_x/out_y, when not null, receive the new owners'
+// positions.
+template <int R>
 __device__ __forceinline__ void pass(const int32_t* src, int32_t* dst,
                                      const float2* __restrict__ table, float ox0, float oy0,
                                      int H, int W, int S, float res, int step,
@@ -139,19 +220,47 @@ __device__ __forceinline__ void pass(const int32_t* src, int32_t* dst,
       }
     }
     const float cy = __fmaf_rn((float)iy, res, oy0);
-    float cx[4], d2[4];
     int o[4] = {own.x, own.y, own.z, own.w};
+    if (R != kXla) {
+      // a cell at a time, so that only one cell's two folds are live
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      cx[k] = __fmaf_rn((float)(x0 + k), res, ox0);
-      d2[k] = (o[k] < S) ? dist2(table[o[k]], cx[k], cy) : kInf;
-    }
+      for (int k = 0; k < 4; ++k) {
+        const float cx = __fmaf_rn((float)(x0 + k), res, ox0);
+        // the alt fold starts from the cell's own owner, the X fold empty;
+        // own_x: the X form of the own owner's d2
+        const int own_k = o[k];
+        int oa = own_k, ox = S;
+        float da = kInf, dx = kInf, own_x = kInf;
+        if (own_k < S) {
+          const float2 both = dist2_both<R>(table[own_k], cx, cy);
+          da = both.y;
+          own_x = both.x;
+        }
 #pragma unroll
-    for (int m = 0; m < 8; ++m) {
-      fold(nb[m].x, S, table, cx[0], cy, o[0], d2[0]);
-      fold(nb[m].y, S, table, cx[1], cy, o[1], d2[1]);
-      fold(nb[m].z, S, table, cx[2], cy, o[2], d2[2]);
-      fold(nb[m].w, S, table, cx[3], cy, o[3], d2[3]);
+        for (int m = 0; m < 8; ++m) {
+          const int no = lane(nb[m], k);
+          if (takes_alt(R, m))
+            fold_alt<R>(no, S, table, cx, cy, oa, da);
+          else
+            fold_x(no, S, table, cx, cy, own_k, own_x, ox, dx);
+        }
+        // the smaller (d2, owner) of the two folds
+        o[k] = (dx < da || (dx == da && ox < oa)) ? ox : oa;
+      }
+    } else {
+      float cx[4], d2[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        cx[k] = __fmaf_rn((float)(x0 + k), res, ox0);
+        d2[k] = (o[k] < S) ? dist2(table[o[k]], cx[k], cy) : kInf;
+      }
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        fold(nb[m].x, S, table, cx[0], cy, o[0], d2[0]);
+        fold(nb[m].y, S, table, cx[1], cy, o[1], d2[1]);
+        fold(nb[m].z, S, table, cx[2], cy, o[2], d2[2]);
+        fold(nb[m].w, S, table, cx[3], cy, o[3], d2[3]);
+      }
     }
     *reinterpret_cast<int4*>(dst + (size_t)iy * W + x0) = make_int4(o[0], o[1], o[2], o[3]);
     if (out_x != nullptr) {
@@ -190,8 +299,18 @@ flood_kernel(int32_t* a_all, int32_t* b_all, const float2* __restrict__ table_al
   for (int p = 0; p < steps.n; ++p) {
     if (p > 0) cg::this_grid().sync();
     const bool closing = p + 1 == steps.n;
-    pass((p & 1) ? b : a, (p & 1) ? a : b, table, ox0, oy0, H, W, S, res, steps.v[p],
-         closing ? out_x : nullptr, closing ? out_y : nullptr, blk, per_world);
+    int32_t* src = (p & 1) ? b : a;
+    int32_t* dst = (p & 1) ? a : b;
+    float* px = closing ? out_x : nullptr;
+    float* py = closing ? out_y : nullptr;
+    const int r = steps.rounding[p];
+    if (r == kPallas)
+      pass<kPallas>(src, dst, table, ox0, oy0, H, W, S, res, steps.v[p], px, py, blk, per_world);
+    else if (r == kPallasLast)
+      pass<kPallasLast>(src, dst, table, ox0, oy0, H, W, S, res, steps.v[p], px, py, blk,
+                        per_world);
+    else
+      pass<kXla>(src, dst, table, ox0, oy0, H, W, S, res, steps.v[p], px, py, blk, per_world);
   }
 }
 
@@ -209,15 +328,15 @@ int fail(cudaError_t e) {
 // owner_b: the other planes. The result is in owner_a when n_steps is even,
 // else in owner_b. table: f32 [worlds, S + 1, 2], row S of each = (1e9, 1e9).
 // origin_x, origin_y: f32 [worlds] on the device. steps: n_steps (<= 32) pass
-// offsets on the host. out_ox, out_oy: f32 [worlds, H, W] for the closing
+// offsets on the host, rounding: their Rounding codes on the host. out_ox, out_oy: f32 [worlds, H, W] for the closing
 // pass's positions, or both null. W % 4 == 0. One cooperative launch for the
 // group, or one for each chunk of worlds where the group has more worlds than
 // co-resident blocks; *launches receives their number. An error where the
 // card refuses a launch.
 extern "C" int jfa_flood(void* owner_a, void* owner_b, const void* table, const void* origin_x,
-                         const void* origin_y, const int* steps, int n_steps, int worlds, int H,
-                         int W, int S, float res, void* out_ox, void* out_oy, int* launches,
-                         void* stream) {
+                         const void* origin_y, const int* steps, const int* rounding,
+                         int n_steps, int worlds, int H, int W, int S, float res, void* out_ox,
+                         void* out_oy, int* launches, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launches = 0;
   if (n_steps < 0 || n_steps > kMaxSteps || worlds < 0 || H < 1 || W < 4 || (W & 3) != 0 ||
@@ -227,8 +346,10 @@ extern "C" int jfa_flood(void* owner_a, void* owner_b, const void* table, const 
   Steps s;
   s.n = n_steps;
   for (int i = 0; i < n_steps; ++i) {
-    if (steps[i] < 1) return (int)cudaErrorInvalidValue;
+    if (steps[i] < 1 || rounding[i] < kXla || rounding[i] > kPallasLast)
+      return (int)cudaErrorInvalidValue;
     s.v[i] = steps[i];
+    s.rounding[i] = rounding[i];
   }
   // a small table leaves room for many small blocks, which a small grid needs
   // to fill the card; a large one is staged by few large blocks

@@ -18,6 +18,11 @@ its own origin and table. The kernel floods a whole group in one launch (a
 counted launch a chunk of worlds where the group exceeds the card's
 co-resident blocks); [H, W] is the same call with one world.
 
+Roundings: ``rounding`` names each pass's rounding of the squared distance
+(``voronoi.ROUNDINGS``; ``voronoi.pass_roundings`` gives a flood's, the
+Pallas ones for the passes that ``aosx`` runs through the TPU kernel). The
+kernel takes them as a code a pass, in the same call and launch.
+
 ``jfa_flood`` takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises. Unlike the TPU kernel it has no
 step limit: every pass of the flood, 1 to 1024, runs through it.
@@ -38,6 +43,8 @@ from ..perceive.raster import to_plane, iota2, shift2d
 
 FAR = 1e9
 MAX_STEPS = 32
+# the kernel's code of each voronoi.ROUNDINGS key (jfa_pass.cu's Rounding)
+ROUNDING_CODES = {"xla": 0, "pallas": 1, "pallas_last": 2}
 
 def cell_coords(shape, origin_x, origin_y, res: float, device):
     """(cellx, celly) f32 planes [*B, H, W] (``shape`` is (H, W), the
@@ -51,9 +58,10 @@ def cell_coords(shape, origin_x, origin_y, res: float, device):
     return fma(ix.to(torch.float32), resf, ox), fma(iy.to(torch.float32), resf, oy)
 
 
-def jfa_pass_plain(owner, ox, oy, step: int, S: int, origin_x, origin_y, res: float):
-    """One Jacobi pass in plain PyTorch over planes [*B, H, W]. Returns
-    (owner, ox, oy)."""
+def jfa_pass_plain(owner, ox, oy, step: int, S: int, origin_x, origin_y, res: float,
+                   rounding: str = "xla"):
+    """One Jacobi pass in plain PyTorch over planes [*B, H, W], d2 rounded as
+    ``voronoi.ROUNDINGS[rounding]``. Returns (owner, ox, oy)."""
     cellx, celly = cell_coords(owner.shape[-2:], origin_x, origin_y, res, owner.device)
     neighbors = [
         (shift2d(owner, dys * step, dxs * step, S),
@@ -63,18 +71,28 @@ def jfa_pass_plain(owner, ox, oy, step: int, S: int, origin_x, origin_y, res: fl
         for dxs in (-1, 0, 1)
         if not (dys == 0 and dxs == 0)
     ]
-    return _voronoi.jacobi_fold(owner, ox, oy, neighbors, S, cellx, celly)
+    return _voronoi.jacobi_fold(owner, ox, oy, neighbors, S, cellx, celly, rounding)
 
 
-def jfa_flood_plain(owner, table, steps, S: int, origin_x, origin_y, res: float):
+def _roundings(steps, rounding):
+    """A ``voronoi.ROUNDINGS`` key a step ("xla" for all where None)."""
+    names = ["xla"] * len(steps) if rounding is None else list(rounding)
+    if len(names) != len(steps) or any(r not in ROUNDING_CODES for r in names):
+        raise ValueError(f"jfa_flood: roundings {names} for {len(steps)} steps; each one of "
+                         f"{list(ROUNDING_CODES)}")
+    return names
+
+
+def jfa_flood_plain(owner, table, steps, S: int, origin_x, origin_y, res: float, rounding=None):
     """The passes at ``steps`` in plain PyTorch, from an owner plane (i32
     [*B, H, W], owners in 0..S) and the seed table (f32 [*B, S + 1, 2], row
-    S = (1e9, 1e9)). Returns (owner, ox, oy)."""
+    S = (1e9, 1e9)), each pass rounded as its key in ``rounding`` (None:
+    all "xla"). Returns (owner, ox, oy)."""
     nb = owner.dim() - 2
     pos = take(table, owner.flatten(-2), nb).reshape(owner.shape + (2,))
     state = (owner, pos[..., 0].contiguous(), pos[..., 1].contiguous())
-    for step in steps:
-        state = jfa_pass_plain(*state, int(step), S, origin_x, origin_y, res)
+    for step, r in zip(steps, _roundings(steps, rounding)):
+        state = jfa_pass_plain(*state, int(step), S, origin_x, origin_y, res, r)
     return state
 
 
@@ -85,20 +103,21 @@ _int = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib():
     fn = cuda_build.load("jfa_pass").jfa_flood
-    fn.argtypes = [_vp, _vp, _vp, _vp, _vp, ctypes.POINTER(_int), _int, _int, _int, _int, _int,
-                   ctypes.c_float, _vp, _vp, ctypes.POINTER(_int), _vp]
+    fn.argtypes = [_vp, _vp, _vp, _vp, _vp, ctypes.POINTER(_int), ctypes.POINTER(_int), _int,
+                   _int, _int, _int, _int, ctypes.c_float, _vp, _vp, ctypes.POINTER(_int), _vp]
     fn.restype = _int
     return fn
 
 
 def jfa_flood(owner, table, steps, S: int, origin_x, origin_y, res: float,
-              want_positions: bool = False):
+              want_positions: bool = False, rounding=None):
     """The 8-direction Jacobi passes at ``steps`` (a single pass is
     ``steps=[k]``) over the owner planes (i32 [*B, H, W], owners in 0..S
     with S = none), positions read from ``table`` (f32 [*B, S + 1, 2], row S
     = (1e9, 1e9)), each world of the leading axes B from its own origin
-    (0-d or of shape B). Returns the owner planes, or (owner, ox, oy) with
-    ``want_positions``.
+    (0-d or of shape B), each pass rounded as its ``voronoi.ROUNDINGS`` key
+    in ``rounding`` (None: all "xla"). Returns the owner planes, or (owner,
+    ox, oy) with ``want_positions``.
 
     CPU tensors take the plain version. CUDA tensors launch kernel K1: one
     call into the library and one cooperative launch for the whole flood of
@@ -107,8 +126,9 @@ def jfa_flood(owner, table, steps, S: int, origin_x, origin_y, res: float,
     counts the launches, ``jfa_flood.passes`` the passes they ran);
     ``owner`` is then one plane of the ping-pong pair and is OVERWRITTEN."""
     steps = [int(k) for k in steps]
+    names = _roundings(steps, rounding)
     if owner.device.type == "cpu":
-        out = jfa_flood_plain(owner, table, steps, S, origin_x, origin_y, res)
+        out = jfa_flood_plain(owner, table, steps, S, origin_x, origin_y, res, names)
         return out if want_positions else out[0]
     dev = owner.device
     if dev.type != "cuda":
@@ -142,7 +162,9 @@ def jfa_flood(owner, table, steps, S: int, origin_x, origin_y, res: float,
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = _lib()(owner.data_ptr(), other.data_ptr(), table.data_ptr(), gx.data_ptr(),
-                        gy.data_ptr(), (_int * len(steps))(*steps), len(steps), G, H, W, int(S),
+                        gy.data_ptr(), (_int * len(steps))(*steps),
+                        (_int * len(steps))(*(ROUNDING_CODES[r] for r in names)), len(steps),
+                        G, H, W, int(S),
                         float(res), ox.data_ptr() if want_positions else None,
                         oy.data_ptr() if want_positions else None, ctypes.byref(launches),
                         stream)

@@ -10,6 +10,16 @@ flood are one call of kernel K1 (``jfa_pass_cuda.jfa_flood``) with no host
 read in it. Grids and seed sets with a leading world axis flood in that one
 call too: each world keeps its own origin, live bounds and table, and runs
 the same pass list (``_passes`` is static).
+
+Each pass rounds the squared distance one way (``ROUNDINGS``), chosen as
+``aosx`` chooses the lowering of that pass (``pass_roundings``): the passes
+``aosx`` sends through its banded Pallas kernel (``jfa_pass_pallas``, static
+shifts, fewer than 4000 rows, step <= 128) round d2 as XLA:CPU builds that
+kernel's owner plane inside a jit, every other pass as the XLA lowering's
+fold. The port does not mirror one thing of the Pallas build: its x and y
+planes are selected by folds rounded apart from the owner plane's, so that a
+cell's carried position can be another seed's (ROADMAP section 3). Here a
+cell's position stays its owner's seed.
 """
 
 from __future__ import annotations
@@ -22,6 +32,24 @@ from ..perceive.raster import f32, live_mask
 from ..types import GridWorld, SeedSet
 
 INF = 3.4e38
+# aosx/gvd/jfa_pass_pallas.py's MAX_STEP, and the grid height from which
+# aosx/gvd/voronoi.py's jump_flood keeps every pass on the XLA lowering
+PALLAS_MAX_STEP = 128
+PALLAS_MAX_ROWS = 4000
+# A pass's rounding of d2 for dx = px - cellx, dy = py - celly: a letter for
+# each candidate, the cell's own owner first, then the neighbours in
+# jacobi_fold's order ((dys, dxs) = (-1, -1), (-1, 0), ..., (1, 1)). "x" is
+# fma(dx, dx, dy * dy), "y" fma(dy, dy, dx * dx), "u" dx * dx + dy * dy with
+# both products rounded. As XLA:CPU compiles aosx's flood inside a jit
+# (tests/torch_reference/owner_cells.py reads them from its build):
+ROUNDINGS = {
+    # the XLA lowering's fold (static or dynamic shifts)
+    "xla": "xxxxxxxxx",
+    # the Pallas kernel's owner plane in a pass whose position planes are used
+    "pallas": "yyyxxxxxx",
+    # the same in a flood's last pass, whose position planes XLA drops
+    "pallas_last": "uuuuxuxxx",
+}
 
 
 def _passes(s: Statics):
@@ -35,6 +63,17 @@ def _passes(s: Statics):
         steps.append(k)
         k //= 2
     return steps
+
+
+def pass_roundings(s: Statics, steps):
+    """The ``ROUNDINGS`` key of each pass of a flood over ``steps``: the
+    Pallas ones where ``aosx``'s ``jump_flood`` runs the pass through the
+    Pallas pass kernel under ``s`` (aosx/gvd/voronoi.py's rule), else
+    "xla"."""
+    pallas = s.jfa_pass_pallas and not s.jfa_dynamic_shifts and s.grid_h < PALLAS_MAX_ROWS
+    last = len(steps) - 1
+    return [("pallas_last" if i == last else "pallas") if pallas and k <= PALLAS_MAX_STEP
+            else "xla" for i, k in enumerate(steps)]
 
 
 def _jfa_init(grid: GridWorld, seeds: SeedSet, s: Statics):
@@ -61,23 +100,27 @@ def _jfa_init(grid: GridWorld, seeds: SeedSet, s: Statics):
     return owner.reshape(B + (h, w)), torch.cat([seeds.xy.to(torch.float32), far], dim=-2)
 
 
-def jacobi_fold(o0, x0, y0, neighbors, S: int, cellx, celly):
+def jacobi_fold(o0, x0, y0, neighbors, S: int, cellx, celly, rounding: str = "xla"):
     """One Jacobi JFA update: fold the 8 pass-start neighbour triples
-    (owner, x, y) into the state with a lexicographic (d2, owner) min.
-    d2 = fma(dx, dx, dy * dy) for dx = px - cellx, dy = py - celly: the
-    fused multiply-add XLA:CPU makes of ``aosx``'s squared distance (the
-    CUDA kernel does the same)."""
+    (owner, x, y) into the state with a lexicographic (d2, owner) min, each
+    candidate's d2 rounded as ``ROUNDINGS[rounding]`` says (the CUDA kernel
+    does the same)."""
 
-    def dist2(px, py):
+    def dist2(px, py, form):
         dx = px - cellx
         dy = py - celly
+        if form == "y":
+            return fma(dy, dy, dx * dx)
+        if form == "u":
+            return dx * dx + dy * dy
         return fma(dx, dx, dy * dy)
 
+    forms = ROUNDINGS[rounding]
     inf = torch.tensor(INF, dtype=torch.float32, device=o0.device)
-    d2 = torch.where(o0 < S, dist2(x0, y0), inf)
+    d2 = torch.where(o0 < S, dist2(x0, y0, forms[0]), inf)
     o, x, y = o0, x0, y0
-    for no, nx, ny in neighbors:
-        nd = torch.where(no < S, dist2(nx, ny), inf)
+    for (no, nx, ny), form in zip(neighbors, forms[1:], strict=True):
+        nd = torch.where(no < S, dist2(nx, ny, form), inf)
         better = (nd < d2) | ((nd == d2) & (no < o))
         o = torch.where(better, no, o)
         x = torch.where(better, nx, x)
@@ -94,5 +137,7 @@ def jump_flood(grid: GridWorld, seeds: SeedSet, s: Statics):
 
     S = seeds.xy.shape[-2]
     owner, table = _jfa_init(grid, seeds, s)
-    owner = jfa_flood(owner, table, _passes(s), S, grid.origin_x, grid.origin_y, s.resolution)
+    steps = _passes(s)
+    owner = jfa_flood(owner, table, steps, S, grid.origin_x, grid.origin_y, s.resolution,
+                      rounding=pass_roundings(s, steps))
     return torch.where(live_mask(grid) & (owner < S), owner, -1)

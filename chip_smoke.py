@@ -13,10 +13,12 @@ kernel on them:
            and P1-P3 (probe_prims) with nvcc and the native host library
            with g++, one process each, all started together
   phase 2  K1: a full jump flood at 2000 x 2048, S = 4096, and at 384 x 512,
-           S = 256, from one call of the kernel (one cooperative launch) and
-           through the plain PyTorch passes: owner, ox and oy bitwise equal,
-           single passes from a mid-flood state too; ms a flood and a pass
-           at each step value, against the bound; with the world axis, 32
+           S = 256, each in the Pallas and in the XLA roundings of
+           voronoi.ROUNDINGS, from one call of the kernel (one cooperative
+           launch) and through the plain PyTorch passes: owner, ox and oy
+           bitwise equal, single passes from a mid-flood state in every
+           rounding too; ms a flood and a pass at each step value, against
+           the bound; with the world axis, 32
            MC_STATICS floods of their own origins, bounds and seeds in one
            launch against the plain batched flood and each world's
            single-world flood, bitwise, ms a group beside 32 single-world
@@ -45,7 +47,10 @@ kernel on them:
            its output, the card against the CPU port bitwise
   phase 5  stage_full at BENCH_STATICS on CUDA: the kernels' launch counts,
            guard bits, and the JAX package's full-size reference summary
-           (tests/torch_reference/bench_np_seed0.json); per-stage times
+           (tests/torch_reference/bench_np_seed0.json: counts, hashes, the
+           robot's pose after the step bitwise, the waypoints bitwise, the
+           owner plane bitwise but in the cells NAMED_OWNER_CELLS names);
+           per-stage times
   phase 6  K3: all-pairs ROR counts of 131,072 points (the bench orchard,
            parked as ror_counts parks it, and a uniform cloud at its
            density) through the kernel and the plain version; bitwise equal;
@@ -60,7 +65,8 @@ kernel on them:
            serve_control_tick fed the replay's poses: held against the JAX
            package's summary (tests/torch_reference/serving_np_seed0.json),
            frame 0's raw A* paths and every cache row's length bitwise, the
-           ticks' xy and yaw bitwise, a row that differs failing unless
+           ticks' xy and yaw bitwise, frame 0's ROR counts and owner plane
+           bitwise, a row that differs failing unless
            NAMED_RAW_ROWS / NAMED_CACHE_ROWS names its cause (each printed
            with its f32 and f64 regression breakpoints); launches of K1, K2
            and K3, and the serving latencies; frame 0's plan cache built in
@@ -112,7 +118,8 @@ kernel on them:
            BENCH_STATICS on the bench orchard with a 4-band mesh on the
            card: prepare_world_full(stencil_mesh=) equals the single-device
            world leaf for leaf, jump_flood_sharded the single-device owner
-           plane, bitwise; host ms of each banded stage beside the
+           plane, bitwise, both in the XLA lowering's rounding (as aosx's
+           jump_flood_sharded); host ms of each banded stage beside the
            single-device one; the banded path launches neither K1 nor K2
            (it is the plain counterpart of aosx's XLA stencils); over
            distinct cards too where more than one is visible. (b) At
@@ -149,25 +156,34 @@ REFERENCE = ROOT / "tests" / "torch_reference" / "bench_np_seed0.json"
 SERVING_REFERENCE = REFERENCE.with_name("serving_np_seed0.json")
 # CPU parity tests state this bound for float leaves (tests/test_torch_slice.py)
 ULP_BOUND = 4
-# K1 and its plain version round the flood's cell coordinates and squared
-# distance once, as the fused multiply-adds of the JAX reference's XLA:CPU
-# build, yet 3 of the 4,096,000 owner cells still differ on the bench orchard
-# (measured on the H100 and on the CPU). The fault is the reference's:
-# tests/torch_reference/owner_cells.py shows that at those cells the JAX
-# owner lies farther than the port's in f64 and in every f32 rounding of the
-# fold, that JAX's flood run op by op equals the port's unfused fold at every
-# cell, and that JAX's jitted dynamic-shift flood misplaces owners after a
-# single step-1 pass. The graph and its message agree exactly (phase 10).
-OWNER_CELL_BOUND = 32
+# Phase 5's waypoints against the reference's, in ulp
+WAYPOINT_ULP_BOUND = 0
+# Owner cells (row, col) of a reference plane where the port's owner differs,
+# each with its proven cause (ROADMAP section 3); phases 5 and 7 print every
+# cell that differs and fail on one not named here. K1 and its plain version
+# round each pass as XLA:CPU builds the reference's lowering of it
+# (aosx_torch/gvd/voronoi.py's ROUNDINGS): on the bench orchard 9 of the
+# 4,096,000 cells still differ, all from one phantom position of the
+# reference's Pallas passes, whose owner and y planes are selected by folds
+# rounded apart. The port keeps a cell's position its owner's seed
+# (tests/torch_reference/owner_cells.py --lowering pallas)
+_PHANTOM_2388 = ("the reference's fault: after its step-4 pass (pass 10) cell (1080, 1243) "
+                 "holds owner 2388 at (127.867, 115.967) but y 107.033, seed 2209's, which its "
+                 "y plane's fold (every d2 fma(dx, dx, dy * dy)) took where the owner plane's "
+                 "took 2388; the phantom position (127.867, 107.033) then wins this cell for "
+                 "2388 in the last two passes, 1.71-5.33 m^2 farther (f64) than 2209, the "
+                 "port's owner")
+NAMED_OWNER_CELLS = {
+    "bench": {(r, c): _PHANTOM_2388 for r in (1077, 1078, 1079) for c in (1244, 1245, 1246)},
+    "serving frame 0": {},
+}
 TEST_TICKS = 20
 TEST_V_DT = 0.5
 REPS = 5
 # K3 runs the fused multiply-add chains XLA:CPU runs for the JAX reference
-# (aosx_torch/perceive/ror_cuda.py), so the frame-0 counts should agree
-# exactly; a contraction that XLA chose differently in some context would
-# flip pairs whose d2 lies within rounding of r^2: at most this many valid
-# points of the bench cloud may count differently
-ROR_POINT_BOUND = 16
+# (aosx_torch/perceive/ror_cuda.py), so the frame-0 counts agree exactly: no
+# valid point of the bench cloud may count differently
+ROR_POINT_BOUND = 0
 # The serving ticks' poses (phase 7) against JAX's: the port evaluates the
 # plan path's f32 arithmetic as XLA:CPU does in the reference's serving scan
 # (linearize's blocked prefix sums and multiply-adds, glibc's atan2f, sinf
@@ -320,6 +336,21 @@ def cloud(statics, spec, seed, device):
     return cloud_tensors(make_orchard_np(spec, seed=seed), statics, device)
 
 
+def owner_cells_off(owner, ref_owner, plane):
+    """The cells (row, col) where an owner plane differs from the reference's
+    plane ``plane`` of NAMED_OWNER_CELLS, printed with their causes. Returns
+    (their number, the cells it does not name)."""
+    named = NAMED_OWNER_CELLS[plane]
+    cells = [tuple(int(v) for v in c) for c in np.argwhere(owner != ref_owner)]
+    by_cause = {}
+    for c in cells:
+        by_cause.setdefault(named.get(c, "cause not named"), []).append(c)
+    for cause, cs in by_cause.items():
+        log(f"#   {plane} owner cells {cs} (port {[int(owner[c]) for c in cs]}, reference "
+            f"{[int(ref_owner[c]) for c in cs]}): {cause}")
+    return len(cells), [c for c in cells if c not in named]
+
+
 def ulp_distance(a, b):
     """Max |a - b| in ulp of a's largest finite magnitude below the 3.4e38 pad."""
     a, b = np.atleast_1d(a), np.atleast_1d(b)
@@ -448,29 +479,48 @@ def k1_case(S, device):
     return grid, seeds
 
 
-def k1_ops_by_pass(before, steps, n, coords):
+def k1_ops_by_pass(before, steps, n, coords, rounding=None):
     """Each pass's operations bound (ms) from the owner planes ([*B, H, W])
-    it starts from: H + W FP32 FMAs a world for the coordinates, 4 a cell
-    for its own owner and 5 for each other distinct owner among its 8
-    candidates (one without an owner needs no distance, nor one seen
-    before)."""
+    it starts from, in its rounding (voronoi.ROUNDINGS; None: all "xla"):
+    H + W FP32 FMAs a world for the coordinates; for each distinct owner
+    among a cell's 9 candidates (one without an owner needs no distance),
+    4 for its d2 in one form (2 sub, 1 mul, 1 FMA), 2 more (a mul, an FMA or
+    add) where the rounding asks its other form of it too, and a compare
+    unless it is the cell's own owner."""
     import torch
+    from aosx_torch.gvd.voronoi import ROUNDINGS
     from aosx_torch.perceive.raster import shift2d
 
     out = []
-    for (o, _, _), step in zip(before, steps):
+    rounding = rounding or ["xla"] * len(steps)
+    for (o, _, _), step, r in zip(before, steps, rounding):
         worlds = o[..., 0, 0].numel()
         nine = torch.stack([shift2d(o, dys * step, dxs * step, n)
-                            for dys in (-1, 0, 1) for dxs in (-1, 0, 1)]).sort(0).values
-        distinct = int((nine[0] < n).sum()) + int(((nine[1:] != nine[:-1]) & (nine[1:] < n)).sum())
+                            for dys in (-1, 0, 1) for dxs in (-1, 0, 1)])
+        # the same candidates in jacobi_fold's order (the cell's own first),
+        # each keyed with its form of d2
+        nine = torch.cat([nine[4:5], nine[:4], nine[5:]])
+        alt = torch.tensor([f != "x" for f in ROUNDINGS[r]], device=o.device)
+        alt = alt.reshape((9,) + (1,) * o.dim()).to(torch.int64)
+
+        def distinct(keys, none):
+            keys = keys.sort(0).values
+            return int((keys[0] < none).sum()) + int(((keys[1:] != keys[:-1])
+                                                      & (keys[1:] < none)).sum())
+
+        owners = distinct(nine, n)
+        forms = distinct(nine.to(torch.int64) * 2 + alt, 2 * n)
         own = int((o < n).sum())
-        out.append(bound(0, fp32_ops=worlds * coords + 4 * own + 5 * (distinct - own))[0])
+        out.append(bound(0, fp32_ops=worlds * coords + 4 * owners + 2 * (forms - owners)
+                         + (owners - own))[0])
         del nine
     return out
 
 
-def phase_k1_shape(name, S, device):
-    """K1 at one preset's shape: the flood and single passes against the plain
+def phase_k1_shape(name, S, device, pallas):
+    """K1 at one preset's shape, every pass in the "xla" rounding or, with
+    ``pallas``, in the roundings of voronoi.pass_roundings with
+    jfa_pass_pallas on: the flood and single passes against the plain
     versions, bitwise; times of the flood and of a pass at each step value;
     the bound."""
     import torch
@@ -481,19 +531,23 @@ def phase_k1_shape(name, S, device):
     n = S.max_seeds
     steps = voronoi._passes(S)
     npass = len(steps)
+    rounding = (voronoi.pass_roundings(dataclasses.replace(
+        S, jfa_pass_pallas=True, jfa_dynamic_shifts=False), steps) if pallas
+        else ["xla"] * npass)
+    name = f"{name}, {'Pallas' if pallas else 'XLA'} rounding"
     owner0, table = voronoi._jfa_init(grid, seeds, S)
     args = (n, grid.origin_x, grid.origin_y, S.resolution)
 
     # the plain flood, keeping the state before every pass
     def plain_flood():
-        return jfa_pass_cuda.jfa_flood_plain(owner0, table, steps, *args)
+        return jfa_pass_cuda.jfa_flood_plain(owner0, table, steps, *args, rounding)
 
     ref, ms_p = cuda_ms(plain_flood, 2 if S.grid_h > 1000 else REPS)
     pos = table[owner0.long()]
     state, before = (owner0, pos[..., 0].contiguous(), pos[..., 1].contiguous()), []
-    for step in steps:
+    for step, r in zip(steps, rounding):
         before.append(state)
-        state = jfa_pass_cuda.jfa_pass_plain(*state, step, *args)
+        state = jfa_pass_cuda.jfa_pass_plain(*state, step, *args, r)
     if not all(torch.equal(a, b) for a, b in zip(state, ref)):
         raise AssertionError("jfa_flood_plain differs from the loop of jfa_pass_plain")
     if not (torch.equal(ref[1], table[ref[0].long()][..., 0])
@@ -501,49 +555,58 @@ def phase_k1_shape(name, S, device):
         raise AssertionError("ox, oy != table[owner] after the flood")
 
     # the flood: owner, and ox/oy with want_positions
-    got = jfa_pass_cuda.jfa_flood(owner0.clone(), table, steps, *args, want_positions=True)
+    got = jfa_pass_cuda.jfa_flood(owner0.clone(), table, steps, *args, want_positions=True,
+                                  rounding=rounding)
     err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, ref))
     if not all(torch.equal(a, b) for a, b in zip(got, ref)):
         raise AssertionError(f"K1 flood at {name} differs from its plain version (max abs "
                              f"err {err})")
-    got, ms_k = timed_ms(lambda o: jfa_pass_cuda.jfa_flood(o, table, steps, *args), device,
-                         REPS, owner0.clone)
+    got, ms_k = timed_ms(lambda o: jfa_pass_cuda.jfa_flood(o, table, steps, *args,
+                                                           rounding=rounding),
+                         device, REPS, owner0.clone)
     if not torch.equal(got, ref[0]):
         raise AssertionError("K1 flood without positions differs")
     # single passes from a mid-flood state (the state before the flood's
-    # fifth pass), also at steps the flood does not use
+    # fifth pass), also at steps the flood does not use, in every rounding
     mid = before[4]
     for step in K1_SINGLE_STEPS:
-        want = jfa_pass_cuda.jfa_pass_plain(*mid, step, *args)
-        got = jfa_pass_cuda.jfa_flood(mid[0].clone(), table, [step], *args, want_positions=True)
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise AssertionError(f"K1 single pass at step {step} ({name}) differs from "
-                                 "jfa_pass_plain")
+        for r in (voronoi.ROUNDINGS if pallas else ("xla",)):
+            want = jfa_pass_cuda.jfa_pass_plain(*mid, step, *args, r)
+            got = jfa_pass_cuda.jfa_flood(mid[0].clone(), table, [step], *args,
+                                          want_positions=True, rounding=[r])
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"K1 single pass at step {step} in rounding {r} ({name}) "
+                                     "differs from jfa_pass_plain")
     # a pass's time at each step value of the flood, from the state the flood
-    # has there: K1_STEP_REPEATS passes at that step from one call
+    # has there: K1_STEP_REPEATS passes at that step, in its rounding, from
+    # one call
     by_step = {}
     for k, step in enumerate(steps):
         if step in by_step:
             continue
         _, ms = timed_ms(lambda o: jfa_pass_cuda.jfa_flood(
-            o, table, [step] * K1_STEP_REPEATS, *args), device, 3, before[k][0].clone)
+            o, table, [step] * K1_STEP_REPEATS, *args, rounding=[rounding[k]] * K1_STEP_REPEATS),
+            device, 3, before[k][0].clone)
         by_step[step] = ms / K1_STEP_REPEATS
     # the same flood over a plane without any owner: every fold is skipped, so
     # what is left is the loads, the stores and the barriers
-    _, ms_empty = timed_ms(lambda o: jfa_pass_cuda.jfa_flood(o, table, steps, *args), device,
-                           REPS, lambda: torch.full_like(owner0, n))
+    _, ms_empty = timed_ms(lambda o: jfa_pass_cuda.jfa_flood(o, table, steps, *args,
+                                                             rounding=rounding),
+                           device, REPS, lambda: torch.full_like(owner0, n))
     # Bound. The flood must read the owner plane once and write it once
     # through device memory (8 B a cell) and read the table; from pass to pass
     # the two planes can stay in L2. A pass costs H + W FP32 instructions for
     # the coordinates (an FMA for each row's y and each column's x, which every
     # cell of that row or column shares), 4 a cell (2 sub, 1 mul, 1 FMA) for
-    # the distance to the cell's own owner, and 5 (a compare more) for every
-    # other distinct owner among its 8 candidates: one without an owner needs
-    # no distance, and neither does an owner seen before. Counted on this
-    # run's states.
+    # the distance to the cell's own owner in one form and 2 more (a mul, an
+    # FMA or add) where the pass's rounding asks the other form of it too
+    # (voronoi.ROUNDINGS), and the same for every other distinct owner among
+    # its 8 candidates with a compare more: one without an owner needs no
+    # distance, and neither does an owner seen before in that form. Counted
+    # on this run's states.
     cells = S.grid_h * S.grid_w
     coords = S.grid_h + S.grid_w
-    ops_by_pass = k1_ops_by_pass(before, steps, n, coords)
+    ops_by_pass = k1_ops_by_pass(before, steps, n, coords, rounding)
     ops_ms = float(np.sum(ops_by_pass))
     bytes_ms, _ = bound(8 * cells + 8 * (n + 1))
     flood_bound = max(bytes_ms, ops_ms)
@@ -561,8 +624,8 @@ def phase_k1_shape(name, S, device):
         f"{flood_bound / npass:.5f} ms a pass: the larger of the owner plane once in and once "
         f"out of device memory plus the table ({bytes_ms:.4f} ms) and {npass} passes of H + W FP32 "
         f"instructions for the coordinates + 4 a cell for its own owner + 5 for each other "
-        f"distinct owner among its "
-        f"candidates ({ops_ms:.4f} ms in all; a pass in which all nine are distinct: "
+        f"distinct owner among its candidates, 2 more for each that the rounding asks in "
+        f"both forms ({ops_ms:.4f} ms in all; a pass in which all nine are distinct, one form: "
         f"{full_ms:.5f} ms); the share refers to it: {100 * flood_bound / ms_k:.1f} %. For scale, 8 B a "
         f"cell from device memory in every pass: {bytes_ms:.4f} ms a pass; the three carried "
         f"planes' 24 B: {old_ms:.4f} ms")
@@ -572,7 +635,7 @@ def phase_k1_shape(name, S, device):
             assert_under_bound(f"K1 pass at step {step} {name}", by_step[step], ops_by_pass[k])
     return dict(max_abs_err=err, ms=ms_k / npass, plain_ms=ms_p / npass, flood_ms=ms_k,
                 flood_plain_ms=ms_p, flood_no_owner_ms=ms_empty, passes=npass,
-                ms_by_step={str(k): v for k, v in by_step.items()},
+                rounding=rounding, ms_by_step={str(k): v for k, v in by_step.items()},
                 bound_ms=flood_bound / npass, bound_by=b_by)
 
 
@@ -706,18 +769,26 @@ def phase_k1_chunks(device, G=2400, H=8, W=16, S=6):
 
 
 def phase_k1(device):
+    """K1 at BENCH_STATICS and MC_STATICS, each in its own rounding (the
+    Pallas roundings at BENCH, "xla" at MC) and in the other; the world axis
+    and the chunked launches."""
     from aosx_torch.config import BENCH_STATICS, MC_STATICS
 
-    bench = phase_k1_shape("BENCH_STATICS", BENCH_STATICS, device)
-    mc = phase_k1_shape("MC_STATICS", MC_STATICS, device)
+    bench = phase_k1_shape("BENCH_STATICS", BENCH_STATICS, device, pallas=True)
+    bench_xla = phase_k1_shape("BENCH_STATICS", BENCH_STATICS, device, pallas=False)
+    mc = phase_k1_shape("MC_STATICS", MC_STATICS, device, pallas=False)
+    mc_pallas = phase_k1_shape("MC_STATICS", MC_STATICS, device, pallas=True)
     group = phase_k1_world_axis(device, MC_STATICS)
     group["chunked_launches"] = phase_k1_chunks(device)
+    keep = ("ms", "plain_ms", "flood_ms", "flood_plain_ms", "flood_no_owner_ms", "passes",
+            "ms_by_step", "bound_ms", "bound_by")
     return dict(bench,
-                mc={k: mc[k] for k in ("ms", "plain_ms", "flood_ms", "flood_plain_ms",
-                                       "flood_no_owner_ms", "passes",
-                                       "ms_by_step", "bound_ms", "bound_by")},
+                xla_rounding={k: bench_xla[k] for k in keep},
+                mc={k: mc[k] for k in keep},
+                mc_pallas_rounding={k: mc_pallas[k] for k in keep + ("rounding",)},
                 world_axis={k: v for k, v in group.items() if k != "max_abs_err"},
-                max_abs_err=max(bench["max_abs_err"], mc["max_abs_err"],
+                max_abs_err=max(bench["max_abs_err"], bench_xla["max_abs_err"],
+                                mc["max_abs_err"], mc_pallas["max_abs_err"],
                                 group["max_abs_err"]))
 
 
@@ -1133,13 +1204,13 @@ def phase_bench_slice(device, bench_spec):
     def stage_full():
         out = perceive(pc, poly, params, excl, S, ror_method="sorted")
         world = engine.world_from_perceive(out, params, S)
-        _, metrics = engine.step(engine.initial_state(world, S), world, params, S)
-        return out, world, metrics
+        state, metrics = engine.step(engine.initial_state(world, S), world, params, S)
+        return out, world, metrics, state
 
     zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.time()
-    out, world, metrics = stage_full()
+    out, world, metrics, state = stage_full()
     torch.cuda.synchronize()
     first_s = time.time() - t0
     launches = read_counts(kernels)
@@ -1154,22 +1225,24 @@ def phase_bench_slice(device, bench_spec):
         waypoints=int(world.waypoints.count), plan_len=int(metrics["plan_len"]),
         mod=int(metrics["mod"]), status=int(metrics["status"]), guards=int(metrics["guards"]),
         skeleton_sha256=hashlib.sha256(out.skeleton.occ.cpu().numpy().tobytes()).hexdigest(),
-        owner_sha256=hashlib.sha256(owner.cpu().numpy().astype("<i4").tobytes()).hexdigest())
+        owner_sha256=hashlib.sha256(owner.cpu().numpy().astype("<i4").tobytes()).hexdigest(),
+        robot_xy=[float(v) for v in state.robot.xy.cpu().numpy()],
+        robot_yaw=float(state.robot.yaw))
     log(f"# phase 5: {json.dumps(got)}")
     wxy = world.waypoints.xy.cpu().numpy()[:got["waypoints"]]
     diffs = {k: (got[k], ref[k]) for k in got if got[k] != ref[k] and k != "owner_sha256"}
     if diffs:
         raise AssertionError(f"BENCH_STATICS slice differs from the JAX reference: {diffs}")
-    owner_cells = 0
+    owner_cells, unnamed = 0, []
     if got["owner_sha256"] != ref["owner_sha256"]:
         ref_owner = np.load(REFERENCE.with_name("bench_np_seed0_owner.npz"))["owner"]
-        owner_cells = int((owner.cpu().numpy() != ref_owner).sum())
+        owner_cells, unnamed = owner_cells_off(owner.cpu().numpy(), ref_owner, "bench")
         log(f"# phase 5: owner plane differs from the JAX reference in {owner_cells} of "
-            f"{ref_owner.size} cells (bound {OWNER_CELL_BOUND})")
-    if owner_cells > OWNER_CELL_BOUND:
-        raise AssertionError(f"owner plane differs in {owner_cells} cells")
+            f"{ref_owner.size} cells, {len(unnamed)} of them not named")
+    if unnamed:
+        raise AssertionError(f"owner plane differs in cells not named: {unnamed}")
     wp_ulp = ulp_distance(np.asarray(ref["waypoints_xy"], np.float32), wxy)
-    if wp_ulp > ULP_BOUND:
+    if wp_ulp > WAYPOINT_ULP_BOUND:
         raise AssertionError(f"waypoint xy differ from the reference by {wp_ulp} ulp")
     assert got["seeds"] > 0 and got["rows"] > 0 and got["nodes"] > 0
     assert got["waypoints"] >= 4 and got["plan_len"] > 0
@@ -1185,8 +1258,8 @@ def phase_bench_slice(device, bench_spec):
     mem = torch.cuda.max_memory_allocated() / 2**30
     log(f"# phase 5: median ms (CUDA events, {REPS} reps): perceive {t_perceive:.2f}, "
         f"graph+costs+waypoints+trim {t_world:.2f}, step {t_step:.2f}, stage_full {t_total:.2f}; "
-        f"matches the JAX reference (counts, skeleton hash; owner plane within "
-        f"{owner_cells} cells; waypoints within {wp_ulp:g} ulp); "
+        f"matches the JAX reference (counts, skeleton hash, the robot's pose after the step; "
+        f"owner plane but {owner_cells} named cells; waypoints within {wp_ulp:g} ulp); "
         f"peak allocated {mem:.2f} GiB")
     return launches, dict(perceive_ms=t_perceive, world_ms=t_world, step_ms=t_step,
                           stage_full_ms=t_total)
@@ -1554,10 +1627,10 @@ def compare_serving(ref, sv0, frame_states, got_frames, per_frame_metrics, param
         raise AssertionError("frame 0: the valid mask differs from the JAX reference")
     ror_points = int((sv0.inc.cnt.cpu().numpy() != ref0["cnt"])[valid0].sum())
     owner = jump_flood(sv0.inc.out.skeleton, merge_seeds(sv0.inc.out.seeds, params, S), S)
-    owner_cells = int((owner.cpu().numpy() != ref0["owner"]).sum())
+    owner_cells, unnamed = owner_cells_off(owner.cpu().numpy(), ref0["owner"], "serving frame 0")
     log(f"# phase 7: frame 0 ROR counts differ from the JAX reference at {ror_points} of "
         f"{int(valid0.sum())} valid points (bound {ROR_POINT_BOUND}); owner plane in "
-        f"{owner_cells} of {owner.numel()} cells (bound {OWNER_CELL_BOUND}); tick xy within "
+        f"{owner_cells} of {owner.numel()} cells ({len(unnamed)} not named); tick xy within "
         f"{worst_ulp:g} ulp (bound {TICK_ULP_BOUND}), yaw within {worst_yaw:.3g} rad (bound "
         f"{YAW_BOUND_RAD:.3g})")
     log(f"# phase 7: plan cache: frame 0 raw A* paths against JAX's, rows by kind: "
@@ -1573,8 +1646,8 @@ def compare_serving(ref, sv0, frame_states, got_frames, per_frame_metrics, param
             f"{NAMED_CACHE_ROWS.get(r, 'cause not named')}")
     if ror_points > ROR_POINT_BOUND:
         bad.append(f"frame 0 ROR counts differ at {ror_points} points")
-    if owner_cells > OWNER_CELL_BOUND:
-        bad.append(f"frame 0 owner plane differs in {owner_cells} cells")
+    if unnamed:
+        bad.append(f"frame 0 owner plane differs in cells not named: {unnamed}")
     if bad:
         raise AssertionError("serving differs from the JAX reference: " + "; ".join(bad))
 
@@ -2437,10 +2510,13 @@ def assert_trees_equal(ref, got, what):
 
 def mesh_bench(device, bench_spec, devices, name):
     """(a) for one mesh: the banded world and flood at BENCH_STATICS against
-    the single-device ones; host ms of each stage. Returns its numbers."""
+    the single-device ones; host ms of each stage. Returns its numbers. The
+    banded flood rounds every pass as aosx's jump_flood_sharded, the XLA
+    lowering, so the single-device path runs with jfa_pass_pallas off, the
+    rounding it then has."""
     import torch
     from aosx_torch import engine
-    from aosx_torch.config import BENCH_STATICS as S, AosParams, params_as_f32
+    from aosx_torch.config import BENCH_STATICS, AosParams, params_as_f32
     from aosx_torch.gvd import jfa_pass_cuda
     from aosx_torch.gvd.graph import merge_seeds
     from aosx_torch.gvd.voronoi import jump_flood
@@ -2448,6 +2524,7 @@ def mesh_bench(device, bench_spec, devices, name):
                                              skeletonize_sharded)
     from aosx_torch.perceive import points, raster, ror_cuda, skeleton, skeleton_cuda
 
+    S = dataclasses.replace(BENCH_STATICS, jfa_pass_pallas=False)
     kernels = (jfa_pass_cuda.jfa_flood, skeleton_cuda.zhang_suen_fixpoint, ror_cuda.ror_counts)
     mesh = Mesh(devices, ("space",))
     pc, poly = cloud(S, bench_spec, 0, device)

@@ -38,8 +38,9 @@ def case(request):
     """The JAX package's perceive output and graph for one seeded orchard,
     with both packages' statics and params."""
     name, seed = request.param
-    # the dynamic-shift JFA lowering compiles in seconds on XLA:CPU and
-    # gives the same owners (aosx/config.py); the port ignores the field
+    # the dynamic-shift JFA lowering compiles in seconds on XLA:CPU; these
+    # presets run no Pallas pass, and the port rounds every pass as the XLA
+    # lowerings do
     JS = dataclasses.replace(getattr(jc, name), jfa_dynamic_shifts=True)
     S = getattr(tc, name)
     buf, valid, poly = orchard_buffers(S, seed=seed)

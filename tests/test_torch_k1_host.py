@@ -1,0 +1,196 @@
+"""Kernel K1's CUDA source (``aosx_torch/csrc/jfa_pass.cu``) run on the host.
+
+The card is not needed: g++ compiles the source as C++ against stand-ins for
+the CUDA headers (the rounding intrinsics as correctly rounded host float
+operations, no contraction; a grid barrier as nothing), and a small program runs
+``flood_kernel`` as one block of one thread, which walks every 4-cell group
+of every pass in order. Its owner plane must equal the plain flood
+(``jfa_pass_cuda.jfa_flood_plain``) bitwise, in every rounding of
+``voronoi.ROUNDINGS``: the fold logic of the kernel, its skips and its two
+folds of the Pallas roundings, checked where the kernel itself cannot run.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from aosx_torch.config import BENCH_STATICS
+from aosx_torch.gvd import jfa_pass_cuda, voronoi
+from aosx_torch.types import GridWorld, SeedSet
+
+SOURCE = pathlib.Path(__file__).resolve().parents[1] / "aosx_torch" / "csrc" / "jfa_pass.cu"
+
+CUDA_RUNTIME_H = r"""
+#pragma once
+#include <algorithm>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#define __device__
+#define __host__
+#define __global__
+#define __forceinline__ inline
+#define __restrict__
+#define __shared__
+#define __launch_bounds__(x)
+struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
+struct int4 { int x, y, z, w; };
+struct dim3 { dim3(int = 1, int = 1, int = 1) {} };
+struct Index { int x; };
+static Index threadIdx, blockIdx, blockDim;
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline void __syncthreads() {}
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess, cudaErrorInvalidValue, cudaErrorInvalidConfiguration,
+       cudaFuncAttributeMaxDynamicSharedMemorySize, cudaDevAttrMultiProcessorCount };
+inline int cudaGetLastError() { return 0; }
+template <class F> int cudaFuncSetAttribute(F, int, int) { return 1; }
+inline int cudaGetDevice(int*) { return 1; }
+inline int cudaDeviceGetAttribute(int*, int, int) { return 1; }
+template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*, F, int, size_t) { return 1; }
+inline int cudaLaunchCooperativeKernel(const void*, dim3, dim3, void**, size_t, cudaStream_t) { return 1; }
+using std::max;
+using std::min;
+"""
+
+COOPERATIVE_GROUPS_H = r"""
+#pragma once
+namespace cooperative_groups {
+struct grid_group { void sync() {} };
+inline grid_group this_grid() { return {}; }
+}
+"""
+
+RUNNER = r"""
+#include <cstdio>
+#include <vector>
+#include "cuda_runtime.h"
+namespace { float2 table[1 << 16]; }
+#include "jfa_pass.cu"
+// argv: input (H W S n, steps[n], roundings[n] as i32; origin x, y, res as
+// f32; owner i32 [H, W]; table f32 [S + 1, 2]), output (owner i32 [H, W])
+int main(int, char** argv) {
+  FILE* f = std::fopen(argv[1], "rb");
+  int h[4];
+  if (std::fread(h, 4, 4, f) != 4) return 1;
+  const int H = h[0], W = h[1], S = h[2], n = h[3];
+  Steps s;
+  s.n = n;
+  float org[3];
+  std::vector<int32_t> a((size_t)H * W), b((size_t)H * W);
+  std::vector<float2> tab(S + 1);
+  if (std::fread(s.v, 4, n, f) != (size_t)n || std::fread(s.rounding, 4, n, f) != (size_t)n ||
+      std::fread(org, 4, 3, f) != 3 || std::fread(a.data(), 4, a.size(), f) != a.size() ||
+      std::fread(tab.data(), 8, S + 1, f) != (size_t)S + 1)
+    return 1;
+  std::fclose(f);
+  blockDim.x = 1;
+  flood_kernel(a.data(), b.data(), tab.data(), &org[0], &org[1], s, H, W, S, org[2], nullptr,
+               nullptr, 1);
+  FILE* o = std::fopen(argv[2], "wb");
+  std::fwrite((n % 2 ? b : a).data(), 4, a.size(), o);
+  std::fclose(o);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    """The runner built with g++ from the kernel's source."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the host runner")
+    d = tmp_path_factory.mktemp("k1_host")
+    (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
+    (d / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS_H)
+    (d / "runner.cpp").write_text(RUNNER)
+    exe = d / "runner"
+    subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-w", f"-I{d}",
+                    f"-I{SOURCE.parent}", str(d / "runner.cpp"), "-o", str(exe)],
+                   check=True, capture_output=True)
+
+    def run(owner, table, steps, S, origin, res, rounding):
+        H, W = owner.shape
+        codes = [jfa_pass_cuda.ROUNDING_CODES[r] for r in rounding]
+        src, out = d / "in.bin", d / "out.bin"
+        with open(src, "wb") as f:
+            np.array([H, W, S, len(steps)], np.int32).tofile(f)
+            np.array(list(steps) + codes, np.int32).tofile(f)
+            np.array([*origin, res], np.float32).tofile(f)
+            owner.numpy().astype(np.int32).tofile(f)
+            table.numpy().astype(np.float32).tofile(f)
+        subprocess.run([str(exe), str(src), str(out)], check=True)
+        return np.fromfile(out, np.int32).reshape(H, W)
+
+    return run
+
+
+def _random_case(seed, S=64, H=96, W=128):
+    """Owners anywhere (some none) over seeds on a coarse lattice of
+    coordinates, so that distances tie and near-tie often."""
+    rng = np.random.default_rng(seed)
+    grid = np.float32([1.1, 2.3, 3.7, 4.9, 6.1, 7.3, 8.5])
+    table = np.concatenate([rng.choice(grid, (S, 2)), [[1e9, 1e9]]]).astype(np.float32)
+    owner = rng.integers(0, S + 1, (H, W)).astype(np.int32)
+    return torch.from_numpy(owner), torch.from_numpy(table), S
+
+
+STEPS = [1, 64, 32, 16, 8, 4, 2, 1, 3, 5]
+ROUNDING_MIXES = {
+    "xla": ["xla"] * 10,
+    "pallas": ["pallas"] * 10,
+    "pallas_last": ["pallas_last"] * 10,
+    "mixed": ["pallas", "xla"] * 4 + ["pallas", "pallas_last"],
+}
+
+
+@pytest.mark.parametrize("mix", ROUNDING_MIXES)
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_k1_source_matches_plain_flood(host_kernel, mix, seed):
+    """The passes of STEPS over a random plane, each in its rounding of the
+    mix: the kernel's source == jfa_flood_plain."""
+    owner, table, S = _random_case(seed)
+    rounding = ROUNDING_MIXES[mix]
+    got = host_kernel(owner, table, STEPS, S, (0.35, -0.45), 0.1, rounding)
+    want = jfa_pass_cuda.jfa_flood_plain(owner, table, STEPS, S, 0.35, -0.45, 0.1, rounding)[0]
+    assert np.array_equal(got, want.numpy())
+
+
+def test_k1_source_matches_plain_on_a_bench_window(host_kernel):
+    """The bench orchard's seeds of a 192 x 256 window of its grid, at its
+    origin and resolution, flooded with BENCH_STATICS' pass roundings."""
+    inp = np.load(pathlib.Path(__file__).parent / "torch_reference"
+                  / "bench_np_seed0_flood_in.npz")
+    H, W = 192, 256
+    org = (float(inp["origin"][0]), float(inp["origin"][1]))
+    grid = GridWorld(torch.zeros((H, W), dtype=torch.uint8), torch.tensor(org[0]),
+                     torch.tensor(org[1]), torch.tensor(H, dtype=torch.int32),
+                     torch.tensor(W, dtype=torch.int32))
+    xy = inp["seeds_xy"]
+    inside = (inp["seeds_valid"] & (xy[:, 0] < org[0] + W * 0.1)
+              & (xy[:, 1] < org[1] + H * 0.1))
+    seeds = SeedSet(torch.from_numpy(xy), torch.from_numpy(inside),
+                    torch.zeros(len(xy), dtype=torch.int8))
+    owner0, table = voronoi._jfa_init(grid, seeds, BENCH_STATICS)
+    steps = [1, 128, 64, 32, 16, 8, 4, 2, 1]
+    rounding = voronoi.pass_roundings(BENCH_STATICS, steps)
+    S = len(xy)
+    got = host_kernel(owner0, table, steps, S, org, BENCH_STATICS.resolution, rounding)
+    want = jfa_pass_cuda.jfa_flood_plain(owner0, table, steps, S, *org,
+                                         BENCH_STATICS.resolution, rounding)[0]
+    assert int((want < S).sum()) > H * W // 2
+    assert np.array_equal(got, want.numpy())

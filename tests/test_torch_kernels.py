@@ -403,6 +403,47 @@ def test_jfa_flood_kernel_matches_plain(cuda_device, h, w, S):  # noqa: F811
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,w,S", [(384, 512, 256), (2000, 2048, 4096)])
+def test_jfa_flood_kernel_roundings_match_plain(cuda_device, h, w, S):  # noqa: F811
+    """A flood in the Pallas roundings (voronoi.pass_roundings with
+    jfa_pass_pallas on) and single passes in each rounding == the plain
+    versions, bitwise, from one launch each."""
+    owner, table, ox, oy = _planes(h, w, S, cuda_device, seed=3)
+    org = torch.tensor([3.5, 3.5], device=cuda_device)
+    s = dataclasses.replace(DRYRUN_STATICS, grid_h=h, grid_w=w, jfa_pass_pallas=True,
+                            jfa_dynamic_shifts=False)
+    steps = voronoi._passes(s)
+    rounding = voronoi.pass_roundings(s, steps)
+    sparse = owner.clone()
+    sparse[torch.rand(owner.shape, device=cuda_device) < 0.98] = S
+    ref = jfa_pass_cuda.jfa_flood_plain(sparse, table, steps, S, org[0], org[1], 0.1, rounding)
+    got = jfa_pass_cuda.jfa_flood(sparse.clone(), table, steps, S, org[0], org[1], 0.1,
+                                  want_positions=True, rounding=rounding)
+    for a, b in zip(ref, got):
+        assert torch.equal(a, b)
+    for r in voronoi.ROUNDINGS:
+        for step in (1, 2, 64):
+            ref = jfa_pass_cuda.jfa_pass_plain(owner, ox, oy, step, S, org[0], org[1], 0.1, r)
+            got = jfa_pass_cuda.jfa_flood(owner.clone(), table, [step], S, org[0], org[1], 0.1,
+                                          want_positions=True, rounding=[r])
+            for a, b in zip(ref, got):
+                assert torch.equal(a, b)
+
+
+def test_jfa_flood_refuses_unknown_roundings():
+    """A rounding a step, each a voronoi.ROUNDINGS key, on every device."""
+    owner, table, _, _ = _planes(16, 32, 8, "cpu")
+    args = (8, 0.0, 0.0, 0.1)
+    with pytest.raises(ValueError):
+        jfa_pass_cuda.jfa_flood(owner, table, [2, 1], *args, rounding=["pallas"])
+    with pytest.raises(ValueError):
+        jfa_pass_cuda.jfa_flood(owner, table, [1], *args, rounding=["tpu"])
+    assert torch.equal(jfa_pass_cuda.jfa_flood(owner, table, [2, 1], *args),
+                       jfa_pass_cuda.jfa_flood(owner, table, [2, 1], *args,
+                                               rounding=["xla", "xla"]))
+
+
+@pytest.mark.cuda
 def test_jfa_flood_refuses_what_the_kernel_does_not_take(cuda_device):  # noqa: F811
     owner, table, _, _ = _planes(64, 128, 8, cuda_device)
     args = (8, 0.0, 0.0, 0.1)

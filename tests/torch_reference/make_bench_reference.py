@@ -5,13 +5,19 @@ Runs ``aosx``'s bench.py ``stage_full`` composition (perceive -> GVD graph
 BENCH_STATICS on the CPU, on the numpy bench orchard (bench.py's OrchardSpec,
 ``make_orchard_np(spec, seed=0)`` padded to max_points), and writes
 ``bench_np_seed0.json`` beside this file: counts, guard bits, sha256 of the
-skeleton u8 plane and of the Voronoi owner i32 plane, and the waypoint xy;
-the owner plane itself goes to ``bench_np_seed0_owner.npz``, so that a run
+skeleton u8 plane and of the Voronoi owner i32 plane, the waypoint xy, and
+the robot's xy and yaw after the step; the owner plane itself goes to ``bench_np_seed0_owner.npz``, so that a run
 whose plane differs can count the cells that differ. ``chip_smoke.py``
 holds the PyTorch port on the GPU to this summary.
 
-``jfa_dynamic_shifts=True`` shortens the XLA:CPU compile; every JFA lowering
-of ``aosx`` gives the same owners (aosx/config.py).
+The flood runs in BENCH_STATICS' own lowering: the banded Pallas pass kernel
+for every pass of step <= 128 (``aosx.gvd.jfa_pass_pallas``, switched to
+interpret mode around the jit, as ``aosx``'s tests run it on the CPU), the
+static-shift XLA pass for steps 1024, 512 and 256. The lowerings do not give
+the same owners on XLA:CPU: their squared distances are contracted into
+fused multiply-adds differently (``aosx_torch/gvd/voronoi.py``), and the
+Pallas kernel's owner and position planes are built by fusions that round
+apart (``tests/torch_reference/owner_cells.py``).
 
 Run from the repository root:
 
@@ -20,7 +26,6 @@ Run from the repository root:
 
 from __future__ import annotations
 
-import dataclasses
 import hashlib
 import json
 import pathlib
@@ -37,6 +42,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from aosx import engine  # noqa: E402
 from aosx.config import BENCH_STATICS, AosParams, params_as_f32  # noqa: E402
+from aosx.gvd import jfa_pass_pallas  # noqa: E402
 from aosx.gvd.graph import build_gvd_graph, merge_seeds  # noqa: E402
 from aosx.gvd.voronoi import jump_flood  # noqa: E402
 from aosx.orchards import OrchardSpec, make_orchard_np  # noqa: E402
@@ -58,7 +64,7 @@ def sha256(a) -> str:
 
 
 def main():
-    s = dataclasses.replace(BENCH_STATICS, jfa_dynamic_shifts=True)
+    s = BENCH_STATICS
     xyz, poly = make_orchard_np(OrchardSpec(**BENCH_SPEC), seed=0)
     buf = np.zeros((s.max_points, 3), np.float32)
     buf[:len(xyz)] = xyz
@@ -79,18 +85,23 @@ def main():
                              costmat=cm, waypoints=wp,
                              guards=out.guards | g.guards | cm.guards,
                              trim_skel=trim_distance_plane(out.skeleton, s))
-        _, metrics = engine.step(engine.initial_state(world, s), world, params, s)
+        state, metrics = engine.step(engine.initial_state(world, s), world, params, s)
         owner = jump_flood(out.skeleton, merge_seeds(out.seeds, params, s), s)
-        return out, world, metrics, owner
+        return out, world, metrics, owner, state.robot
 
     t0 = time.time()
-    out, world, metrics, owner = jax.block_until_ready(stage_full(pc, polygon, params, excl))
+    jfa_pass_pallas.INTERPRET = True
+    try:
+        out, world, metrics, owner, robot = jax.block_until_ready(
+            stage_full(pc, polygon, params, excl))
+    finally:
+        jfa_pass_pallas.INTERPRET = False
     seconds = time.time() - t0
     wp = world.waypoints
     n_wp = int(wp.count)
     summary = dict(
-        source="aosx stage_full (bench.py) at BENCH_STATICS with jfa_dynamic_shifts=True, "
-               "JAX on the CPU",
+        source="aosx stage_full (bench.py) at BENCH_STATICS (the Pallas JFA pass in "
+               "interpret mode for steps <= 128), JAX on the CPU",
         spec=BENCH_SPEC,
         seed=0,
         n_points=int(len(xyz)),
@@ -106,6 +117,8 @@ def main():
         skeleton_sha256=sha256(out.skeleton.occ),
         owner_sha256=sha256(np.asarray(owner).astype("<i4")),
         waypoints_xy=[[float(x), float(y)] for x, y in np.asarray(wp.xy)[:n_wp]],
+        robot_xy=[float(v) for v in np.asarray(robot.xy)],
+        robot_yaw=float(robot.yaw),
         jax_cpu_seconds=round(seconds, 1),
     )
     OUT.write_text(json.dumps(summary, indent=1) + "\n")

@@ -1,8 +1,9 @@
 """Full-size references of the JAX package's host surface at BENCH_STATICS.
 
-On the bench orchard (bench.py's spec, seed 0) on the CPU, with
-``jfa_dynamic_shifts=True`` (the static-shift XLA:CPU compile of a full
-flood takes more than half an hour; every lowering gives the same owners):
+On the bench orchard (bench.py's spec, seed 0) on the CPU, in BENCH_STATICS'
+own flood lowering (the Pallas JFA pass for steps <= 128 in interpret mode,
+``aosx.gvd.jfa_pass_pallas.INTERPRET`` set for the whole run, as in
+``make_bench_reference.py``; the lowerings do not give the same owners):
 
 - ``make_orchard(PRNGKey(0), spec, BENCH_STATICS)``: its valid count and
   the sha256 of its xyz and valid buffers;
@@ -44,6 +45,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from aosx.config import BENCH_STATICS, AosParams, params_as_f32  # noqa: E402
+from aosx.gvd import jfa_pass_pallas  # noqa: E402
 from aosx.gvd.clearance import obstacle_distance_field  # noqa: E402
 from aosx.gvd.graph import build_gvd_graph  # noqa: E402
 from aosx.io import ros_msgs  # noqa: E402
@@ -80,7 +82,7 @@ def msg_arrays(msg: dict) -> dict:
 
 
 def main():
-    s = dataclasses.replace(BENCH_STATICS, jfa_dynamic_shifts=True)
+    s = BENCH_STATICS
     spec = OrchardSpec(**BENCH_SPEC)
     params = params_as_f32(AosParams())
     t0 = time.time()
@@ -136,7 +138,8 @@ def main():
     seconds = time.time() - t0
 
     summary = dict(
-        source="aosx at BENCH_STATICS with jfa_dynamic_shifts=True, JAX on the CPU",
+        source="aosx at BENCH_STATICS (the Pallas JFA pass in interpret mode for steps "
+               "<= 128), JAX on the CPU",
         spec=BENCH_SPEC, seed=0, n_points=int(len(xyz)),
         make_orchard=orchard,
         skeleton_sha256=sha256(skel.occ),
@@ -155,4 +158,5 @@ def main():
 
 
 if __name__ == "__main__":
+    jfa_pass_pallas.INTERPRET = True
     main()

@@ -24,8 +24,12 @@ lengths. ``chip_smoke.py`` holds the PyTorch port's sustained harness on the
 GPU to these records.
 
 ``jfa_dynamic_shifts=True`` shortens the XLA:CPU compile from more than half
-an hour to seconds; every JFA lowering of ``aosx`` gives the same owners
-(aosx/config.py).
+an hour to seconds. MC_STATICS runs no Pallas pass (its own lowering is the
+static shifts), and the port rounds every pass of it as the XLA lowerings'
+fold (the "xla" rounding of ``aosx_torch/gvd/voronoi.py``), so these records
+stay as they were made. The lowerings do not give the same owners in
+general: at BENCH_STATICS the Pallas pass kernel's XLA:CPU build rounds its
+squared distances otherwise (``make_bench_reference.py``).
 
 Run from the repository root (about 1 minute):
 

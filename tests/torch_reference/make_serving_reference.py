@@ -14,9 +14,10 @@ again (an empty delta: level 0), then 1.00 with one valid point moved by
 
 ``points.ror_counts(method="pallas")`` imports the Pallas ROR kernel at call
 time, so this script swaps ``aosx.perceive.ror_pallas.ror_counts_pallas`` for
-its interpret-mode form before tracing; no file of the package changes.
-``jfa_dynamic_shifts=True`` shortens the XLA:CPU compile, as in
-``make_bench_reference.py``.
+its interpret-mode form before tracing; no file of the package changes. The
+flood runs in BENCH_STATICS' own lowering, the Pallas JFA pass for steps <=
+128 in interpret mode (``aosx.gvd.jfa_pass_pallas.INTERPRET``, set for the
+whole run), as in ``make_bench_reference.py``.
 
 Writes ``serving_np_seed0.json`` beside this file (per-frame levels, world
 counts, skeleton sha256, plan-cache row success/counts, adopted rows and
@@ -33,7 +34,6 @@ Run from the repository root:
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 import hashlib
 import json
@@ -51,6 +51,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from aosx import serving  # noqa: E402
 from aosx.config import BENCH_STATICS, AosParams, params_as_f32  # noqa: E402
+from aosx.gvd import jfa_pass_pallas  # noqa: E402
 from aosx.gvd.graph import merge_seeds  # noqa: E402
 from aosx.gvd.voronoi import jump_flood  # noqa: E402
 from aosx.orchards import OrchardSpec, make_orchard_np  # noqa: E402
@@ -112,7 +113,7 @@ def sha256(a) -> str:
 
 
 def main():
-    s = dataclasses.replace(BENCH_STATICS, jfa_dynamic_shifts=True)
+    s = BENCH_STATICS
     ror_pallas.ror_counts_pallas = functools.partial(ror_pallas.ror_counts_pallas,
                                                      interpret=True)
     bufs, valids, poly, n_cloud = frames()
@@ -182,7 +183,8 @@ def main():
             metrics={k: np.asarray(v[f]).tolist() for k, v in metrics.items()}))
     summary = dict(
         source="aosx serving.serve_init + serve_map_frame + 20 step_cached ticks per frame "
-               "(v_dt 0.5) at BENCH_STATICS with jfa_dynamic_shifts=True, "
+               "(v_dt 0.5) at BENCH_STATICS (the Pallas JFA pass in interpret mode for "
+               "steps <= 128), "
                "ror_method='pallas' (K3 in interpret mode), JAX on the CPU",
         spec=BENCH_SPEC, seed=0, n_points=n_cloud, fracs=list(FRACS),
         moved=dict(frame=MOVED_FRAME, point=MOVED_POINT, dx_m=MOVE_M),
@@ -210,4 +212,5 @@ def main():
 
 
 if __name__ == "__main__":
+    jfa_pass_pallas.INTERPRET = True
     main()

@@ -1,18 +1,32 @@
 """Where the port's flood and the JAX reference part on the bench orchard.
 
-``chip_smoke.py`` phase 5 counts the cells of the BENCH_STATICS owner plane
+``chip_smoke.py`` phase 5 prints the cells of the BENCH_STATICS owner plane
 that differ from ``bench_np_seed0_owner.npz`` (JAX's ``jump_flood`` inside
-``make_bench_reference.py``'s ``stage_full`` jit, ``jfa_dynamic_shifts=True``).
-This script finds out why.
+``make_bench_reference.py``'s ``stage_full`` jit, in BENCH_STATICS' own
+lowering: the Pallas pass kernel in interpret mode for steps <= 128) and
+fails on a cell that ``NAMED_OWNER_CELLS`` does not name. This script proves
+the causes.
 
-``make`` (needs jax; ~2 min on the CPU) runs that ``stage_full`` jit again,
-returning also the flood's inputs (the skeleton plane and its grid scalars,
-the merged seeds), checks that its owner plane is the reference's, and saves
-the inputs to ``bench_np_seed0_flood_in.npz``. It also saves the owner planes
-of JAX's ``jump_flood`` jitted alone on those inputs (dynamic shifts), and
-run op by op (no jit: no fusion, so no contraction of a*b + c).
+``--lowering pallas|static|dynamic`` picks the JAX lowering of the bench
+flood (default pallas, the reference's): the Pallas pass kernel for steps
+<= 128 with the static shifts elsewhere, the static shifts throughout
+(``jfa_pass_pallas=False``; its whole jit compiles for a long time), or the
+dynamic shifts (``jfa_dynamic_shifts=True``, the lowering of the references
+before the Pallas one).
 
-``passes`` (needs jax; ~10 min) jits JAX's dynamic-shift flood (the code of
+``make`` (needs jax; ~1-3 min on the CPU) runs that ``stage_full`` jit in the
+lowering, returning also the flood's inputs (the skeleton plane and its grid
+scalars, the merged seeds), and saves the inputs to
+``bench_np_seed0_flood_in.npz`` (whose owner planes are the dynamic
+lowering's: the reference's jit, ``jump_flood`` jitted alone, and run op by
+op) where it is the dynamic lowering's run, else checks that they are the
+saved ones. In the Pallas lowering it checks that its owner plane is the
+reference's and saves to ``_archive/owner_cells/bench_pallas.npz``
+(gitignored) the planes of ``jump_flood`` jitted alone and JAX's state
+before and after every pass, each pass a jit of its own that returns its
+three planes, as the whole jit's passes do but its last.
+
+``passes --lowering dynamic`` (needs jax; ~10 min) jits JAX's dynamic-shift flood (the code of
 ``aosx.gvd.voronoi.jump_flood``, with its ``_jfa_init`` and ``jacobi_fold``)
 over the first m passes, m = 1..12, and saves each owner plane to
 ``_archive/owner_cells/jax_passes.npz`` (gitignored); ``analyse`` then finds
@@ -23,7 +37,15 @@ plain Jacobi fold (``aosx_torch.gvd.voronoi.jacobi_fold``'s update) under
 several roundings of the cell coordinates and of d2, counts for each the
 cells that differ from every JAX plane, and prints, for the first cells where
 the port's rounding differs from the reference, each pass's candidates:
-owner, d2 in f32 under each rounding and in f64.
+owner, d2 in f32 under each rounding and in f64. In the Pallas lowering it
+first holds each pass of the port (``jfa_pass_plain`` in the pass's
+``voronoi.ROUNDINGS`` key) to JAX's pass from JAX's state, prints every cell
+whose JAX position is not its owner's seed (the x plane's fold rounds every
+d2 as fma(dy, dy, dx * dx), the y plane's as fma(dx, dx, dy * dy)), and
+floods the inputs with those planes carried as JAX carries them: that flood
+equals JAX's, and the port's owner-only flood differs in the cells where a
+phantom position won, each printed with how much farther (f64) JAX's owner
+lies.
 
 ``--world N`` does the same for Monte-Carlo world N of
 ``make_mc_reference.py`` (``make_orchard_np(MC_SPEC, seed=N)`` at MC_STATICS;
@@ -42,8 +64,10 @@ lies at each cell where the port's differs.
 Run from the repository root:
 
     JAX_PLATFORMS=cpu python tests/torch_reference/owner_cells.py make
-    JAX_PLATFORMS=cpu python tests/torch_reference/owner_cells.py passes
     python tests/torch_reference/owner_cells.py analyse
+    JAX_PLATFORMS=cpu python tests/torch_reference/owner_cells.py make --lowering dynamic
+    JAX_PLATFORMS=cpu python tests/torch_reference/owner_cells.py passes --lowering dynamic
+    python tests/torch_reference/owner_cells.py analyse --lowering dynamic
     JAX_PLATFORMS=cpu python tests/torch_reference/owner_cells.py make --world 102
     JAX_PLATFORMS=cpu python tests/torch_reference/owner_cells.py passes --world 102
     python tests/torch_reference/owner_cells.py analyse --world 102
@@ -64,6 +88,8 @@ sys.path.insert(0, str(ROOT))
 FLOOD_IN = HERE / "bench_np_seed0_flood_in.npz"
 REF_OWNER = HERE / "bench_np_seed0_owner.npz"
 JAX_PASSES = ROOT / "_archive" / "owner_cells" / "jax_passes.npz"
+PALLAS_PLANES = JAX_PASSES.with_name("bench_pallas.npz")
+LOWERINGS = ("pallas", "static", "dynamic")
 
 
 def _files(world):
@@ -78,9 +104,15 @@ def _files(world):
 def _owner_planes(inp, world):
     """JAX's owner planes of the saved flood, by name."""
     if world is None:
-        return {"reference (stage_full)": np.load(REF_OWNER)["owner"],
-                "jump_flood alone": inp["owner_alone"],
-                "jump_flood op by op": inp["owner_eager"]}
+        # the dynamic lowering's planes, saved with the inputs; the static
+        # lowering's where make --lowering static has saved them
+        planes = {"dynamic stage_full": inp["owner_stage"],
+                  "dynamic jump_flood alone": inp["owner_alone"],
+                  "dynamic jump_flood op by op": inp["owner_eager"]}
+        static = JAX_PASSES.with_name("bench_static.npz")
+        if static.exists():
+            planes.update({f"static {k}": v for k, v in np.load(static).items()})
+        return planes
     names = {"owner_stage": "reference (prepare_world jit)", "owner_eager": "jump_flood op by op",
              "owner_static_passes": "static shifts, a jit a pass",
              "owner_alone": "jump_flood alone"}
@@ -193,7 +225,62 @@ def static_passes(grid, seeds, s):
     return jnp.where(live_mask(grid) & (state[0] < S), state[0], -1)
 
 
-def make(world=None):
+def _bench_statics(lowering):
+    """aosx's BENCH_STATICS in the lowering, with the Pallas kernel switched
+    to interpret mode where it runs."""
+    from aosx.config import BENCH_STATICS
+    from aosx.gvd import jfa_pass_pallas
+
+    jfa_pass_pallas.INTERPRET = lowering == "pallas"
+    return dataclasses.replace(BENCH_STATICS, jfa_pass_pallas=lowering == "pallas",
+                               jfa_dynamic_shifts=lowering == "dynamic")
+
+
+def pallas_chain(grid, seeds, s):
+    """JAX's state before and after every pass of the flood in the Pallas
+    lowering, each pass a jit of its own that returns its three planes
+    (Pallas in interpret mode for steps <= 128, the static shifts a pass
+    elsewhere): {"o<m>", "x<m>", "y<m>": the state after m passes}."""
+    import jax
+
+    from aosx.gvd import jfa_pass_pallas as jpp
+    from aosx.gvd.voronoi import _jfa_init, _passes, jacobi_fold
+    from aosx.perceive.raster import shift2d
+
+    h, w = grid.occ.shape
+    S = seeds.xy.shape[0]
+
+    def fill(a, dy, dx):
+        pads = ((max(dy, 0), max(-dy, 0)), (max(dx, 0), max(-dx, 0)))
+        return jax.numpy.pad(a, pads, constant_values=S)[max(-dy, 0):max(-dy, 0) + h,
+                                                         max(-dx, 0):max(-dx, 0) + w]
+
+    def static(g, o0, x0, y0, step):
+        import jax.numpy as jnp
+
+        res = jnp.float32(s.resolution)
+        iy = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)
+        ix = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)
+        nb = [(fill(o0, a * step, b * step), shift2d(x0, a * step, b * step),
+               shift2d(y0, a * step, b * step))
+              for a in (-1, 0, 1) for b in (-1, 0, 1) if a or b]
+        return jacobi_fold(o0, x0, y0, nb, S, g.origin_x + ix.astype(jnp.float32) * res,
+                           g.origin_y + iy.astype(jnp.float32) * res)
+
+    def pallas(g, o0, x0, y0, step):
+        return jpp.jfa_pass(o0, x0, y0, step, S, g.origin_x, g.origin_y, s.resolution)
+
+    state = jax.jit(lambda g, se: _jfa_init(g, se, s))(grid, seeds)
+    out = {}
+    for m, step in enumerate(_passes(s)):
+        out.update({f"{k}{m}": np.asarray(a) for k, a in zip("oxy", state)})
+        f = pallas if step <= jpp.MAX_STEP else static
+        state = jax.jit(f, static_argnums=4)(grid, *state, step)
+    out.update({f"{k}{len(_passes(s))}": np.asarray(a) for k, a in zip("oxy", state)})
+    return out
+
+
+def make(world=None, lowering="pallas"):
     if world is not None:
         return make_world(world)
     import jax
@@ -203,7 +290,7 @@ def make(world=None):
     from make_bench_reference import BENCH_SPEC  # noqa: E402
 
     from aosx import engine
-    from aosx.config import BENCH_STATICS, AosParams, params_as_f32
+    from aosx.config import AosParams, params_as_f32
     from aosx.gvd.graph import build_gvd_graph, merge_seeds
     from aosx.gvd.voronoi import jump_flood
     from aosx.orchards import OrchardSpec, make_orchard_np
@@ -212,7 +299,7 @@ def make(world=None):
     from aosx.plan.mission import build_waypoints, trim_distance_plane
     from aosx.types import GridWorld, PointCloud, Polygon, SeedSet
 
-    s = dataclasses.replace(BENCH_STATICS, jfa_dynamic_shifts=True)
+    s = _bench_statics(lowering)
     xyz, poly = make_orchard_np(OrchardSpec(**BENCH_SPEC), seed=0)
     buf = np.zeros((s.max_points, 3), np.float32)
     buf[:len(xyz)] = xyz
@@ -241,13 +328,25 @@ def make(world=None):
 
     skel, merged, _, owner = jax.block_until_ready(stage_full(pc, polygon, params, excl))
     ref = np.load(REF_OWNER)["owner"]
-    print(f"stage_full again: {int((np.asarray(owner) != ref).sum())} cells differ from "
-          f"the reference owner plane", flush=True)
+    print(f"stage_full again ({lowering} lowering): {int((np.asarray(owner) != ref).sum())} "
+          f"cells differ from the reference owner plane", flush=True)
     grid = GridWorld(skel.occ, skel.origin_x, skel.origin_y, skel.h_cells, skel.w_cells)
     seeds = SeedSet(merged.xy, merged.valid, merged.kind)
     alone = jax.block_until_ready(jax.jit(lambda g, se: jump_flood(g, se, s))(grid, seeds))
     print(f"jump_flood jitted alone: {int((np.asarray(alone) != ref).sum())} cells differ",
           flush=True)
+    if lowering != "dynamic":
+        inp = np.load(FLOOD_IN)
+        same = all(np.array_equal(np.asarray(a), inp[k]) for a, k in (
+            (skel.occ, "occ"), (merged.xy, "seeds_xy"), (merged.valid, "seeds_valid")))
+        print(f"flood inputs equal the saved ones: {same}", flush=True)
+        planes = dict(owner_stage=np.asarray(owner), owner_alone=np.asarray(alone))
+        if lowering == "pallas":
+            planes.update(pallas_chain(grid, seeds, s))
+        out = JAX_PASSES.with_name(f"bench_{lowering}.npz")
+        out.parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(out, **planes)
+        return
     with jax.disable_jit():
         eager = np.asarray(jump_flood(grid, seeds, s))
     print(f"jump_flood op by op: {int((eager != ref).sum())} cells differ", flush=True)
@@ -439,13 +538,10 @@ def flood(inp, variant, watch=(), states=None):
 TRACED = 8
 
 
-def _port_jump_flood(inp):
-    """The port's own jump_flood (the plain Jacobi fold on the CPU) of the
-    saved inputs."""
+def _port_grid(inp):
+    """(GridWorld, SeedSet) of the port for the saved inputs."""
     import torch
 
-    import aosx_torch.config
-    from aosx_torch.gvd.voronoi import jump_flood
     from aosx_torch.types import GridWorld, SeedSet
 
     origin = inp["origin"]
@@ -453,9 +549,18 @@ def _port_jump_flood(inp):
     grid = GridWorld(torch.from_numpy(inp["occ"]), torch.tensor(origin[0]),
                      torch.tensor(origin[1]), h_cells, w_cells)
     sxy = torch.from_numpy(inp["seeds_xy"])
-    seeds = SeedSet(sxy, torch.from_numpy(inp["seeds_valid"]),
-                    torch.zeros(len(sxy), dtype=torch.int8))
-    return jump_flood(grid, seeds, getattr(aosx_torch.config, _statics_name(inp))).numpy()
+    return grid, SeedSet(sxy, torch.from_numpy(inp["seeds_valid"]),
+                         torch.zeros(len(sxy), dtype=torch.int8))
+
+
+def _port_jump_flood(inp):
+    """The port's own jump_flood (the plain Jacobi fold on the CPU) of the
+    saved inputs."""
+    import aosx_torch.config
+    from aosx_torch.gvd.voronoi import jump_flood
+
+    return jump_flood(*_port_grid(inp),
+                      getattr(aosx_torch.config, _statics_name(inp))).numpy()
 
 
 def analyse(world=None):
@@ -530,6 +635,83 @@ def analyse(world=None):
     return summary
 
 
+def analyse_pallas():
+    """``analyse`` in the Pallas lowering (module docstring)."""
+    import torch
+
+    from aosx_torch.config import BENCH_STATICS
+    from aosx_torch.gvd import jfa_pass_cuda, voronoi
+
+    torch.set_num_threads(4)
+    inp = dict(np.load(FLOOD_IN))
+    jp = np.load(PALLAS_PLANES)
+    xy = inp["seeds_xy"]
+    S = len(xy)
+    table = np.concatenate([xy, [[1e9, 1e9]]]).astype(np.float32)
+    steps = voronoi._passes(BENCH_STATICS)
+    rounding = voronoi.pass_roundings(BENCH_STATICS, steps)
+    org = (float(inp["origin"][0]), float(inp["origin"][1]), BENCH_STATICS.resolution)
+    # the x and y planes of JAX's Pallas pass: their folds' roundings
+    planes = {"x": "yyyyyyyyy", "y": "xxxxxxxxx"}
+
+    def fold(state, step, r, plane=None):
+        forms = voronoi.ROUNDINGS[r] if plane is None or r == "xla" else planes[plane]
+        voronoi.ROUNDINGS["owner_cells"] = forms
+        try:
+            return jfa_pass_cuda.jfa_pass_plain(*state, step, S, *org, "owner_cells")
+        finally:
+            del voronoi.ROUNDINGS["owner_cells"]
+
+    print("each pass from JAX's state (a jit a pass, its three planes returned): cells where "
+          "the port's owner / JAX's x, y differ from the port's fold in the pass's rounding / "
+          "from the x and y planes' folds")
+    for m, (step, r) in enumerate(zip(steps, rounding)):
+        before = tuple(torch.from_numpy(np.array(jp[f"{k}{m}"])) for k in "oxy")
+        after = [jp[f"{k}{m + 1}"] for k in "oxy"]
+        # a pass that returns its planes rounds its owner plane as "pallas"
+        r_owner = "pallas" if r == "pallas_last" else r
+        got = fold(before, step, r_owner)
+        gx, gy = fold(before, step, r, "x")[1], fold(before, step, r, "y")[2]
+        print(f"  pass {m} (step {step}, {r_owner}): owner {int((got[0].numpy() != after[0]).sum())}"
+              f"; x {int((got[1].numpy() != after[1]).sum())} / {int((gx.numpy() != after[1]).sum())}"
+              f"; y {int((got[2].numpy() != after[2]).sum())} / {int((gy.numpy() != after[2]).sum())}")
+        own = table[np.minimum(after[0], S)]
+        for c in np.argwhere((after[0] < S) & ((after[1] != own[..., 0]) | (after[2] != own[..., 1]))):
+            c = tuple(int(v) for v in c)
+            k = int(after[0][c])
+            sx = np.flatnonzero(xy[:, 0] == after[1][c])[:3].tolist()
+            sy = np.flatnonzero(xy[:, 1] == after[2][c])[:3].tolist()
+            print(f"    cell {c}: owner {k} at {table[k].tolist()}, position "
+                  f"({float(after[1][c])!r}, {float(after[2][c])!r}): x of seeds {sx}, y of "
+                  f"seeds {sy}")
+
+    # the flood with the three planes carried as JAX's Pallas build carries
+    # them, and the port's own (a position always its owner's seed)
+    owner0, tab = voronoi._jfa_init(*_port_grid(inp), BENCH_STATICS)
+    pos = tab[owner0.long()]
+    state = (owner0, pos[..., 0].contiguous(), pos[..., 1].contiguous())
+    for m, (step, r) in enumerate(zip(steps, rounding)):
+        o = fold(state, step, r)[0]
+        state = (o, fold(state, step, r, "x")[1], fold(state, step, r, "y")[2])
+    grid = _port_grid(inp)[0]
+    live = voronoi.live_mask(grid)
+    carried = torch.where(live & (state[0] < S), state[0], -1).numpy()
+    port = _port_jump_flood(inp)
+    ref = np.load(REF_OWNER)["owner"]
+    print(f"the flood carrying JAX's three planes vs the reference: "
+          f"{int((carried != ref).sum())} cells differ; vs jump_flood jitted alone: "
+          f"{int((carried != jp['owner_alone']).sum())}")
+    cells = [tuple(int(v) for v in c) for c in np.argwhere(port != ref)]
+    print(f"the port's jump_flood vs the reference: {len(cells)} cells differ: {cells}")
+    org64 = inp["origin"].astype(np.float64)
+    res = float(np.float32(BENCH_STATICS.resolution))
+    for c in cells:
+        corner = org64 + np.array([c[1], c[0]]) * res
+        d = {k: float(((xy[k].astype(np.float64) - corner) ** 2).sum()) for k in (ref[c], port[c])}
+        print(f"  cell {c}: reference {ref[c]} (f64 d2 {d[ref[c]]!r}), port {port[c]} "
+              f"({d[port[c]]!r}): the reference's lies {d[ref[c]] - d[port[c]]!r} m^2 farther")
+
+
 if __name__ == "__main__":
     import argparse
 
@@ -537,5 +719,14 @@ if __name__ == "__main__":
     ap.add_argument("mode", nargs="?", default="analyse", choices=("make", "passes", "analyse"))
     ap.add_argument("--world", type=int, default=None,
                     help="a Monte-Carlo world of make_mc_reference.py in place of the bench orchard")
+    ap.add_argument("--lowering", choices=LOWERINGS, default="pallas",
+                    help="the JAX lowering of the bench flood (the reference's: pallas)")
     a = ap.parse_args()
-    {"make": make, "passes": jax_passes, "analyse": analyse}[a.mode](a.world)
+    if a.world is None and a.mode == "make":
+        make(None, a.lowering)
+    elif a.world is None and a.mode == "analyse" and a.lowering == "pallas":
+        analyse_pallas()
+    elif a.world is None and a.mode == "passes" and a.lowering != "dynamic":
+        raise SystemExit("passes: the dynamic lowering's; make saves the Pallas lowering's passes")
+    else:
+        {"make": make, "passes": jax_passes, "analyse": analyse}[a.mode](a.world)
