@@ -2,14 +2,14 @@
 
 Replaces the TPU kernel ``aosx/gvd/jfa_pass_pallas.py::jfa_pass``. The CUDA
 C++ source is ``aosx_torch/csrc/jfa_pass.cu`` (design and bounds in its
-header note): it carries the owner plane alone and reads a candidate's
-position from the seed table in shared memory, because ``(ox, oy) ==
-table[owner]`` holds at the flood's start and a pass only copies triples.
+header note): it carries the flood's owner, x and y planes as the TPU kernel
+does, a cell's position as the indices of the seeds whose x and y it holds,
+stored only where it is not the owner's seed.
 
 Plain PyTorch versions beside it: ``jfa_pass_plain`` is one pass over the
 three carried planes (the TPU kernel's interface: shifted pass-start planes
-folded by ``voronoi.jacobi_fold``), ``jfa_flood_plain`` gathers
-``table[owner]`` and loops it over the steps.
+folded by ``voronoi.jacobi_fold``), ``jfa_flood_plain`` starts the position
+planes at ``table[owner]`` and loops it over the steps.
 
 World axis: ``jfa_flood`` and the plain versions take owner planes
 [*B, H, W], seed tables [*B, S + 1, 2] and origins of shape B, as
@@ -18,10 +18,10 @@ its own origin and table. The kernel floods a whole group in one launch (a
 counted launch a chunk of worlds where the group exceeds the card's
 co-resident blocks); [H, W] is the same call with one world.
 
-Roundings: ``rounding`` names each pass's rounding of the squared distance
-(``voronoi.ROUNDINGS``; ``voronoi.pass_roundings`` gives a flood's, the
-Pallas ones for the passes that ``aosx`` runs through the TPU kernel). The
-kernel takes them as a code a pass, in the same call and launch.
+Roundings: ``rounding`` names each pass's forms of the squared distance in
+each plane (``voronoi.ROUNDINGS``; ``voronoi.pass_roundings`` gives a
+flood's, as ``aosx`` lowers each pass). The kernel takes them as three form
+words a pass (``form_codes``), in the same call and launch.
 
 ``jfa_flood`` takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises. Unlike the TPU kernel it has no
@@ -43,8 +43,18 @@ from ..perceive.raster import to_plane, iota2, shift2d
 
 FAR = 1e9
 MAX_STEPS = 32
-# the kernel's code of each voronoi.ROUNDINGS key (jfa_pass.cu's Rounding)
-ROUNDING_CODES = {"xla": 0, "pallas": 1, "pallas_last": 2}
+# jfa_pass.cu's kMaxSeeds: a seed index (or S, none) in 16 bits
+MAX_SEEDS = 0xFFFF
+# jfa_pass.cu's code of a d2 form (Steps::forms: 2 bits a candidate)
+FORM_CODES = {"x": 0, "y": 1, "u": 2}
+
+
+def form_codes(rounding: str):
+    """The kernel's three form words (owner, x, y planes) of a
+    ``voronoi.ROUNDINGS`` key: candidate m's form in bits 2m, 2m + 1."""
+    return [sum(FORM_CODES[c] << (2 * m) for m, c in enumerate(forms))
+            for forms in _voronoi.ROUNDINGS[rounding]]
+
 
 def cell_coords(shape, origin_x, origin_y, res: float, device):
     """(cellx, celly) f32 planes [*B, H, W] (``shape`` is (H, W), the
@@ -77,17 +87,18 @@ def jfa_pass_plain(owner, ox, oy, step: int, S: int, origin_x, origin_y, res: fl
 def _roundings(steps, rounding):
     """A ``voronoi.ROUNDINGS`` key a step ("xla" for all where None)."""
     names = ["xla"] * len(steps) if rounding is None else list(rounding)
-    if len(names) != len(steps) or any(r not in ROUNDING_CODES for r in names):
+    if len(names) != len(steps) or any(r not in _voronoi.ROUNDINGS for r in names):
         raise ValueError(f"jfa_flood: roundings {names} for {len(steps)} steps; each one of "
-                         f"{list(ROUNDING_CODES)}")
+                         f"{list(_voronoi.ROUNDINGS)}")
     return names
 
 
 def jfa_flood_plain(owner, table, steps, S: int, origin_x, origin_y, res: float, rounding=None):
     """The passes at ``steps`` in plain PyTorch, from an owner plane (i32
     [*B, H, W], owners in 0..S) and the seed table (f32 [*B, S + 1, 2], row
-    S = (1e9, 1e9)), each pass rounded as its key in ``rounding`` (None:
-    all "xla"). Returns (owner, ox, oy)."""
+    S = (1e9, 1e9)), the position planes starting at ``table[owner]``, each
+    pass rounded as its key in ``rounding`` (None: all "xla"). Returns the
+    carried planes (owner, ox, oy)."""
     nb = owner.dim() - 2
     pos = take(table, owner.flatten(-2), nb).reshape(owner.shape + (2,))
     state = (owner, pos[..., 0].contiguous(), pos[..., 1].contiguous())
@@ -103,8 +114,9 @@ _int = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib():
     fn = cuda_build.load("jfa_pass").jfa_flood
-    fn.argtypes = [_vp, _vp, _vp, _vp, _vp, ctypes.POINTER(_int), ctypes.POINTER(_int), _int,
-                   _int, _int, _int, _int, ctypes.c_float, _vp, _vp, ctypes.POINTER(_int), _vp]
+    fn.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _vp, ctypes.POINTER(_int), ctypes.POINTER(_int),
+                   _int, _int, _int, _int, _int, ctypes.c_float, _vp, _vp, ctypes.POINTER(_int),
+                   _vp]
     fn.restype = _int
     return fn
 
@@ -113,11 +125,13 @@ def jfa_flood(owner, table, steps, S: int, origin_x, origin_y, res: float,
               want_positions: bool = False, rounding=None):
     """The 8-direction Jacobi passes at ``steps`` (a single pass is
     ``steps=[k]``) over the owner planes (i32 [*B, H, W], owners in 0..S
-    with S = none), positions read from ``table`` (f32 [*B, S + 1, 2], row S
-    = (1e9, 1e9)), each world of the leading axes B from its own origin
-    (0-d or of shape B), each pass rounded as its ``voronoi.ROUNDINGS`` key
-    in ``rounding`` (None: all "xla"). Returns the owner planes, or (owner,
-    ox, oy) with ``want_positions``.
+    with S = none, S <= 65535), the position planes starting at the owners'
+    seeds in ``table`` (f32 [*B, S + 1, 2], row S = (1e9, 1e9)), each world
+    of the leading axes B from its own origin (0-d or of shape B), each pass
+    rounded as its ``voronoi.ROUNDINGS`` key in ``rounding`` (None: all
+    "xla"). Returns the owner planes, or the carried planes (owner, ox, oy)
+    with ``want_positions`` (the last pass then carries its x and y planes
+    too).
 
     CPU tensors take the plain version. CUDA tensors launch kernel K1: one
     call into the library and one cooperative launch for the whole flood of
@@ -144,6 +158,8 @@ def jfa_flood(owner, table, steps, S: int, origin_x, origin_y, res: float,
     G = math.prod(B)
     if W % 4 != 0:
         raise ValueError(f"jfa_flood: the plane's width {W} must be a multiple of 4")
+    if S > MAX_SEEDS:
+        raise ValueError(f"jfa_flood: {S} seeds; a position word holds indices up to {MAX_SEEDS}")
     if not 1 <= len(steps) <= MAX_STEPS or any(k < 1 for k in steps):
         raise ValueError(f"jfa_flood: 1 to {MAX_STEPS} steps, each >= 1: {steps}")
 
@@ -153,6 +169,8 @@ def jfa_flood(owner, table, steps, S: int, origin_x, origin_y, res: float,
 
     gx, gy = per_world(origin_x), per_world(origin_y)
     other = torch.empty_like(owner)
+    # the position words' ping-pong pair (a flood of one pass needs none)
+    pos = [torch.empty_like(owner) for _ in range(2)] if len(steps) > 1 else [None, None]
     ox = oy = None
     if want_positions:
         ox = torch.empty(owner.shape, dtype=torch.float32, device=dev)
@@ -161,9 +179,11 @@ def jfa_flood(owner, table, steps, S: int, origin_x, origin_y, res: float,
     if G > 0:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = _lib()(owner.data_ptr(), other.data_ptr(), table.data_ptr(), gx.data_ptr(),
-                        gy.data_ptr(), (_int * len(steps))(*steps),
-                        (_int * len(steps))(*(ROUNDING_CODES[r] for r in names)), len(steps),
+            forms = [c for r in names for c in form_codes(r)]
+            rc = _lib()(owner.data_ptr(), other.data_ptr(),
+                        *(p.data_ptr() if p is not None else None for p in pos),
+                        table.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+                        (_int * len(steps))(*steps), (_int * len(forms))(*forms), len(steps),
                         G, H, W, int(S),
                         float(res), ox.data_ptr() if want_positions else None,
                         oy.data_ptr() if want_positions else None, ctypes.byref(launches),

@@ -23,8 +23,9 @@ as in ``aosx``, and the same code runs on a CPU mesh in the tests.
   to the fixpoint or ``skeleton_max_iters``.
 - ``jump_flood_sharded``: a pass's row shift by ``d = q * Hb + r`` rows is at
   most two whole-band moves and a local stitch; the fold is
-  ``voronoi.jacobi_fold``, whose cell coordinates and d2 round as the
-  single-device flood's do (fused multiply-adds).
+  ``voronoi.jacobi_fold`` over the carried owner, x and y planes, each
+  rounded as XLA:CPU builds ``aosx``'s sharded flood (the "xla" forms, the
+  last pass "sharded_last").
 
 All three are bitwise equal to the single-device stages
 (tests/test_torch_spatial.py). These are the plain PyTorch counterparts of
@@ -195,8 +196,10 @@ def jump_flood_sharded(grid: GridWorld, seeds: SeedSet, s: Statics, mesh: Mesh,
 
     with owner S (positions 1e9) outside [0, H). Column shifts stay on the
     band (fill S, positions 0.0). Positions never matter where the owner is
-    S, so the owner plane is bitwise ``jump_flood``'s. Returns owner i32
-    [H, W] on the grid's device: seed index, or -1 outside the live region."""
+    S. The owner, x and y planes are folded in the forms XLA:CPU gives
+    ``aosx``'s sharded flood (``voronoi.ROUNDINGS``: "xla", the last pass
+    "sharded_last"). Returns owner i32 [H, W] on the grid's device: seed
+    index, or -1 outside the live region."""
     n = mesh.shape[axis]
     H, W = grid.occ.shape
     assert H % n == 0, (H, n)
@@ -232,7 +235,9 @@ def jump_flood_sharded(grid: GridWorld, seeds: SeedSet, s: Statics, mesh: Mesh,
         return [torch.where((gy - d < 0) | (gy - d >= H), torch.full_like(b, fill), b)
                 for gy, b in zip(gys, out)]
 
-    for step in _passes(s):
+    steps = _passes(s)
+    for i, step in enumerate(steps):
+        rounding = "sharded_last" if i == len(steps) - 1 else "xla"
         rows = {dys: (shift_rows(o, dys * step, S), shift_rows(x, dys * step, FAR),
                       shift_rows(y, dys * step, FAR)) for dys in (-1, 0, 1)}
         new = []
@@ -246,7 +251,7 @@ def jump_flood_sharded(grid: GridWorld, seeds: SeedSet, s: Statics, mesh: Mesh,
                     neighbors.append((shift2d(od, 0, dxs * step, S),
                                       shift2d(xd, 0, dxs * step, 0.0),
                                       shift2d(yd, 0, dxs * step, 0.0)))
-            new.append(jacobi_fold(o[k], x[k], y[k], neighbors, S, *cells[k]))
+            new.append(jacobi_fold(o[k], x[k], y[k], neighbors, S, *cells[k], rounding))
         o, x, y = (list(t) for t in zip(*new))
     out = [torch.where(live & (ob < S), ob, torch.full_like(ob, -1))
            for live, ob in zip(lives, o)]

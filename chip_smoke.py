@@ -15,9 +15,9 @@ kernel on them:
   phase 2  K1: a full jump flood at 2000 x 2048, S = 4096, and at 384 x 512,
            S = 256, each in the Pallas and in the XLA roundings of
            voronoi.ROUNDINGS, from one call of the kernel (one cooperative
-           launch) and through the plain PyTorch passes: owner, ox and oy
-           bitwise equal, single passes from a mid-flood state in every
-           rounding too; ms a flood and a pass at each step value, against
+           launch) and through the plain PyTorch passes: the owner plane and
+           the carried x and y planes bitwise equal, single passes from a
+           mid-flood state in every rounding too; ms a flood and a pass at each step value, against
            the bound; with the world axis, 32
            MC_STATICS floods of their own origins, bounds and seeds in one
            launch against the plain batched flood and each world's
@@ -49,7 +49,7 @@ kernel on them:
            guard bits, and the JAX package's full-size reference summary
            (tests/torch_reference/bench_np_seed0.json: counts, hashes, the
            robot's pose after the step bitwise, the waypoints bitwise, the
-           owner plane bitwise but in the cells NAMED_OWNER_CELLS names);
+           owner plane bitwise: NAMED_OWNER_CELLS names no cell);
            per-stage times
   phase 6  K3: all-pairs ROR counts of 131,072 points (the bench orchard,
            parked as ror_counts parks it, and a uniform cloud at its
@@ -161,22 +161,10 @@ WAYPOINT_ULP_BOUND = 0
 # Owner cells (row, col) of a reference plane where the port's owner differs,
 # each with its proven cause (ROADMAP section 3); phases 5 and 7 print every
 # cell that differs and fail on one not named here. K1 and its plain version
-# round each pass as XLA:CPU builds the reference's lowering of it
-# (aosx_torch/gvd/voronoi.py's ROUNDINGS): on the bench orchard 9 of the
-# 4,096,000 cells still differ, all from one phantom position of the
-# reference's Pallas passes, whose owner and y planes are selected by folds
-# rounded apart. The port keeps a cell's position its owner's seed
-# (tests/torch_reference/owner_cells.py --lowering pallas)
-_PHANTOM_2388 = ("the reference's fault: after its step-4 pass (pass 10) cell (1080, 1243) "
-                 "holds owner 2388 at (127.867, 115.967) but y 107.033, seed 2209's, which its "
-                 "y plane's fold (every d2 fma(dx, dx, dy * dy)) took where the owner plane's "
-                 "took 2388; the phantom position (127.867, 107.033) then wins this cell for "
-                 "2388 in the last two passes, 1.71-5.33 m^2 farther (f64) than 2209, the "
-                 "port's owner")
-NAMED_OWNER_CELLS = {
-    "bench": {(r, c): _PHANTOM_2388 for r in (1077, 1078, 1079) for c in (1244, 1245, 1246)},
-    "serving frame 0": {},
-}
+# carry the flood's owner, x and y planes and fold each in the rounding
+# XLA:CPU gives it in the reference's lowering (aosx_torch/gvd/voronoi.py's
+# ROUNDINGS), so no cell is named
+NAMED_OWNER_CELLS = {"bench": {}, "serving frame 0": {}}
 TEST_TICKS = 20
 TEST_V_DT = 0.5
 REPS = 5
@@ -211,15 +199,10 @@ MC_BATCHED_KEYS, MC_BATCHED_STEPS = 8, 150
 # (ROADMAP section 3), so a record equals JAX's bit for bit
 MC_FLOAT_BOUND_M = {"travel_distance": 0.0, "final_dist_to_origin": 0.0}
 # Records beyond that bound, each printed with both sides and the cache rows
-# whose plan lengths differ: record -> its proven cause. Measured on the CPU
-# port: 1 of 128, steps_to_complete 5 ticks apart, the floats 0.38 m
-MC_NAMED_RECORDS = {
-    102: "the reference's fault: at an exact tie of two seeds (cell (248, 352), pass 7) its "
-         "jitted flood gives the owner plane seed 85 and the x plane seed 88's x; that phantom "
-         "position then wins 73 cells for seed 85, each 0.035-1.31 m^2 farther than the "
-         "port's owner. JAX's flood run op by op owns every cell as the port does "
-         "(tests/torch_reference/owner_cells.py --world 102)",
-}
+# whose plan lengths differ: record -> its proven cause. None since the flood
+# carries its three planes as the reference's does (world 102's was the
+# reference's phantom position)
+MC_NAMED_RECORDS = {}
 MC_RECORD_BOUND = len(MC_NAMED_RECORDS)
 # ... and even those agree in every other int and bool field, within these
 MC_DRIFT_TRAVEL_M = 0.4
@@ -480,40 +463,60 @@ def k1_case(S, device):
 
 
 def k1_ops_by_pass(before, steps, n, coords, rounding=None):
-    """Each pass's operations bound (ms) from the owner planes ([*B, H, W])
-    it starts from, in its rounding (voronoi.ROUNDINGS; None: all "xla"):
-    H + W FP32 FMAs a world for the coordinates; for each distinct owner
-    among a cell's 9 candidates (one without an owner needs no distance),
-    4 for its d2 in one form (2 sub, 1 mul, 1 FMA), 2 more (a mul, an FMA or
-    add) where the rounding asks its other form of it too, and a compare
-    unless it is the cell's own owner."""
+    """Each pass's operations bound (ms) from the planes (owner, x, y, each
+    [*B, H, W]) it starts from, in its rounding (voronoi.ROUNDINGS; None: all
+    "xla"): H + W FP32 FMAs a world for the coordinates; for each distinct
+    candidate among a cell's 9 (owner and carried position; one without an
+    owner needs nothing), 2 subtractions, the products its forms need (dx *
+    dx for "y" and "u", dy * dy for "x" and "u") and an FMA or add for each
+    form the owner plane's fold asks of it, and a compare for each distinct
+    (candidate, form) but the cell's own. The x and y planes' folds are not
+    counted: they take the owner fold's winner but at near ties."""
     import torch
     from aosx_torch.gvd.voronoi import ROUNDINGS
     from aosx_torch.perceive.raster import shift2d
 
+    bit = {"x": 1, "y": 2, "u": 4}
     out = []
     rounding = rounding or ["xla"] * len(steps)
-    for (o, _, _), step, r in zip(before, steps, rounding):
+    for (o, x, y), step, r in zip(before, steps, rounding):
         worlds = o[..., 0, 0].numel()
-        nine = torch.stack([shift2d(o, dys * step, dxs * step, n)
-                            for dys in (-1, 0, 1) for dxs in (-1, 0, 1)])
-        # the same candidates in jacobi_fold's order (the cell's own first),
-        # each keyed with its form of d2
-        nine = torch.cat([nine[4:5], nine[:4], nine[5:]])
-        alt = torch.tensor([f != "x" for f in ROUNDINGS[r]], device=o.device)
-        alt = alt.reshape((9,) + (1,) * o.dim()).to(torch.int64)
-
-        def distinct(keys, none):
-            keys = keys.sort(0).values
-            return int((keys[0] < none).sum()) + int(((keys[1:] != keys[:-1])
-                                                      & (keys[1:] < none)).sum())
-
-        owners = distinct(nine, n)
-        forms = distinct(nine.to(torch.int64) * 2 + alt, 2 * n)
-        own = int((o < n).sum())
-        out.append(bound(0, fp32_ops=worlds * coords + 4 * owners + 2 * (forms - owners)
-                         + (owners - own))[0])
-        del nine
+        planes = ROUNDINGS[r][:1]
+        # a candidate: its owner in the high word, a hash of its position's
+        # bits in the low one; no owner sorts above every owner
+        xb = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        yb = y.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        key = (o.to(torch.int64) << 32) | ((xb * 2654435761) ^ yb) & 0xFFFFFFFF
+        none = n << 32
+        keys = [key] + [shift2d(key, dys * step, dxs * step, none)
+                        for dys in (-1, 0, 1) for dxs in (-1, 0, 1) if dys or dxs]
+        live = [k < none for k in keys]
+        ops = 0
+        # each distinct candidate once, with the union of the forms asked of it
+        for m in range(9):
+            first = live[m].clone()
+            union = torch.zeros_like(key)
+            for j in range(9):
+                same = keys[j] == keys[m]
+                if j < m:
+                    first &= ~same
+                union |= same.to(torch.int64) * sum(bit[f[j]] for f in set(planes))
+            dx2 = (union & 6) != 0
+            dy2 = (union & 5) != 0
+            forms = (union & 1) + ((union & 2) >> 1) + ((union & 4) >> 2)
+            ops += int(torch.where(first, 2 + dx2.to(torch.int64) + dy2.to(torch.int64) + forms,
+                                   0).sum())
+            del union, dx2, dy2, forms, first
+        # a compare a distinct (candidate, form), but the own
+        for f in planes:
+            for m in range(9):
+                first = live[m].clone()
+                for j in range(m):
+                    if f[j] == f[m]:
+                        first &= keys[j] != keys[m]
+                ops += int(first.sum()) - (int(live[0].sum()) if m == 0 else 0)
+        out.append(bound(0, fp32_ops=worlds * coords + ops)[0])
+        del keys, live, key
     return out
 
 
@@ -531,9 +534,8 @@ def phase_k1_shape(name, S, device, pallas):
     n = S.max_seeds
     steps = voronoi._passes(S)
     npass = len(steps)
-    rounding = (voronoi.pass_roundings(dataclasses.replace(
-        S, jfa_pass_pallas=True, jfa_dynamic_shifts=False), steps) if pallas
-        else ["xla"] * npass)
+    rounding = voronoi.pass_roundings(dataclasses.replace(
+        S, jfa_pass_pallas=pallas, jfa_dynamic_shifts=False), steps)
     name = f"{name}, {'Pallas' if pallas else 'XLA'} rounding"
     owner0, table = voronoi._jfa_init(grid, seeds, S)
     args = (n, grid.origin_x, grid.origin_y, S.resolution)
@@ -550,9 +552,11 @@ def phase_k1_shape(name, S, device, pallas):
         state = jfa_pass_cuda.jfa_pass_plain(*state, step, *args, r)
     if not all(torch.equal(a, b) for a, b in zip(state, ref)):
         raise AssertionError("jfa_flood_plain differs from the loop of jfa_pass_plain")
-    if not (torch.equal(ref[1], table[ref[0].long()][..., 0])
-            and torch.equal(ref[2], table[ref[0].long()][..., 1])):
-        raise AssertionError("ox, oy != table[owner] after the flood")
+    # cells whose carried position is not their owner's seed (the planes'
+    # folds part at exact ties)
+    seed_of = table[ref[0].long()]
+    apart = int(((ref[0] < n) & ((ref[1] != seed_of[..., 0]) | (ref[2] != seed_of[..., 1])))
+                .sum())
 
     # the flood: owner, and ox/oy with want_positions
     got = jfa_pass_cuda.jfa_flood(owner0.clone(), table, steps, *args, want_positions=True,
@@ -570,7 +574,7 @@ def phase_k1_shape(name, S, device, pallas):
     # fifth pass), also at steps the flood does not use, in every rounding
     mid = before[4]
     for step in K1_SINGLE_STEPS:
-        for r in (voronoi.ROUNDINGS if pallas else ("xla",)):
+        for r in voronoi.ROUNDINGS:
             want = jfa_pass_cuda.jfa_pass_plain(*mid, step, *args, r)
             got = jfa_pass_cuda.jfa_flood(mid[0].clone(), table, [step], *args,
                                           want_positions=True, rounding=[r])
@@ -594,16 +598,17 @@ def phase_k1_shape(name, S, device, pallas):
                                                              rounding=rounding),
                            device, REPS, lambda: torch.full_like(owner0, n))
     # Bound. The flood must read the owner plane once and write it once
-    # through device memory (8 B a cell) and read the table; from pass to pass
-    # the two planes can stay in L2. A pass costs H + W FP32 instructions for
-    # the coordinates (an FMA for each row's y and each column's x, which every
-    # cell of that row or column shares), 4 a cell (2 sub, 1 mul, 1 FMA) for
-    # the distance to the cell's own owner in one form and 2 more (a mul, an
-    # FMA or add) where the pass's rounding asks the other form of it too
-    # (voronoi.ROUNDINGS), and the same for every other distinct owner among
-    # its 8 candidates with a compare more: one without an owner needs no
-    # distance, and neither does an owner seen before in that form. Counted
-    # on this run's states.
+    # through device memory (8 B a cell) and read the table: the carried
+    # positions start as the owners' seeds and are the kernel's own state from
+    # pass to pass, no input or output of a flood without positions. A pass
+    # costs H + W FP32 instructions for the coordinates (an FMA for each row's
+    # y and each column's x, which every cell of that row or column shares)
+    # and, for each distinct candidate (owner and position) among a cell's 9,
+    # 2 subtractions, the products and an FMA or add for each form that the
+    # owner plane's fold asks of it (voronoi.ROUNDINGS), with a compare for
+    # each distinct (candidate, form) but the own; the x and y planes' folds
+    # take the owner fold's winner but at near ties, which are not counted
+    # (k1_ops_by_pass). Counted on this run's states.
     cells = S.grid_h * S.grid_w
     coords = S.grid_h + S.grid_w
     ops_by_pass = k1_ops_by_pass(before, steps, n, coords, rounding)
@@ -611,30 +616,33 @@ def phase_k1_shape(name, S, device, pallas):
     bytes_ms, _ = bound(8 * cells + 8 * (n + 1))
     flood_bound = max(bytes_ms, ops_ms)
     b_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    old_ms, _ = bound(24 * cells)
-    full_ms, _ = bound(0, fp32_ops=coords + (4 + 5 * 8) * cells)
+    carried_ms, _ = bound(16 * cells)
+    full_ms, _ = bound(0, fp32_ops=coords + (4 + 8 * 5) * cells)
     log(f"# phase 2: K1 jump flood {name} {S.grid_h}x{S.grid_w} S={n} ({npass} passes): one "
         f"call, one cooperative launch, {ms_k:.4f} ms ({ms_empty:.4f} ms over a plane "
         f"without owners, where no candidate is folded); plain {ms_p:.3f} ms; owner, "
-        f"ox and oy bitwise equal, single passes at steps {list(K1_SINGLE_STEPS)} too; owned "
-        f"cells {int((ref[0] < n).sum())}")
+        f"ox and oy bitwise equal, single passes at steps {list(K1_SINGLE_STEPS)} in every "
+        f"rounding {list(voronoi.ROUNDINGS)} too; owned cells {int((ref[0] < n).sum())}, "
+        f"{apart} of them carrying a position that is not their owner's seed")
     log(f"# phase 2: K1 {name} ms a pass by step: "
         f"{json.dumps({str(k): round(v, 5) for k, v in by_step.items()})}")
     log(f"# phase 2: K1 {name} bound {flood_bound:.4f} ms a flood ({b_by}), "
         f"{flood_bound / npass:.5f} ms a pass: the larger of the owner plane once in and once "
         f"out of device memory plus the table ({bytes_ms:.4f} ms) and {npass} passes of H + W FP32 "
-        f"instructions for the coordinates + 4 a cell for its own owner + 5 for each other "
-        f"distinct owner among its candidates, 2 more for each that the rounding asks in "
-        f"both forms ({ops_ms:.4f} ms in all; a pass in which all nine are distinct, one form: "
-        f"{full_ms:.5f} ms); the share refers to it: {100 * flood_bound / ms_k:.1f} %. For scale, 8 B a "
-        f"cell from device memory in every pass: {bytes_ms:.4f} ms a pass; the three carried "
-        f"planes' 24 B: {old_ms:.4f} ms")
+        f"instructions for the coordinates + for each distinct candidate (owner, position) "
+        f"among a cell's 9, 2 sub, its products and an FMA or add a form the owner fold asks, "
+        f"and a compare a distinct (candidate, form) but the own ({ops_ms:.4f} ms in all; a "
+        f"pass in which all nine are distinct, each in its own form: {full_ms:.5f} ms); the "
+        f"share refers to it: {100 * flood_bound / ms_k:.1f} %. For "
+        f"scale, 8 B a cell from device memory in every pass: {bytes_ms:.4f} ms a pass; the "
+        f"owner and position words in and out, 16 B: {carried_ms:.4f} ms")
     assert_under_bound(f"K1 flood {name}", ms_k, flood_bound)
     for k, step in enumerate(steps):
         if steps.index(step) == k:
             assert_under_bound(f"K1 pass at step {step} {name}", by_step[step], ops_by_pass[k])
     return dict(max_abs_err=err, ms=ms_k / npass, plain_ms=ms_p / npass, flood_ms=ms_k,
                 flood_plain_ms=ms_p, flood_no_owner_ms=ms_empty, passes=npass,
+                positions_apart=apart,
                 rounding=rounding, ms_by_step={str(k): v for k, v in by_step.items()},
                 bound_ms=flood_bound / npass, bound_by=b_by)
 
@@ -684,12 +692,15 @@ def phase_k1_world_axis(device, S, G=WORLDS):
     grid, seeds = k1_group_case(S, G, device)
     n = S.max_seeds
     steps = voronoi._passes(S)
+    rounding = voronoi.pass_roundings(S, steps)
     owner0, table = voronoi._jfa_init(grid, seeds, S)
     ox, oy = grid.origin_x, grid.origin_y
     args = (n, ox, oy, S.resolution)
-    ref, ms_p = cuda_ms(lambda: jfa_pass_cuda.jfa_flood_plain(owner0, table, steps, *args), 2)
+    ref, ms_p = cuda_ms(lambda: jfa_pass_cuda.jfa_flood_plain(owner0, table, steps, *args,
+                                                              rounding), 2)
     zero_counts([jfa_pass_cuda.jfa_flood])
-    got = jfa_pass_cuda.jfa_flood(owner0.clone(), table, steps, *args, want_positions=True)
+    got = jfa_pass_cuda.jfa_flood(owner0.clone(), table, steps, *args, want_positions=True,
+                                  rounding=rounding)
     launches = jfa_pass_cuda.jfa_flood.launches
     err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, ref))
     if not all(torch.equal(a, b) for a, b in zip(got, ref)):
@@ -697,14 +708,16 @@ def phase_k1_world_axis(device, S, G=WORLDS):
                              f"(max abs err {err})")
     for g in range(G):
         one = jfa_pass_cuda.jfa_flood(owner0[g].clone(), table[g].contiguous(), steps, n, ox[g],
-                                      oy[g], S.resolution, want_positions=True)
+                                      oy[g], S.resolution, want_positions=True,
+                                      rounding=rounding)
         if not all(torch.equal(a, b[g]) for a, b in zip(one, got)):
             raise AssertionError(f"K1 group: world {g} differs from its single-world flood")
-    _, ms_k = timed_ms(lambda o: jfa_pass_cuda.jfa_flood(o, table, steps, *args), device,
-                       REPS, owner0.clone)
+    _, ms_k = timed_ms(lambda o: jfa_pass_cuda.jfa_flood(o, table, steps, *args,
+                                                         rounding=rounding),
+                       device, REPS, owner0.clone)
     tables = [table[g].contiguous() for g in range(G)]
     _, ms_1 = timed_ms(lambda os: [jfa_pass_cuda.jfa_flood(o, tables[g], steps, n, ox[g], oy[g],
-                                                           S.resolution)
+                                                           S.resolution, rounding=rounding)
                                    for g, o in enumerate(os)],
                        device, REPS, lambda: [owner0[g].clone() for g in range(G)])
     # the group's bound: every world's plane in and out and its table, or
@@ -712,10 +725,10 @@ def phase_k1_world_axis(device, S, G=WORLDS):
     pos = torch.gather(table, 1, owner0.flatten(1).long()[..., None].expand(-1, -1, 2))
     pos = pos.reshape(owner0.shape + (2,))
     state, before = (owner0, pos[..., 0].contiguous(), pos[..., 1].contiguous()), []
-    for step in steps:
+    for step, r in zip(steps, rounding):
         before.append(state)
-        state = jfa_pass_cuda.jfa_pass_plain(*state, step, *args)
-    ops_ms = float(np.sum(k1_ops_by_pass(before, steps, n, S.grid_h + S.grid_w)))
+        state = jfa_pass_cuda.jfa_pass_plain(*state, step, *args, r)
+    ops_ms = float(np.sum(k1_ops_by_pass(before, steps, n, S.grid_h + S.grid_w, rounding)))
     del before, state
     bytes_ms, _ = bound(G * (8 * S.grid_h * S.grid_w + 8 * (n + 1)))
     b_ms, b_by = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
@@ -1256,10 +1269,11 @@ def phase_bench_slice(device, bench_spec):
     _, t_step = cuda_ms(lambda: engine.step(engine.initial_state(world, S), world, params, S), REPS)
     _, t_total = cuda_ms(stage_full, REPS)
     mem = torch.cuda.max_memory_allocated() / 2**30
+    owner_note = f"but {owner_cells} named cells" if owner_cells else "bitwise"
     log(f"# phase 5: median ms (CUDA events, {REPS} reps): perceive {t_perceive:.2f}, "
         f"graph+costs+waypoints+trim {t_world:.2f}, step {t_step:.2f}, stage_full {t_total:.2f}; "
         f"matches the JAX reference (counts, skeleton hash, the robot's pose after the step; "
-        f"owner plane but {owner_cells} named cells; waypoints within {wp_ulp:g} ulp); "
+        f"owner plane {owner_note}; waypoints within {wp_ulp:g} ulp); "
         f"peak allocated {mem:.2f} GiB")
     return launches, dict(perceive_ms=t_perceive, world_ms=t_world, step_ms=t_step,
                           stage_full_ms=t_total)

@@ -36,17 +36,20 @@ CUDA_RUNTIME_H = r"""
 #define __host__
 #define __global__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __restrict__
 #define __shared__
 #define __launch_bounds__(x)
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+struct int2 { int x, y; };
 struct int4 { int x, y, z, w; };
 struct dim3 { dim3(int = 1, int = 1, int = 1) {} };
 struct Index { int x; };
 static Index threadIdx, blockIdx, blockDim;
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline int2 make_int2(int a, int b) { return {a, b}; }
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -81,28 +84,35 @@ RUNNER = r"""
 #include "cuda_runtime.h"
 namespace { float2 table[1 << 16]; }
 #include "jfa_pass.cu"
-// argv: input (H W S n, steps[n], roundings[n] as i32; origin x, y, res as
-// f32; owner i32 [H, W]; table f32 [S + 1, 2]), output (owner i32 [H, W])
+// argv: input (H W S n want, steps[n], forms[3 n] as i32; origin x, y, res as
+// f32; owner i32 [H, W]; table f32 [S + 1, 2]), output (owner i32 [H, W],
+// then with want the closing positions x, y f32 [H, W] each)
 int main(int, char** argv) {
   FILE* f = std::fopen(argv[1], "rb");
-  int h[4];
-  if (std::fread(h, 4, 4, f) != 4) return 1;
-  const int H = h[0], W = h[1], S = h[2], n = h[3];
+  int h[5];
+  if (std::fread(h, 4, 5, f) != 5) return 1;
+  const int H = h[0], W = h[1], S = h[2], n = h[3], want = h[4];
   Steps s;
   s.n = n;
   float org[3];
-  std::vector<int32_t> a((size_t)H * W), b((size_t)H * W);
+  const size_t cells = (size_t)H * W;
+  std::vector<int32_t> a(cells), b(cells), pa(cells), pb(cells);
+  std::vector<float> ox(cells), oy(cells);
   std::vector<float2> tab(S + 1);
-  if (std::fread(s.v, 4, n, f) != (size_t)n || std::fread(s.rounding, 4, n, f) != (size_t)n ||
-      std::fread(org, 4, 3, f) != 3 || std::fread(a.data(), 4, a.size(), f) != a.size() ||
+  if (std::fread(s.v, 4, n, f) != (size_t)n || std::fread(s.forms, 4, 3 * n, f) != 3 * (size_t)n ||
+      std::fread(org, 4, 3, f) != 3 || std::fread(a.data(), 4, cells, f) != cells ||
       std::fread(tab.data(), 8, S + 1, f) != (size_t)S + 1)
     return 1;
   std::fclose(f);
   blockDim.x = 1;
-  flood_kernel(a.data(), b.data(), tab.data(), &org[0], &org[1], s, H, W, S, org[2], nullptr,
-               nullptr, 1);
+  flood_kernel(a.data(), b.data(), pa.data(), pb.data(), tab.data(), &org[0], &org[1], s, H, W,
+               S, org[2], want ? ox.data() : nullptr, want ? oy.data() : nullptr, 1);
   FILE* o = std::fopen(argv[2], "wb");
-  std::fwrite((n % 2 ? b : a).data(), 4, a.size(), o);
+  std::fwrite((n % 2 ? b : a).data(), 4, cells, o);
+  if (want) {
+    std::fwrite(ox.data(), 4, cells, o);
+    std::fwrite(oy.data(), 4, cells, o);
+  }
   std::fclose(o);
   return 0;
 }
@@ -123,18 +133,24 @@ def host_kernel(tmp_path_factory):
                     f"-I{SOURCE.parent}", str(d / "runner.cpp"), "-o", str(exe)],
                    check=True, capture_output=True)
 
-    def run(owner, table, steps, S, origin, res, rounding):
+    def run(owner, table, steps, S, origin, res, rounding, want_positions=True):
+        """The kernel's flood: owner, or (owner, ox, oy) with want_positions."""
         H, W = owner.shape
-        codes = [jfa_pass_cuda.ROUNDING_CODES[r] for r in rounding]
+        forms = [c for r in rounding for c in jfa_pass_cuda.form_codes(r)]
         src, out = d / "in.bin", d / "out.bin"
         with open(src, "wb") as f:
-            np.array([H, W, S, len(steps)], np.int32).tofile(f)
-            np.array(list(steps) + codes, np.int32).tofile(f)
+            np.array([H, W, S, len(steps), int(want_positions)], np.int32).tofile(f)
+            np.array(list(steps) + forms, np.int32).tofile(f)
             np.array([*origin, res], np.float32).tofile(f)
             owner.numpy().astype(np.int32).tofile(f)
             table.numpy().astype(np.float32).tofile(f)
         subprocess.run([str(exe), str(src), str(out)], check=True)
-        return np.fromfile(out, np.int32).reshape(H, W)
+        raw = np.fromfile(out, np.int32)
+        o = raw[:H * W].reshape(H, W)
+        if not want_positions:
+            return o
+        xy = raw[H * W:].view(np.float32).reshape(2, H, W)
+        return o, xy[0], xy[1]
 
     return run
 
@@ -158,16 +174,29 @@ ROUNDING_MIXES = {
 }
 
 
+def _assert_planes(got, want):
+    """Owner planes equal, and the position planes bitwise."""
+    assert np.array_equal(got[0], want[0].numpy())
+    for g, w in zip(got[1:], want[1:]):
+        assert np.array_equal(g.view(np.uint32), w.numpy().view(np.uint32))
+
+
 @pytest.mark.parametrize("mix", ROUNDING_MIXES)
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_k1_source_matches_plain_flood(host_kernel, mix, seed):
     """The passes of STEPS over a random plane, each in its rounding of the
-    mix: the kernel's source == jfa_flood_plain."""
+    mix: the kernel's source == jfa_flood_plain, the owner plane and the
+    carried x and y planes, and the owner plane alone where the last pass
+    folds nothing else."""
     owner, table, S = _random_case(seed)
     rounding = ROUNDING_MIXES[mix]
     got = host_kernel(owner, table, STEPS, S, (0.35, -0.45), 0.1, rounding)
-    want = jfa_pass_cuda.jfa_flood_plain(owner, table, STEPS, S, 0.35, -0.45, 0.1, rounding)[0]
-    assert np.array_equal(got, want.numpy())
+    want = jfa_pass_cuda.jfa_flood_plain(owner, table, STEPS, S, 0.35, -0.45, 0.1, rounding)
+    _assert_planes(got, want)
+    # the positions leave their owners' seeds (the planes fold apart)
+    assert not np.array_equal(got[1], table.numpy()[got[0], 0])
+    alone = host_kernel(owner, table, STEPS, S, (0.35, -0.45), 0.1, rounding, False)
+    assert np.array_equal(alone, want[0].numpy())
 
 
 def test_k1_source_matches_plain_on_a_bench_window(host_kernel):
@@ -191,6 +220,6 @@ def test_k1_source_matches_plain_on_a_bench_window(host_kernel):
     S = len(xy)
     got = host_kernel(owner0, table, steps, S, org, BENCH_STATICS.resolution, rounding)
     want = jfa_pass_cuda.jfa_flood_plain(owner0, table, steps, S, *org,
-                                         BENCH_STATICS.resolution, rounding)[0]
-    assert int((want < S).sum()) > H * W // 2
-    assert np.array_equal(got, want.numpy())
+                                         BENCH_STATICS.resolution, rounding)
+    assert int((want[0] < S).sum()) > H * W // 2
+    _assert_planes(got, want)

@@ -9,9 +9,16 @@ edge (XLA compiles aosx's division by the resolution as a product with its
 f32 reciprocal, and a division puts the sample into a skeleton cell); world
 125, where the same product decides a point's occupancy cell; world 67, where
 two nodes' distances to a label's endpoint, 9e-8 m apart, tie in f32 as
-XLA:CPU rounds them (one fused multiply-add), so the lower index wins; and
-world 0, bitwise before these repairs. JAX's world build is one jit shared by
-every case, with ``jfa_dynamic_shifts=True`` as the reference builds it."""
+XLA:CPU rounds them (one fused multiply-add), so the lower index wins; worlds
+102 and 118, where two seeds tie exactly at a cell (102: seeds 85 and 88 at
+(248, 352) in pass 7; 118: pass 6) and the flood's x plane, whose fold
+rounds every d2 as fma(dy, dy, dx * dx), takes the other seed than its owner
+plane: the position the cell carries on is then no seed's, and it wins 73
+(992) cells of the owner plane, and in world 102 the record (its
+steps_to_complete 5 ticks and its travel 0.38 m apart from a flood that
+keeps each cell's position its owner's seed); and world 0, bitwise before
+these repairs. JAX's world build is one jit shared by every case, with
+``jfa_dynamic_shifts=True`` as the reference builds it."""
 
 import dataclasses
 import json
@@ -34,7 +41,7 @@ from aosx_torch.types import PointCloud, Polygon
 from torch_helpers import assert_same, one_torch_thread, orchard_buffers  # noqa: F401
 
 REFERENCE = pathlib.Path(__file__).resolve().parent / "torch_reference" / "mc_np_seed0.json"
-WORLDS = (0, 67, 106, 125)
+WORLDS = (0, 67, 102, 106, 118, 125)
 
 
 @pytest.fixture(scope="module")
@@ -65,8 +72,9 @@ def test_mc_world_matches_jax(jax_world, reference, world):
 
 
 def test_mc_records_match_reference(reference):
-    """The cached harness over the four worlds in one refill group (one
-    batched world build), each record every field of JAX's."""
+    """The cached harness over the six worlds in one refill group (one
+    batched world build), each record every field of JAX's (world 102's
+    too)."""
     spec = OrchardSpec(**reference["spec"])
     results, _ = sustained_rollouts(
         len(WORLDS), len(WORLDS), spec, params_as_f32(AosParams(), "cpu"), S,

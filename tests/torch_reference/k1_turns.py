@@ -6,12 +6,15 @@ Loads each other checkout's ``aosx_torch`` under another name (its kernels
 build into its own ``_build``), then times a whole flood in the order
 others, this, this, others reversed on ``chip_smoke.py`` phase 2's inputs (``k1_case``: a full
 grid with max_seeds random seeds) at BENCH_STATICS (2000 x 2048) and
-MC_STATICS (384 x 512), each in both roundings of ``voronoi.ROUNDINGS``: every
-pass "xla", and the Pallas roundings where ``aosx`` would run a pass through
-its Pallas kernel (``voronoi.pass_roundings`` of the preset with
-``jfa_pass_pallas`` on). A checkout that predates the roundings runs its one
-rounding ("xla") in both cases: the xla cases must be bitwise between all
-checkouts; the Pallas cases are then timed side by side but not compared. Each time is
+MC_STATICS (384 x 512), each in two lowerings' roundings, every checkout
+its own (``voronoi.pass_roundings`` of its own ``aosx_torch``): the static
+shifts' ("xla") and the Pallas lowering's, where ``aosx`` would run a pass
+through its Pallas kernel (the preset with ``jfa_pass_pallas`` on). A
+checkout that predates the roundings runs its one rounding ("xla") in both
+cases. Where every checkout folds the three planes as this one does, the
+results must be bitwise between all checkouts; otherwise (a checkout whose
+flood carries the owner plane alone, or that predates the roundings) the
+cases are timed side by side but not compared. Each time is
 the median of ``--reps`` floods by CUDA events with the card kept busy ahead
 of every call (``cuda_build.timed_ms``), the owner plane cloned outside the
 timed window, printed with its share of the flood's bound
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import inspect
 import json
 import pathlib
@@ -64,11 +68,16 @@ def main(argv=None):
     device = torch.device("cuda", 0)
     card = chip_smoke.phase_environment()
     sides = {"this": jfa_pass_cuda.jfa_flood}
+    lowerings = {"this": voronoi}
     for i, root in enumerate(args.others):
         sides[str(root)] = load_other(root, "gvd.jfa_pass_cuda",
                                       f"aosx_torch_other{i}").jfa_flood
+        lowerings[str(root)] = importlib.import_module(f"aosx_torch_other{i}.gvd.voronoi")
+    # checkouts whose floods may part from this one's: no roundings, or
+    # another table of them (an owner plane carried alone)
     plain = {name for name, fn in sides.items()
-             if "rounding" not in inspect.signature(fn).parameters}
+             if "rounding" not in inspect.signature(fn).parameters
+             or getattr(lowerings[name], "ROUNDINGS", None) != voronoi.ROUNDINGS}
     cases, bounds, apart = [], {}, set()
     for preset, S in (("BENCH_STATICS", BENCH_STATICS), ("MC_STATICS", MC_STATICS)):
         grid, seeds = chip_smoke.k1_case(S, device)
@@ -76,16 +85,21 @@ def main(argv=None):
         steps = voronoi._passes(S)
         pallas = dataclasses.replace(S, jfa_pass_pallas=True, jfa_dynamic_shifts=False)
         fargs = (S.max_seeds, grid.origin_x, grid.origin_y, S.resolution)
-        for rname, rounding in (("xla", ["xla"] * len(steps)),
-                                ("pallas", voronoi.pass_roundings(pallas, steps))):
+        static = dataclasses.replace(S, jfa_pass_pallas=False, jfa_dynamic_shifts=False)
+        for rname, statics in (("xla", static), ("pallas", pallas)):
             name = f"{preset} {rname}"
-            bounds[name] = flood_bound(S, owner0, table, steps, rounding, fargs)
-            if rname != "xla" and plain:
+            bounds[name] = flood_bound(S, owner0, table, steps,
+                                       voronoi.pass_roundings(statics, steps), fargs)
+            if plain:
                 apart.add(name)
+            # each side's own roundings of the lowering
+            roundings = {side: lowerings[side].pass_roundings(statics, steps)
+                         for side in sides if hasattr(lowerings[side], "pass_roundings")}
 
-            def fn(flood, o, table=table, steps=steps, fargs=fargs, rounding=rounding):
+            def fn(flood, o, table=table, steps=steps, fargs=fargs, roundings=roundings):
                 if "rounding" in inspect.signature(flood).parameters:
-                    return flood(o, table, steps, *fargs, rounding=rounding)
+                    side = next(k for k, v in sides.items() if v is flood)
+                    return flood(o, table, steps, *fargs, rounding=roundings[side])
                 return flood(o, table, steps, *fargs)
 
             cases.append((name, fn, owner0.clone))

@@ -1,11 +1,18 @@
-"""Where the port's flood and the JAX reference part on the bench orchard.
+"""The port's flood against the JAX reference's, cell by cell.
 
 ``chip_smoke.py`` phase 5 prints the cells of the BENCH_STATICS owner plane
 that differ from ``bench_np_seed0_owner.npz`` (JAX's ``jump_flood`` inside
 ``make_bench_reference.py``'s ``stage_full`` jit, in BENCH_STATICS' own
 lowering: the Pallas pass kernel in interpret mode for steps <= 128) and
-fails on a cell that ``NAMED_OWNER_CELLS`` does not name. This script proves
-the causes.
+fails on a cell that ``NAMED_OWNER_CELLS`` does not name; it names none.
+This script shows where and why a flood parts from the reference: JAX's
+flood folds its owner, x and y planes each in its own rounding, so at an
+exact tie a cell can carry a position that is not its owner's seed. The
+port's ``jump_flood`` carries the three planes so too and reports 0 cells
+for the bench orchard and for Monte-Carlo worlds 102 and 118; a flood that
+keeps each position its owner's seed (one fold a pass)
+parts from the reference in 9 bench cells and in 73 and 992 cells of those
+worlds.
 
 ``--lowering pallas|static|dynamic`` picks the JAX lowering of the bench
 flood (default pallas, the reference's): the Pallas pass kernel for steps
@@ -32,20 +39,20 @@ over the first m passes, m = 1..12, and saves each owner plane to
 ``_archive/owner_cells/jax_passes.npz`` (gitignored); ``analyse`` then finds
 the first pass whose owner plane differs from the port's, and where.
 
-``analyse`` (torch only; the default) floods the saved inputs with the port's
-plain Jacobi fold (``aosx_torch.gvd.voronoi.jacobi_fold``'s update) under
-several roundings of the cell coordinates and of d2, counts for each the
-cells that differ from every JAX plane, and prints, for the first cells where
-the port's rounding differs from the reference, each pass's candidates:
+``analyse`` (torch only; the default) holds the port's ``jump_flood`` of the
+saved inputs against every JAX plane (0 cells), then floods them with one
+fold a pass (x and y selected with the owner, every position its owner's
+seed) under several roundings of the cell coordinates and of d2, counts for
+each the cells that differ from every JAX plane, and prints, for the first
+cells where that flood differs from the reference, each pass's candidates:
 owner, d2 in f32 under each rounding and in f64. In the Pallas lowering it
-first holds each pass of the port (``jfa_pass_plain`` in the pass's
-``voronoi.ROUNDINGS`` key) to JAX's pass from JAX's state, prints every cell
-whose JAX position is not its owner's seed (the x plane's fold rounds every
-d2 as fma(dy, dy, dx * dx), the y plane's as fma(dx, dx, dy * dy)), and
-floods the inputs with those planes carried as JAX carries them: that flood
-equals JAX's, and the port's owner-only flood differs in the cells where a
-phantom position won, each printed with how much farther (f64) JAX's owner
-lies.
+holds each pass of the port (``jfa_pass_plain`` in the pass's
+``voronoi.ROUNDINGS`` key) to JAX's pass from JAX's state in all three
+planes, prints every cell whose JAX position is not its owner's seed (the x
+plane's fold rounds every d2 as fma(dy, dy, dx * dx), the y plane's as
+fma(dx, dx, dy * dy)), holds the port's ``jump_flood`` to the reference, and
+prints the cells where a flood that keeps each position its owner's seed
+differs, each with how much farther (f64) the reference's owner lies.
 
 ``--world N`` does the same for Monte-Carlo world N of
 ``make_mc_reference.py`` (``make_orchard_np(MC_SPEC, seed=N)`` at MC_STATICS;
@@ -57,9 +64,10 @@ JAX's owner planes to ``_archive/owner_cells/mc_world<N>_flood_in.npz``
 static-shift lowering (MC_STATICS' own) with a jit a pass (``static_passes``,
 which also prints each pass's cells whose carried position is not their
 owner's seed), and ``jump_flood`` jitted alone with dynamic shifts (about 2
-min in all). ``analyse`` holds the port's ``jump_flood`` and each rounding of
-its fold against them, and says how much farther (f64) the reference's owner
-lies at each cell where the port's differs.
+min in all). ``analyse`` holds the port's ``jump_flood`` (0 cells against
+the jitted floods; JAX's flood run op by op rounds otherwise) and each
+rounding of a one-fold flood against them, and says how much farther (f64)
+the reference's owner lies at each cell where the one-fold flood differs.
 
 Run from the repository root:
 
@@ -424,7 +432,7 @@ def jax_passes(world=None):
 
 VARIANTS = {
     # name: (cell coordinates fused, d2 form)
-    "port": (True, "fma_dx"),       # fma(ix, res, origin); fma(dx, dx, dy * dy)
+    "one_fold": (True, "fma_dx"),   # fma(ix, res, origin); fma(dx, dx, dy * dy)
     "fma_dy": (True, "fma_dy"),     # fma(dy, dy, dx * dx)
     "d2_unfused": (True, "plain"),  # dx * dx + dy * dy, rounded op by op
     "coords_unfused": (False, "fma_dx"),
@@ -576,18 +584,21 @@ def analyse(world=None):
         for b, pb in planes.items():
             if a < b:
                 print(f"JAX {a} vs JAX {b}: {int((pa != pb).sum())} cells differ")
-    port, _ = flood(inp, "port")
     own = _port_jump_flood(inp)
-    print(f"the port's jump_flood vs its fold here ('port'): {int((own != port).sum())} cells "
-          "differ; vs JAX's planes: " + json.dumps(
-              {a: int((own != pa).sum()) for a, pa in planes.items()}), flush=True)
+    print("the port's jump_flood (three planes carried) vs JAX's planes: " + json.dumps(
+        {a: int((own != pa).sum()) for a, pa in planes.items()}), flush=True)
+    # the one-fold floods below carry a position with its owner (x and y
+    # selected by the owner plane's fold): where they part from the reference
+    port, _ = flood(inp, "one_fold")
+    print(f"the port's jump_flood vs a one-fold flood: {int((own != port).sum())} "
+          "cells differ", flush=True)
     cells = [tuple(int(v) for v in c) for c in np.argwhere(port != ref)]
     summary = {}
     for v in VARIANTS:
-        got = port if v == "port" else flood(inp, v)[0]
+        got = port if v == "one_fold" else flood(inp, v)[0]
         summary[v] = {a: int((got != pa).sum()) for a, pa in planes.items()}
         print(f"port flood, {v}: cells differing from " + json.dumps(summary[v]), flush=True)
-    print(f"cells where the port differs from the reference: {len(cells)}, "
+    print(f"cells where the one-fold flood differs from the reference: {len(cells)}, "
           f"the first {cells[:TRACED]}")
     # f64 squared distance from a cell's corner to each plane's owner there
     xy, org = inp["seeds_xy"].astype(np.float64), inp["origin"].astype(np.float64)
@@ -598,10 +609,11 @@ def analyse(world=None):
 
     gaps = [d2_64(c, ref[c]) - d2_64(c, port[c]) for c in cells]
     if gaps:
-        print(f"at those cells the reference's owner lies farther than the port's (f64 d2, "
+        print(f"at those cells the reference's owner lies farther than the one-fold "
+              f"flood's (f64 d2, "
               f"m^2): {sum(g > 0 for g in gaps)} of {len(gaps)} cells, by "
               f"{min(gaps)!r} to {max(gaps)!r}")
-    _, trace = flood(inp, "port", watch=cells[:TRACED])
+    _, trace = flood(inp, "one_fold", watch=cells[:TRACED])
     for c in cells[:TRACED]:
         print(f"\ncell (row, col) {c}: port {port[c]} (f64 d2 {d2_64(c, port[c])!r}), "
               + ", ".join(f"{a} {pa[c]} ({d2_64(c, pa[c])!r})" for a, pa in planes.items()))
@@ -619,20 +631,26 @@ def analyse(world=None):
             flood(inp, v, states=states)
             counts = [int((jp[f"m{m}"] != st).sum()) for m, st in enumerate(states, 1)]
             print(f"  {v}: {counts}", flush=True)
-            if v == "port":
+            if v == "one_fold":
                 port_states = states
         # a step-1 pass moves an owner at most one cell from its seed's cell
         xy, org = inp["seeds_xy"], inp["origin"]
         res = np.float32(inp["resolution"])
         print("after the first pass (step 1), where JAX's jitted state differs:")
         for r, c in np.argwhere(jp["m1"] != port_states[0])[:8]:
-            for who, k in (("JAX", jp["m1"][r, c]), ("port", port_states[0][r, c])):
+            for who, k in (("JAX", jp["m1"][r, c]), ("one-fold", port_states[0][r, c])):
                 if k < len(xy):
                     cell = (int(np.floor((xy[k, 1] - org[1]) / res)),
                             int(np.floor((xy[k, 0] - org[0]) / res)))
                     print(f"  cell {(int(r), int(c))}: {who} owner {int(k)}, whose seed lies "
                           f"in cell {cell}")
     return summary
+
+
+def _owner_only(voronoi):
+    """voronoi.ROUNDINGS with each key's x and y planes folded as its owner
+    plane: every cell's position stays its owner's seed."""
+    return {k: (v[0],) * 3 for k, v in voronoi.ROUNDINGS.items()}
 
 
 def analyse_pallas():
@@ -651,32 +669,20 @@ def analyse_pallas():
     steps = voronoi._passes(BENCH_STATICS)
     rounding = voronoi.pass_roundings(BENCH_STATICS, steps)
     org = (float(inp["origin"][0]), float(inp["origin"][1]), BENCH_STATICS.resolution)
-    # the x and y planes of JAX's Pallas pass: their folds' roundings
-    planes = {"x": "yyyyyyyyy", "y": "xxxxxxxxx"}
-
-    def fold(state, step, r, plane=None):
-        forms = voronoi.ROUNDINGS[r] if plane is None or r == "xla" else planes[plane]
-        voronoi.ROUNDINGS["owner_cells"] = forms
-        try:
-            return jfa_pass_cuda.jfa_pass_plain(*state, step, S, *org, "owner_cells")
-        finally:
-            del voronoi.ROUNDINGS["owner_cells"]
 
     print("each pass from JAX's state (a jit a pass, its three planes returned): cells where "
-          "the port's owner / JAX's x, y differ from the port's fold in the pass's rounding / "
-          "from the x and y planes' folds")
+          "the port's owner / x / y planes differ from JAX's")
     for m, (step, r) in enumerate(zip(steps, rounding)):
         before = tuple(torch.from_numpy(np.array(jp[f"{k}{m}"])) for k in "oxy")
         after = [jp[f"{k}{m + 1}"] for k in "oxy"]
         # a pass that returns its planes rounds its owner plane as "pallas"
-        r_owner = "pallas" if r == "pallas_last" else r
-        got = fold(before, step, r_owner)
-        gx, gy = fold(before, step, r, "x")[1], fold(before, step, r, "y")[2]
-        print(f"  pass {m} (step {step}, {r_owner}): owner {int((got[0].numpy() != after[0]).sum())}"
-              f"; x {int((got[1].numpy() != after[1]).sum())} / {int((gx.numpy() != after[1]).sum())}"
-              f"; y {int((got[2].numpy() != after[2]).sum())} / {int((gy.numpy() != after[2]).sum())}")
+        r_pass = "pallas" if r == "pallas_last" else r
+        got = jfa_pass_cuda.jfa_pass_plain(*before, step, S, *org, r_pass)
+        print(f"  pass {m} (step {step}, {r_pass}): "
+              + " / ".join(str(int((g.numpy() != a).sum())) for g, a in zip(got, after)))
         own = table[np.minimum(after[0], S)]
-        for c in np.argwhere((after[0] < S) & ((after[1] != own[..., 0]) | (after[2] != own[..., 1]))):
+        apart = (after[0] < S) & ((after[1] != own[..., 0]) | (after[2] != own[..., 1]))
+        for c in np.argwhere(apart):
             c = tuple(int(v) for v in c)
             k = int(after[0][c])
             sx = np.flatnonzero(xy[:, 0] == after[1][c])[:3].tolist()
@@ -685,31 +691,29 @@ def analyse_pallas():
                   f"({float(after[1][c])!r}, {float(after[2][c])!r}): x of seeds {sx}, y of "
                   f"seeds {sy}")
 
-    # the flood with the three planes carried as JAX's Pallas build carries
-    # them, and the port's own (a position always its owner's seed)
-    owner0, tab = voronoi._jfa_init(*_port_grid(inp), BENCH_STATICS)
-    pos = tab[owner0.long()]
-    state = (owner0, pos[..., 0].contiguous(), pos[..., 1].contiguous())
-    for m, (step, r) in enumerate(zip(steps, rounding)):
-        o = fold(state, step, r)[0]
-        state = (o, fold(state, step, r, "x")[1], fold(state, step, r, "y")[2])
-    grid = _port_grid(inp)[0]
-    live = voronoi.live_mask(grid)
-    carried = torch.where(live & (state[0] < S), state[0], -1).numpy()
-    port = _port_jump_flood(inp)
     ref = np.load(REF_OWNER)["owner"]
-    print(f"the flood carrying JAX's three planes vs the reference: "
-          f"{int((carried != ref).sum())} cells differ; vs jump_flood jitted alone: "
-          f"{int((carried != jp['owner_alone']).sum())}")
-    cells = [tuple(int(v) for v in c) for c in np.argwhere(port != ref)]
-    print(f"the port's jump_flood vs the reference: {len(cells)} cells differ: {cells}")
+    port = _port_jump_flood(inp)
+    print(f"the port's jump_flood vs the reference: {int((port != ref).sum())} cells differ; vs "
+          f"jump_flood jitted alone: {int((port != jp['owner_alone']).sum())}")
+    # for contrast, a flood that keeps every cell's position its owner's seed
+    saved = dict(voronoi.ROUNDINGS)
+    try:
+        voronoi.ROUNDINGS.update(_owner_only(voronoi))
+        single = _port_jump_flood(inp)
+    finally:
+        voronoi.ROUNDINGS.update(saved)
+    cells = [tuple(int(v) for v in c) for c in np.argwhere(single != ref)]
+    print(f"a flood whose positions stay their owners' seeds vs the reference: {len(cells)} "
+          f"cells differ: {cells}")
     org64 = inp["origin"].astype(np.float64)
     res = float(np.float32(BENCH_STATICS.resolution))
     for c in cells:
         corner = org64 + np.array([c[1], c[0]]) * res
-        d = {k: float(((xy[k].astype(np.float64) - corner) ** 2).sum()) for k in (ref[c], port[c])}
-        print(f"  cell {c}: reference {ref[c]} (f64 d2 {d[ref[c]]!r}), port {port[c]} "
-              f"({d[port[c]]!r}): the reference's lies {d[ref[c]] - d[port[c]]!r} m^2 farther")
+        d = {k: float(((xy[k].astype(np.float64) - corner) ** 2).sum())
+             for k in (ref[c], single[c])}
+        print(f"  cell {c}: reference {ref[c]} (f64 d2 {d[ref[c]]!r}), owner-only flood "
+              f"{single[c]} ({d[single[c]]!r}): the reference's lies "
+              f"{d[ref[c]] - d[single[c]]!r} m^2 farther")
 
 
 if __name__ == "__main__":
