@@ -12,7 +12,8 @@
 // d2 measured from the candidate's carried position; the owner plane takes
 // its winner's owner, the x plane its winner's x, the y plane its winner's y.
 // Neighbours outside the grid read owner S; owners >= S never win (their d2 is
-// 3.4e38). Cell coordinates are fma((float)index, res, origin). Each plane
+// 3.4e38). Cell coordinates are fma((float)index, res, origin), a cell's x
+// rounded twice where the pass says so (kSplitXBit). Each plane
 // rounds each candidate's d2 in one of three forms, as XLA:CPU builds that
 // plane's fusion in the lowering aosx runs the pass in (voronoi.ROUNDINGS; the
 // call gives each pass its forms, Steps::forms): planes rounded apart can take
@@ -49,6 +50,18 @@
 //     world's table and walks that world's plane only. A group of more worlds
 //     than co-resident blocks is launched in chunks (the entry point counts
 //     its launches). One plane is G = 1.
+//   - A chain (voronoi.CHAINS: a Pallas pass over one row band, which XLA
+//     fuses into its consumer and recomputes there) is made in two versions
+//     (voronoi.CHAIN_VERSIONS): "p", the cells' y rounded once, the carried
+//     planes; "s", the y rounded twice, a second owner and position
+//     ping-pong pair that the next chain pass reads for the two neighbours
+//     in the cell's row. Each version carries two more triples a cell, "a"
+//     and "b", which its folds may start from instead of the cell's own
+//     carried triple, as an owner and a position word each in planes of
+//     their own; a cell reads and writes only its own, so they need no
+//     second copy. A chain pass folds each version's five outputs (owner,
+//     x, y planes, a, b) in full, out of line (chain_cell): chains occur
+//     only on grids of at most 104 rows.
 //   - Built with -fmad=false and written with __fsub_rn/__fmul_rn/__fmaf_rn so
 //     that the compiler contracts nothing on its own: the cell coordinates and
 //     every form of d2 round exactly as the plain version's (ops.fma where the
@@ -84,14 +97,27 @@ constexpr int kMaxSeeds = 0xffff;
 // the owner word's flag of a cell whose position is not its owner's seed
 constexpr int kPhantom = 1 << 16;
 
-// A pass's forms: for each plane (owner, x, y), 2 bits per candidate m = 0
-// (the cell's own triple) .. 8 (the neighbours in jacobi_fold's order), bits
-// 2m and 2m + 1: 0 = fma(dx, dx, dy * dy), 1 = fma(dy, dy, dx * dx),
-// 2 = dx * dx + dy * dy with both products rounded.
+// A pass's forms: for each fold (the owner, x and y planes, and a chain's
+// triples a and b), 2 bits per candidate m = 0 (the own triple) .. 8 (the
+// neighbours in jacobi_fold's order), bits 2m and 2m + 1: 0 = fma(dx, dx,
+// dy * dy), 1 = fma(dy, dy, dx * dx), 2 = dx * dx + dy * dy with both
+// products rounded. own: the triple each fold starts from, 2 bits a fold
+// (0 the carried planes, 1 a, 2 b), and bit kChainBit where the pass is a
+// chain pass (voronoi.CHAINS: its five folds out of line, a and b written).
+constexpr int kFolds = 5;
+constexpr int kChainBit = 1 << 10;
+// own's flag of a pass whose cells' x is rounded twice, the product and then
+// the sum (voronoi.SPLIT_X); else once, fma((float)x, res, origin)
+constexpr int kSplitXBit = 1 << 11;
+// a chain's planes a world: the triples a and b of its two versions (an
+// owner and a position plane each), the "s" version's owner and position
+// ping-pong pairs
+constexpr int kChainPlanes = 12;
 struct Steps {
   int n;
   int v[kMaxSteps];
-  int forms[kMaxSteps][3];
+  int forms[kMaxSteps][kFolds];
+  int own[kMaxSteps];
 };
 
 // A position word: the seed whose x the cell carries in bits 0-15, the seed
@@ -195,6 +221,74 @@ __device__ __noinline__ uint32_t xy_folds(const int32_t* src, const int32_t* pos
   return (b1.p & 0xffffu) | (b2.p & 0xffff0000u);
 }
 
+// A chain pass at the cell (iy, x) (voronoi.CHAINS), in both versions v
+// (0: "p", the y cy[0]; 1: "s", cy[1]): each of the five folds (owner, x and
+// y planes, then the triples a and b) in full, from the triple own says (the
+// carried triple, or v's a or b), over the 8 neighbours' carried triples, the
+// two in the cell's row read from the "s" planes (ssrc, spos_src) unless the
+// pass starts the chain. Writes each version's owner word (and position word
+// where flagged): "p" to dst, "s" to sdst; and its a and b triples in place
+// (tri: 8 planes, a and b of "p", then of "s", an owner and a position plane
+// each).
+__device__ __noinline__ void chain_cell(const int32_t* src, int32_t* dst, const int32_t* pos_src,
+                                        int32_t* pos_dst, const int32_t* ssrc, int32_t* sdst,
+                                        const int32_t* spos_src, int32_t* spos_dst, int32_t* tri,
+                                        const float2* __restrict__ table, float cx, const float* cy,
+                                        int iy, int x, int H, int W, int S, int step,
+                                        const int* forms, int own, bool start) {
+  const size_t c = (size_t)iy * W + x;
+  const size_t hw = (size_t)H * W;
+  const int w0 = src[c];
+  int no[8];
+  uint32_t np[8];
+  int m = 0;
+  for (int dys = -1; dys <= 1; ++dys) {
+    for (int dxs = -1; dxs <= 1; ++dxs) {
+      if (dys == 0 && dxs == 0) continue;
+      const int ny = iy - dys * step, nx = x - dxs * step;
+      no[m] = S;
+      np[m] = 0;
+      if (ny >= 0 && ny < H && nx >= 0 && nx < W) {
+        const bool row = dys == 0 && !start;
+        const int w = (row ? ssrc : src)[(size_t)ny * W + nx];
+        no[m] = w & 0xffff;
+        if (no[m] < S) np[m] = position(w, row ? spos_src : pos_src, ny, nx, W);
+      }
+      ++m;
+    }
+  }
+  for (int v = 0; v < 2; ++v) {
+    int32_t* t = tri + 4 * v * hw;
+    int oo[3] = {w0 & 0xffff, t[c], t[2 * hw + c]};
+    uint32_t pp[3] = {position(w0, pos_src, iy, x, W), (uint32_t)t[hw + c],
+                      (uint32_t)t[3 * hw + c]};
+    Best r[kFolds];
+    for (int f = 0; f < kFolds; ++f) {
+      const int s = (own >> (2 * f)) & 3;
+      const int fw = forms[f];
+      Best b{oo[s], pp[s],
+             oo[s] < S ? in_form(dist2_forms(pp[s], table, cx, cy[v]), fw, 0) : kInf};
+      for (int k = 0; k < 8; ++k)
+        if (no[k] < S)
+          take(b, no[k], np[k], in_form(dist2_forms(np[k], table, cx, cy[v]), fw, k + 1));
+      r[f] = b;
+    }
+    const uint32_t rp = (r[1].p & 0xffffu) | (r[2].p & 0xffff0000u);
+    int32_t* d = v ? sdst : dst;
+    int32_t* pd = v ? spos_dst : pos_dst;
+    if (rp != pack(r[0].o, r[0].o)) {
+      d[c] = r[0].o | kPhantom;
+      pd[c] = (int)rp;
+    } else {
+      d[c] = r[0].o;
+    }
+    t[c] = r[3].o;
+    t[hw + c] = (int)r[3].p;
+    t[2 * hw + c] = r[4].o;
+    t[3 * hw + c] = (int)r[4].p;
+  }
+}
+
 // One pass at offset `step` with the plane forms fo, fx, fy: the owner words
 // src -> dst over the cells this thread owns. An owner word is the owner
 // (bits 0-15) and the kPhantom flag of a cell whose position is not its
@@ -208,7 +302,7 @@ template <bool kPos>
 __device__ __forceinline__ void pass(const int32_t* src, int32_t* dst, const int32_t* pos_src,
                                      int32_t* pos_dst, const float2* __restrict__ table,
                                      float ox0, float oy0, int H, int W, int S, float res,
-                                     int step, int fo, int fx, int fy, bool closing,
+                                     int step, int fo, int fx, int fy, bool split_x, bool closing,
                                      float* __restrict__ out_x, float* __restrict__ out_y,
                                      int blk, int nblk) {
   const long cells = (long)H * W;
@@ -234,7 +328,8 @@ __device__ __forceinline__ void pass(const int32_t* src, int32_t* dst, const int
       }
     }
     const float cy = __fmaf_rn((float)iy, res, oy0);
-    const float cx = __fmaf_rn((float)x, res, ox0);
+    const float cx =
+        split_x ? __fadd_rn(__fmul_rn((float)x, res), ox0) : __fmaf_rn((float)x, res, ox0);
     const int own = nb[0] & 0xffff;
     const uint32_t ownp = position(nb[0], pos_src, iy, x, W);
     // The owner plane's fold, with the least d2 of a triple other than the
@@ -294,9 +389,10 @@ __device__ __forceinline__ void pass(const int32_t* src, int32_t* dst, const int
 // of the launch, as its (k % per_world)-th block.
 __global__ void __launch_bounds__(kMaxThreads)
 flood_kernel(int32_t* a_all, int32_t* b_all, int32_t* pa_all, int32_t* pb_all,
-             const float2* __restrict__ table_all, const float* __restrict__ origin_x,
-             const float* __restrict__ origin_y, Steps steps, int H, int W, int S, float res,
-             float* out_x_all, float* out_y_all, int per_world) {
+             int32_t* chain_all, const float2* __restrict__ table_all,
+             const float* __restrict__ origin_x, const float* __restrict__ origin_y,
+             const __grid_constant__ Steps steps,
+             int H, int W, int S, float res, float* out_x_all, float* out_y_all, int per_world) {
   extern __shared__ float2 table[];
   const int world = blockIdx.x / per_world;
   const int blk = blockIdx.x - world * per_world;
@@ -308,6 +404,10 @@ flood_kernel(int32_t* a_all, int32_t* b_all, int32_t* pa_all, int32_t* pb_all,
   int32_t* pb = pb_all != nullptr ? pb_all + plane : nullptr;
   float* out_x = out_x_all != nullptr ? out_x_all + plane : nullptr;
   float* out_y = out_y_all != nullptr ? out_y_all + plane : nullptr;
+  // a chain's planes (kChainPlanes a world): the triples a and b of "p" and
+  // of "s" (an owner and a position plane each), then the "s" owner words'
+  // and position words' ping-pong pairs
+  int32_t* chain = chain_all != nullptr ? chain_all + kChainPlanes * plane : nullptr;
   for (int i = threadIdx.x; i <= S; i += blockDim.x) table[i] = table_g[i];
   __syncthreads();
   const float ox0 = origin_x[world], oy0 = origin_y[world];
@@ -320,13 +420,36 @@ flood_kernel(int32_t* a_all, int32_t* b_all, int32_t* pa_all, int32_t* pb_all,
     int32_t* pdst = (p & 1) ? pa : pb;
     const int k = steps.v[p];
     const int fo = steps.forms[p][0], fx = steps.forms[p][1], fy = steps.forms[p][2];
-    if (closing && out_x == nullptr)
+    const bool split_x = (steps.own[p] & kSplitXBit) != 0;
+    if (steps.own[p] & kChainBit) {
+      // a chain pass (never the closing one): every fold of a cell out of
+      // line, both versions; a chain's first pass reads the carried planes
+      // alone
+      const long cells = (long)H * W;
+      const size_t hw = (size_t)H * W;
+      const bool start = p == 0 || !(steps.own[p - 1] & kChainBit);
+      int32_t* ms = chain + 8 * hw;
+      const int32_t* ssrc = ms + ((p & 1) ? hw : 0);
+      int32_t* sdst = ms + ((p & 1) ? 0 : hw);
+      const int32_t* spsrc = ms + 2 * hw + ((p & 1) ? hw : 0);
+      int32_t* spdst = ms + 2 * hw + ((p & 1) ? 0 : hw);
+      for (long c = (long)blk * blockDim.x + threadIdx.x; c < cells;
+           c += (long)per_world * blockDim.x) {
+        const int iy = (int)(c / W);
+        const int x = (int)(c - (long)iy * W);
+        const float cy[2] = {__fmaf_rn((float)iy, res, oy0),
+                             __fadd_rn(__fmul_rn((float)iy, res), oy0)};
+        chain_cell(src, dst, psrc, pdst, ssrc, sdst, spsrc, spdst, chain, table,
+                   __fmaf_rn((float)x, res, ox0), cy, iy, x, H, W, S, k, steps.forms[p],
+                   steps.own[p], start);
+      }
+    } else if (closing && out_x == nullptr)
       // the owner plane alone
-      pass<false>(src, dst, psrc, pdst, table, ox0, oy0, H, W, S, res, k, fo, fx, fy, true,
-                  nullptr, nullptr, blk, per_world);
+      pass<false>(src, dst, psrc, pdst, table, ox0, oy0, H, W, S, res, k, fo, fx, fy, split_x,
+                  true, nullptr, nullptr, blk, per_world);
     else
-      pass<true>(src, dst, psrc, pdst, table, ox0, oy0, H, W, S, res, k, fo, fx, fy, closing,
-                 out_x, out_y, blk, per_world);
+      pass<true>(src, dst, psrc, pdst, table, ox0, oy0, H, W, S, res, k, fo, fx, fy, split_x,
+                 closing, out_x, out_y, blk, per_world);
   }
 }
 
@@ -346,17 +469,19 @@ int fail(cudaError_t e) {
 // words (null where n_steps is 1). table: f32 [worlds, S + 1, 2], row S of
 // each = (1e9, 1e9). origin_x, origin_y: f32 [worlds] on the device. steps:
 // n_steps (<= 32) pass offsets on the host, forms: their plane forms on the
-// host, 3 a pass (Steps::forms). out_ox, out_oy: f32 [worlds, H, W] for the
-// closing pass's positions, or both null (the closing pass then folds the
-// owner plane alone). W % 4 == 0, S <= 65535. One cooperative launch for
+// host, 5 a pass (Steps::forms), then the pass's own word (Steps::own).
+// chain: i32 [worlds, kChainPlanes, H, W] for a chain's planes, or null
+// where no pass is a chain pass. out_ox,
+// out_oy: f32 [worlds, H, W] for the closing pass's positions, or both null
+// (the closing pass then folds the owner plane alone). W % 4 == 0, S <= 65535. One cooperative launch for
 // the group, or one for each chunk of worlds where the group has more worlds
 // than co-resident blocks; *launches receives their number. An error where
 // the card refuses a launch.
 extern "C" int jfa_flood(void* owner_a, void* owner_b, void* pos_a, void* pos_b,
-                         const void* table, const void* origin_x, const void* origin_y,
-                         const int* steps, const int* forms, int n_steps, int worlds, int H,
-                         int W, int S, float res, void* out_ox, void* out_oy, int* launches,
-                         void* stream) {
+                         void* chain, const void* table, const void* origin_x,
+                         const void* origin_y, const int* steps, const int* forms, int n_steps,
+                         int worlds, int H, int W, int S, float res, void* out_ox, void* out_oy,
+                         int* launches, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *launches = 0;
   if (n_steps < 0 || n_steps > kMaxSteps || worlds < 0 || H < 1 || W < 4 || (W & 3) != 0 ||
@@ -369,13 +494,24 @@ extern "C" int jfa_flood(void* owner_a, void* owner_b, void* pos_a, void* pos_b,
   for (int i = 0; i < n_steps; ++i) {
     if (steps[i] < 1) return (int)cudaErrorInvalidValue;
     s.v[i] = steps[i];
-    for (int q = 0; q < 3; ++q) {
-      const int f = forms[3 * i + q];
+    for (int q = 0; q < kFolds; ++q) {
+      const int f = forms[(kFolds + 1) * i + q];
       if (f < 0 || f >= (1 << 18)) return (int)cudaErrorInvalidValue;
       for (int m = 0; m < 9; ++m)
         if (((f >> (2 * m)) & 3) == 3) return (int)cudaErrorInvalidValue;
       s.forms[i][q] = f;
     }
+    const int own = forms[(kFolds + 1) * i + kFolds];
+    if (own & ~(kChainBit | kSplitXBit | 0x3ff)) return (int)cudaErrorInvalidValue;
+    for (int q = 0; q < kFolds; ++q)
+      if (((own >> (2 * q)) & 3) == 3) return (int)cudaErrorInvalidValue;
+    // a chain pass needs the triples' planes and is never the closing pass;
+    // a plain pass folds from the carried planes alone
+    if ((own & kChainBit) && (chain == nullptr || i + 1 == n_steps))
+      return (int)cudaErrorInvalidValue;
+    if (!(own & kChainBit) && (own & 0x3ff)) return (int)cudaErrorInvalidValue;
+    if ((own & kChainBit) && (own & kSplitXBit)) return (int)cudaErrorInvalidValue;
+    s.own[i] = own;
   }
   // a small table leaves room for many small blocks, which a small grid needs
   // to fill the card; a large one is staged by few large blocks
@@ -407,14 +543,17 @@ extern "C" int jfa_flood(void* owner_a, void* owner_b, void* pos_a, void* pos_b,
     int32_t* b = static_cast<int32_t*>(owner_b) + w0 * plane;
     int32_t* pa = pos_a != nullptr ? static_cast<int32_t*>(pos_a) + w0 * plane : nullptr;
     int32_t* pb = pos_b != nullptr ? static_cast<int32_t*>(pos_b) + w0 * plane : nullptr;
+    int32_t* ch = chain != nullptr ? static_cast<int32_t*>(chain) + kChainPlanes * w0 * plane
+                                   : nullptr;
     const float2* tab = static_cast<const float2*>(table) + (size_t)w0 * (S + 1);
     const float* gx = static_cast<const float*>(origin_x) + w0;
     const float* gy = static_cast<const float*>(origin_y) + w0;
     float* px = out_ox != nullptr ? static_cast<float*>(out_ox) + w0 * plane : nullptr;
     float* py = out_oy != nullptr ? static_cast<float*>(out_oy) + w0 * plane : nullptr;
-    void* args[] = {(void*)&a,  (void*)&b,  (void*)&pa, (void*)&pb,  (void*)&tab,
-                    (void*)&gx, (void*)&gy, (void*)&s,  (void*)&H,   (void*)&W,
-                    (void*)&S,  (void*)&res, (void*)&px, (void*)&py, (void*)&per_world};
+    void* args[] = {(void*)&a,  (void*)&b,  (void*)&pa,  (void*)&pb, (void*)&ch,
+                    (void*)&tab, (void*)&gx, (void*)&gy, (void*)&s,  (void*)&H,
+                    (void*)&W,  (void*)&S,  (void*)&res, (void*)&px, (void*)&py,
+                    (void*)&per_world};
     e = cudaLaunchCooperativeKernel((const void*)flood_kernel, dim3(n * per_world),
                                     dim3(threads), args, smem, st);
     if (e != cudaSuccess) return fail(e);

@@ -8,8 +8,10 @@ stored only where it is not the owner's seed.
 
 Plain PyTorch versions beside it: ``jfa_pass_plain`` is one pass over the
 three carried planes (the TPU kernel's interface: shifted pass-start planes
-folded by ``voronoi.jacobi_fold``), ``jfa_flood_plain`` starts the position
-planes at ``table[owner]`` and loops it over the steps.
+folded by ``voronoi.jacobi_fold``), ``jfa_states_plain`` starts the
+position planes at ``table[owner]`` and runs the passes over the steps (a
+chain's passes carry its triples from one to the next there), and
+``jfa_flood_plain`` returns its last state.
 
 World axis: ``jfa_flood`` and the plain versions take owner planes
 [*B, H, W], seed tables [*B, S + 1, 2] and origins of shape B, as
@@ -20,8 +22,9 @@ co-resident blocks); [H, W] is the same call with one world.
 
 Roundings: ``rounding`` names each pass's forms of the squared distance in
 each plane (``voronoi.ROUNDINGS``; ``voronoi.pass_roundings`` gives a
-flood's, as ``aosx`` lowers each pass). The kernel takes them as three form
-words a pass (``form_codes``), in the same call and launch.
+flood's, as ``aosx`` lowers each pass), a chain's passes also the folds of
+its two recomputed triples (``voronoi.CHAINS``). The kernel takes them as
+six words a pass (``form_codes``), in the same call and launch.
 
 ``jfa_flood`` takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises. Unlike the TPU kernel it has no
@@ -45,43 +48,101 @@ FAR = 1e9
 MAX_STEPS = 32
 # jfa_pass.cu's kMaxSeeds: a seed index (or S, none) in 16 bits
 MAX_SEEDS = 0xFFFF
-# jfa_pass.cu's code of a d2 form (Steps::forms: 2 bits a candidate)
+# jfa_pass.cu's code of a d2 form (Steps::forms: 2 bits a candidate), of the
+# triple a fold starts from (Steps::own: 2 bits a fold) and its chain flag
 FORM_CODES = {"x": 0, "y": 1, "u": 2}
+OWN_CODES = {"m": 0, "a": 1, "b": 2}
+CHAIN_BIT = 1 << 10
+# the own word's flag of a pass whose cells' x is rounded twice (voronoi.SPLIT_X)
+SPLIT_X_BIT = 1 << 11
+# jfa_pass.cu's kChainPlanes: a chain's planes a world
+CHAIN_PLANES = 12
 
 
 def form_codes(rounding: str):
-    """The kernel's three form words (owner, x, y planes) of a
-    ``voronoi.ROUNDINGS`` key: candidate m's form in bits 2m, 2m + 1."""
-    return [sum(FORM_CODES[c] << (2 * m) for m, c in enumerate(forms))
-            for forms in _voronoi.ROUNDINGS[rounding]]
+    """The kernel's six words of a ``voronoi.ROUNDINGS`` key: the form words
+    of its five folds (owner, x, y planes, a chain's triples a and b;
+    candidate m's form in bits 2m, 2m + 1, 0 for a fold the pass does not
+    make), then the own word (the triple each fold starts from, 2 bits a
+    fold, CHAIN_BIT for a key of ``voronoi.CHAINS`` and SPLIT_X_BIT for one
+    of ``voronoi.SPLIT_X``)."""
+    def word(forms):
+        return sum(FORM_CODES[c] << (2 * m) for m, c in enumerate(forms))
+
+    spec = _voronoi.CHAINS.get(rounding)
+    words = [word(f) for f in _voronoi.ROUNDINGS[rounding]]
+    if spec is None:
+        return words + [0, 0, SPLIT_X_BIT if rounding in _voronoi.SPLIT_X else 0]
+    own = list(spec["own"]) + [spec["a"][1], spec["b"][1]]
+    return words + [word(spec["a"][0]), word(spec["b"][0]),
+                    CHAIN_BIT | sum(OWN_CODES[c] << (2 * q) for q, c in enumerate(own))]
 
 
-def cell_coords(shape, origin_x, origin_y, res: float, device):
+def cell_coords(shape, origin_x, origin_y, res: float, device, split_x: bool = False,
+                split_y: bool = False):
     """(cellx, celly) f32 planes [*B, H, W] (``shape`` is (H, W), the
     origins 0-d or of shape B): origin + f32(index) * res rounded once, as
     the fused multiply-add XLA:CPU makes of ``aosx/gvd/voronoi.py``'s cell
-    coordinates."""
+    coordinates; with ``split_x`` (``split_y``) the x (y) rounded twice, the
+    product and then the sum (``voronoi.SPLIT_X``, ``voronoi.CHAINS``)."""
     iy, ix = iota2(shape, device)
     resf = torch.tensor(res, dtype=torch.float32, device=device)
     ox = to_plane(torch.as_tensor(origin_x, dtype=torch.float32, device=device))
     oy = to_plane(torch.as_tensor(origin_y, dtype=torch.float32, device=device))
-    return fma(ix.to(torch.float32), resf, ox), fma(iy.to(torch.float32), resf, oy)
+    cx = ix.to(torch.float32) * resf + ox if split_x else fma(ix.to(torch.float32), resf, ox)
+    cy = iy.to(torch.float32) * resf + oy if split_y else fma(iy.to(torch.float32), resf, oy)
+    return cx, cy
+
+
+def _neighbors(planes, shifted, step, S):
+    """The 8 neighbour triples in jacobi_fold's order: the two in the cell's
+    row (dys = 0) from ``shifted``, the others from ``planes``."""
+    out = []
+    for dys in (-1, 0, 1):
+        for dxs in (-1, 0, 1):
+            if dys or dxs:
+                o, x, y = shifted if dys == 0 else planes
+                out.append((shift2d(o, dys * step, dxs * step, S),
+                            shift2d(x, dys * step, dxs * step, FAR),
+                            shift2d(y, dys * step, dxs * step, FAR)))
+    return out
 
 
 def jfa_pass_plain(owner, ox, oy, step: int, S: int, origin_x, origin_y, res: float,
                    rounding: str = "xla"):
     """One Jacobi pass in plain PyTorch over planes [*B, H, W], d2 rounded as
-    ``voronoi.ROUNDINGS[rounding]``. Returns (owner, ox, oy)."""
-    cellx, celly = cell_coords(owner.shape[-2:], origin_x, origin_y, res, owner.device)
-    neighbors = [
-        (shift2d(owner, dys * step, dxs * step, S),
-         shift2d(ox, dys * step, dxs * step, FAR),
-         shift2d(oy, dys * step, dxs * step, FAR))
-        for dys in (-1, 0, 1)
-        for dxs in (-1, 0, 1)
-        if not (dys == 0 and dxs == 0)
-    ]
-    return _voronoi.jacobi_fold(owner, ox, oy, neighbors, S, cellx, celly, rounding)
+    ``voronoi.ROUNDINGS[rounding]``. Returns (owner, ox, oy). A chain's pass
+    (a key of ``voronoi.CHAINS``) folds from the chain's recomputed triples
+    too, so it runs only inside a flood (``jfa_states_plain``)."""
+    if rounding in _voronoi.CHAINS:
+        raise ValueError(f"jfa_pass_plain: {rounding} is a chain's pass; run it in a flood "
+                         "(jfa_states_plain)")
+    cellx, celly = cell_coords(owner.shape[-2:], origin_x, origin_y, res, owner.device,
+                               rounding in _voronoi.SPLIT_X)
+    nb = _neighbors((owner, ox, oy), (owner, ox, oy), step, S)
+    return _voronoi.jacobi_fold(owner, ox, oy, nb, S, cellx, celly, rounding)
+
+
+def _chain_pass(planes, step: int, S: int, origin_x, origin_y, res: float, rounding: str,
+                chain):
+    """A chain's pass (a key of ``voronoi.CHAINS``), made in its two versions
+    (``voronoi.CHAIN_VERSIONS``): "p", the cells' y rounded once, the
+    carried planes, which the next pass reads but for the two neighbours in
+    the cell's row, and "s", the y rounded twice, which a next chain pass
+    reads for those two. Returns ("p" planes, chain), chain the dict of the
+    "s" planes and of both versions' recomputed triples ("ap", "bp", "as",
+    "bs"), from ``chain`` the previous chain pass's (None at a chain's
+    first pass)."""
+    owner, ox, oy = planes
+    nb = _neighbors(planes, chain["s"] if chain else planes, step, S)
+    out = {}
+    for v in _voronoi.CHAIN_VERSIONS:
+        cellx, celly = cell_coords(owner.shape[-2:], origin_x, origin_y, res, owner.device,
+                                   split_y=v == "s")
+        triples = (chain["a" + v], chain["b" + v]) if chain else None
+        out[v], out["a" + v], out["b" + v] = _voronoi.jacobi_fold(
+            owner, ox, oy, nb, S, cellx, celly, rounding, triples)
+    return out.pop("p"), out
 
 
 def _roundings(steps, rounding):
@@ -90,20 +151,37 @@ def _roundings(steps, rounding):
     if len(names) != len(steps) or any(r not in _voronoi.ROUNDINGS for r in names):
         raise ValueError(f"jfa_flood: roundings {names} for {len(steps)} steps; each one of "
                          f"{list(_voronoi.ROUNDINGS)}")
+    if names and names[-1] in _voronoi.CHAINS:
+        raise ValueError(f"jfa_flood: a chain pass ({names[-1]}) cannot close a flood")
     return names
 
 
-def jfa_flood_plain(owner, table, steps, S: int, origin_x, origin_y, res: float, rounding=None):
+def jfa_states_plain(owner, table, steps, S: int, origin_x, origin_y, res: float,
+                     rounding=None):
     """The passes at ``steps`` in plain PyTorch, from an owner plane (i32
     [*B, H, W], owners in 0..S) and the seed table (f32 [*B, S + 1, 2], row
     S = (1e9, 1e9)), the position planes starting at ``table[owner]``, each
-    pass rounded as its key in ``rounding`` (None: all "xla"). Returns the
-    carried planes (owner, ox, oy)."""
+    pass rounded as its key in ``rounding`` (None: all "xla"; a chain's
+    triples carried from pass to pass). Yields the carried planes (owner,
+    ox, oy) before each pass and after the last."""
     nb = owner.dim() - 2
     pos = take(table, owner.flatten(-2), nb).reshape(owner.shape + (2,))
     state = (owner, pos[..., 0].contiguous(), pos[..., 1].contiguous())
+    chain = None
     for step, r in zip(steps, _roundings(steps, rounding)):
-        state = jfa_pass_plain(*state, int(step), S, origin_x, origin_y, res, r)
+        yield state
+        if r in _voronoi.CHAINS:
+            state, chain = _chain_pass(state, int(step), S, origin_x, origin_y, res, r, chain)
+        else:
+            state, chain = jfa_pass_plain(*state, int(step), S, origin_x, origin_y, res, r), None
+    yield state
+
+
+def jfa_flood_plain(owner, table, steps, S: int, origin_x, origin_y, res: float, rounding=None):
+    """``jfa_states_plain``'s last state: the carried planes (owner, ox, oy)
+    after the passes at ``steps``."""
+    for state in jfa_states_plain(owner, table, steps, S, origin_x, origin_y, res, rounding):
+        pass
     return state
 
 
@@ -114,7 +192,8 @@ _int = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib():
     fn = cuda_build.load("jfa_pass").jfa_flood
-    fn.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _vp, ctypes.POINTER(_int), ctypes.POINTER(_int),
+    fn.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, ctypes.POINTER(_int),
+                   ctypes.POINTER(_int),
                    _int, _int, _int, _int, _int, ctypes.c_float, _vp, _vp, ctypes.POINTER(_int),
                    _vp]
     fn.restype = _int
@@ -171,6 +250,10 @@ def jfa_flood(owner, table, steps, S: int, origin_x, origin_y, res: float,
     other = torch.empty_like(owner)
     # the position words' ping-pong pair (a flood of one pass needs none)
     pos = [torch.empty_like(owner) for _ in range(2)] if len(steps) > 1 else [None, None]
+    # a chain's planes: the triples a and b of its two versions and the "s"
+    # version's owner and position ping-pong pairs (jfa_pass.cu's chain)
+    chain = (torch.empty(B + (CHAIN_PLANES, H, W), dtype=torch.int32, device=dev)
+             if any(r in _voronoi.CHAINS for r in names) else None)
     ox = oy = None
     if want_positions:
         ox = torch.empty(owner.shape, dtype=torch.float32, device=dev)
@@ -182,6 +265,7 @@ def jfa_flood(owner, table, steps, S: int, origin_x, origin_y, res: float,
             forms = [c for r in names for c in form_codes(r)]
             rc = _lib()(owner.data_ptr(), other.data_ptr(),
                         *(p.data_ptr() if p is not None else None for p in pos),
+                        chain.data_ptr() if chain is not None else None,
                         table.data_ptr(), gx.data_ptr(), gy.data_ptr(),
                         (_int * len(steps))(*steps), (_int * len(forms))(*forms), len(steps),
                         G, H, W, int(S),

@@ -368,8 +368,22 @@ def fma(a, b, c):
     contracts many of aosx's a*b + c expressions this way; the port uses it
     where the results must agree, and CUDA's __fmaf_rn gives the same bits:
     the f64 product of two f32 values is exact, and the sum is rounded once
-    (``_round_odd_f32``)."""
-    return _round_odd_f32(a.double() * b, c)
+    (``_round_odd_f32``). For CPU tensors of one shape the f64 sum rounds
+    straight to f32 wherever it is not an f32 rounding midpoint (an f64
+    value strictly between the exact sum and a midpoint would be nearer to
+    it) and lies in f32's normal range, so only the midpoints and the tiny
+    sums take ``_round_odd_f32``; other tensors take it whole (no host
+    read)."""
+    p = a.double() * b
+    if not (p.device.type == "cpu" and isinstance(c, torch.Tensor) and p.shape == c.shape):
+        return _round_odd_f32(p, c)
+    s = p + c
+    out = s.float()
+    redo = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) | (s.abs() < 2.0 ** -125)
+    idx = redo.reshape(-1).nonzero().squeeze(1)
+    if idx.numel():
+        out.view(-1)[idx] = _round_odd_f32(p.reshape(-1)[idx], c.reshape(-1)[idx])
+    return out
 
 
 def norm2(v):

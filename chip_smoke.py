@@ -14,7 +14,10 @@ kernel on them:
            with g++, one process each, all started together
   phase 2  K1: a full jump flood at 2000 x 2048, S = 4096, and at 384 x 512,
            S = 256, each in the Pallas and in the XLA roundings of
-           voronoi.ROUNDINGS, from one call of the kernel (one cooperative
+           voronoi.ROUNDINGS, and at Statics.for_grid(64, 128) (one row
+           band: every Pallas pass over one band, five of them a chain,
+           voronoi.CHAINS) and for_grid(1000, 1024, 0.1) in their Pallas
+           roundings, from one call of the kernel (one cooperative
            launch) and through the plain PyTorch passes: the owner plane and
            the carried x and y planes bitwise equal, single passes from a
            mid-flood state in every rounding too; ms a flood and a pass at each step value, against
@@ -545,13 +548,9 @@ def phase_k1_shape(name, S, device, pallas):
         return jfa_pass_cuda.jfa_flood_plain(owner0, table, steps, *args, rounding)
 
     ref, ms_p = cuda_ms(plain_flood, 2 if S.grid_h > 1000 else REPS)
-    pos = table[owner0.long()]
-    state, before = (owner0, pos[..., 0].contiguous(), pos[..., 1].contiguous()), []
-    for step, r in zip(steps, rounding):
-        before.append(state)
-        state = jfa_pass_cuda.jfa_pass_plain(*state, step, *args, r)
+    *before, state = jfa_pass_cuda.jfa_states_plain(owner0, table, steps, *args, rounding)
     if not all(torch.equal(a, b) for a, b in zip(state, ref)):
-        raise AssertionError("jfa_flood_plain differs from the loop of jfa_pass_plain")
+        raise AssertionError("jfa_flood_plain differs from jfa_states_plain's last state")
     # cells whose carried position is not their owner's seed (the planes'
     # folds part at exact ties)
     seed_of = table[ref[0].long()]
@@ -572,9 +571,10 @@ def phase_k1_shape(name, S, device, pallas):
         raise AssertionError("K1 flood without positions differs")
     # single passes from a mid-flood state (the state before the flood's
     # fifth pass), also at steps the flood does not use, in every rounding
+    # (a chain's passes fold from its triples: whole floods only)
     mid = before[4]
     for step in K1_SINGLE_STEPS:
-        for r in voronoi.ROUNDINGS:
+        for r in (r for r in voronoi.ROUNDINGS if r not in voronoi.CHAINS):
             want = jfa_pass_cuda.jfa_pass_plain(*mid, step, *args, r)
             got = jfa_pass_cuda.jfa_flood(mid[0].clone(), table, [step], *args,
                                           want_positions=True, rounding=[r])
@@ -583,10 +583,10 @@ def phase_k1_shape(name, S, device, pallas):
                                      "differs from jfa_pass_plain")
     # a pass's time at each step value of the flood, from the state the flood
     # has there: K1_STEP_REPEATS passes at that step, in its rounding, from
-    # one call
+    # one call (a chain's passes only inside their chain: not timed alone)
     by_step = {}
     for k, step in enumerate(steps):
-        if step in by_step:
+        if step in by_step or rounding[k] in voronoi.CHAINS:
             continue
         _, ms = timed_ms(lambda o: jfa_pass_cuda.jfa_flood(
             o, table, [step] * K1_STEP_REPEATS, *args, rounding=[rounding[k]] * K1_STEP_REPEATS),
@@ -622,7 +622,8 @@ def phase_k1_shape(name, S, device, pallas):
         f"call, one cooperative launch, {ms_k:.4f} ms ({ms_empty:.4f} ms over a plane "
         f"without owners, where no candidate is folded); plain {ms_p:.3f} ms; owner, "
         f"ox and oy bitwise equal, single passes at steps {list(K1_SINGLE_STEPS)} in every "
-        f"rounding {list(voronoi.ROUNDINGS)} too; owned cells {int((ref[0] < n).sum())}, "
+        f"rounding but a chain's {[r for r in voronoi.ROUNDINGS if r not in voronoi.CHAINS]} "
+        f"too; owned cells {int((ref[0] < n).sum())}, "
         f"{apart} of them carrying a position that is not their owner's seed")
     log(f"# phase 2: K1 {name} ms a pass by step: "
         f"{json.dumps({str(k): round(v, 5) for k, v in by_step.items()})}")
@@ -638,7 +639,7 @@ def phase_k1_shape(name, S, device, pallas):
         f"owner and position words in and out, 16 B: {carried_ms:.4f} ms")
     assert_under_bound(f"K1 flood {name}", ms_k, flood_bound)
     for k, step in enumerate(steps):
-        if steps.index(step) == k:
+        if steps.index(step) == k and step in by_step:
             assert_under_bound(f"K1 pass at step {step} {name}", by_step[step], ops_by_pass[k])
     return dict(max_abs_err=err, ms=ms_k / npass, plain_ms=ms_p / npass, flood_ms=ms_k,
                 flood_plain_ms=ms_p, flood_no_owner_ms=ms_empty, passes=npass,
@@ -722,12 +723,7 @@ def phase_k1_world_axis(device, S, G=WORLDS):
                        device, REPS, lambda: [owner0[g].clone() for g in range(G)])
     # the group's bound: every world's plane in and out and its table, or
     # every world's passes' operations, counted on this run's states
-    pos = torch.gather(table, 1, owner0.flatten(1).long()[..., None].expand(-1, -1, 2))
-    pos = pos.reshape(owner0.shape + (2,))
-    state, before = (owner0, pos[..., 0].contiguous(), pos[..., 1].contiguous()), []
-    for step, r in zip(steps, rounding):
-        before.append(state)
-        state = jfa_pass_cuda.jfa_pass_plain(*state, step, *args, r)
+    *before, state = jfa_pass_cuda.jfa_states_plain(owner0, table, steps, *args, rounding)
     ops_ms = float(np.sum(k1_ops_by_pass(before, steps, n, S.grid_h + S.grid_w, rounding)))
     del before, state
     bytes_ms, _ = bound(G * (8 * S.grid_h * S.grid_w + 8 * (n + 1)))
@@ -781,16 +777,23 @@ def phase_k1_chunks(device, G=2400, H=8, W=16, S=6):
     return launches
 
 
-def phase_k1(device):
+def phase_k1(device, card):
     """K1 at BENCH_STATICS and MC_STATICS, each in its own rounding (the
-    Pallas roundings at BENCH, "xla" at MC) and in the other; the world axis
-    and the chunked launches."""
-    from aosx_torch.config import BENCH_STATICS, MC_STATICS
+    Pallas roundings at BENCH, "xla" at MC) and in the other; at
+    Statics.for_grid(64, 128) (one row band, chains) and for_grid(1000,
+    1024, 0.1) in their Pallas roundings; the world axis and the chunked
+    launches."""
+    from aosx_torch.config import BENCH_STATICS, MC_STATICS, Statics
 
     bench = phase_k1_shape("BENCH_STATICS", BENCH_STATICS, device, pallas=True)
+    log(f"# phase 2: K1 BENCH flood in the Pallas roundings {bench['flood_ms']:.4f} ms on {card}")
     bench_xla = phase_k1_shape("BENCH_STATICS", BENCH_STATICS, device, pallas=False)
     mc = phase_k1_shape("MC_STATICS", MC_STATICS, device, pallas=False)
     mc_pallas = phase_k1_shape("MC_STATICS", MC_STATICS, device, pallas=True)
+    one_band = phase_k1_shape("for_grid(64, 128)", Statics.for_grid(64, 128), device,
+                              pallas=True)
+    field = phase_k1_shape("for_grid(1000, 1024, 0.1)", Statics.for_grid(1000, 1024, 0.1),
+                           device, pallas=True)
     group = phase_k1_world_axis(device, MC_STATICS)
     group["chunked_launches"] = phase_k1_chunks(device)
     keep = ("ms", "plain_ms", "flood_ms", "flood_plain_ms", "flood_no_owner_ms", "passes",
@@ -799,9 +802,12 @@ def phase_k1(device):
                 xla_rounding={k: bench_xla[k] for k in keep},
                 mc={k: mc[k] for k in keep},
                 mc_pallas_rounding={k: mc_pallas[k] for k in keep + ("rounding",)},
+                one_band={k: one_band[k] for k in keep + ("rounding",)},
+                field_1000x1024={k: field[k] for k in keep + ("rounding",)},
                 world_axis={k: v for k, v in group.items() if k != "max_abs_err"},
                 max_abs_err=max(bench["max_abs_err"], bench_xla["max_abs_err"],
                                 mc["max_abs_err"], mc_pallas["max_abs_err"],
+                                one_band["max_abs_err"], field["max_abs_err"],
                                 group["max_abs_err"]))
 
 
@@ -2724,7 +2730,7 @@ def main():
 
     card = phase_environment()
     phase(1, phase_build)
-    k1 = phase(2, phase_k1, device)
+    k1 = phase(2, phase_k1, device, card)
     k2 = phase(3, phase_k2, device, bench_spec)
     phase(4, phase_xla_f32, device)
     phase(4, phase_test_slice, device)

@@ -6,8 +6,9 @@ operations, no contraction; a grid barrier as nothing), and a small program runs
 ``flood_kernel`` as one block of one thread, which walks every 4-cell group
 of every pass in order. Its owner plane must equal the plain flood
 (``jfa_pass_cuda.jfa_flood_plain``) bitwise, in every rounding of
-``voronoi.ROUNDINGS``: the fold logic of the kernel, its skips and its two
-folds of the Pallas roundings, checked where the kernel itself cannot run.
+``voronoi.ROUNDINGS`` and through the chains of ``voronoi.CHAINS``: the fold
+logic of the kernel, its skips and its folds of the Pallas roundings,
+checked where the kernel itself cannot run.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ CUDA_RUNTIME_H = r"""
 #define __restrict__
 #define __shared__
 #define __launch_bounds__(x)
+#define __grid_constant__
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct int2 { int x, y; };
@@ -84,7 +86,7 @@ RUNNER = r"""
 #include "cuda_runtime.h"
 namespace { float2 table[1 << 16]; }
 #include "jfa_pass.cu"
-// argv: input (H W S n want, steps[n], forms[3 n] as i32; origin x, y, res as
+// argv: input (H W S n want, steps[n], codes[6 n] as i32; origin x, y, res as
 // f32; owner i32 [H, W]; table f32 [S + 1, 2]), output (owner i32 [H, W],
 // then with want the closing positions x, y f32 [H, W] each)
 int main(int, char** argv) {
@@ -96,17 +98,23 @@ int main(int, char** argv) {
   s.n = n;
   float org[3];
   const size_t cells = (size_t)H * W;
-  std::vector<int32_t> a(cells), b(cells), pa(cells), pb(cells);
+  std::vector<int32_t> a(cells), b(cells), pa(cells), pb(cells), chain(12 * cells);
   std::vector<float> ox(cells), oy(cells);
   std::vector<float2> tab(S + 1);
-  if (std::fread(s.v, 4, n, f) != (size_t)n || std::fread(s.forms, 4, 3 * n, f) != 3 * (size_t)n ||
+  std::vector<int32_t> codes(6 * (size_t)n);
+  if (std::fread(s.v, 4, n, f) != (size_t)n || std::fread(codes.data(), 4, 6 * n, f) != 6 * (size_t)n ||
       std::fread(org, 4, 3, f) != 3 || std::fread(a.data(), 4, cells, f) != cells ||
       std::fread(tab.data(), 8, S + 1, f) != (size_t)S + 1)
     return 1;
   std::fclose(f);
+  for (int i = 0; i < n; ++i) {
+    for (int q = 0; q < 5; ++q) s.forms[i][q] = codes[6 * i + q];
+    s.own[i] = codes[6 * i + 5];
+  }
   blockDim.x = 1;
-  flood_kernel(a.data(), b.data(), pa.data(), pb.data(), tab.data(), &org[0], &org[1], s, H, W,
-               S, org[2], want ? ox.data() : nullptr, want ? oy.data() : nullptr, 1);
+  flood_kernel(a.data(), b.data(), pa.data(), pb.data(), chain.data(), tab.data(), &org[0],
+               &org[1], s, H, W, S, org[2], want ? ox.data() : nullptr,
+               want ? oy.data() : nullptr, 1);
   FILE* o = std::fopen(argv[2], "wb");
   std::fwrite((n % 2 ? b : a).data(), 4, cells, o);
   if (want) {
@@ -171,6 +179,9 @@ ROUNDING_MIXES = {
     "pallas": ["pallas"] * 10,
     "pallas_last": ["pallas_last"] * 10,
     "mixed": ["pallas", "xla"] * 4 + ["pallas", "pallas_last"],
+    # one-band chains (voronoi.CHAINS): from a step-1 window and from slices
+    "chain": ["band_window", "chain", "chain", "chain", "chain", "band", "band_slice", "chain",
+              "chain", "pallas_last"],
 }
 
 

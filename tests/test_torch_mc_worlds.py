@@ -16,9 +16,13 @@ rounds every d2 as fma(dy, dy, dx * dx), takes the other seed than its owner
 plane: the position the cell carries on is then no seed's, and it wins 73
 (992) cells of the owner plane, and in world 102 the record (its
 steps_to_complete 5 ticks and its travel 0.38 m apart from a flood that
-keeps each cell's position its owner's seed); and world 0, bitwise before
-these repairs. JAX's world build is one jit shared by every case, with
-``jfa_dynamic_shifts=True`` as the reference builds it."""
+keeps each cell's position its owner's seed); worlds 7 and 74, where the
+owner plane parted from JAX's in one cell while the port rounded the last
+pass of an MC_STATICS flood otherwise than the JAX package's CPU lowering of
+it; and world 0, bitwise before these repairs. JAX's world build is one jit
+shared by every case, with ``jfa_dynamic_shifts=True`` as the reference
+builds it (a whole static-shift flood does not finish on XLA:CPU), and
+returns the owner plane of ``with_owner`` too."""
 
 import dataclasses
 import json
@@ -41,7 +45,7 @@ from aosx_torch.types import PointCloud, Polygon
 from torch_helpers import assert_same, one_torch_thread, orchard_buffers  # noqa: F401
 
 REFERENCE = pathlib.Path(__file__).resolve().parent / "torch_reference" / "mc_np_seed0.json"
-WORLDS = (0, 67, 102, 106, 118, 125)
+WORLDS = (0, 7, 67, 74, 102, 106, 118, 125)
 
 
 @pytest.fixture(scope="module")
@@ -53,7 +57,8 @@ def reference():
 def jax_world():
     JS = dataclasses.replace(MC_STATICS, jfa_dynamic_shifts=True)
     excl = jnp.zeros((JS.max_exclusions, 3), jnp.float32)
-    build = jax.jit(lambda pc, poly, p: jengine.prepare_world_full(pc, poly, p, excl, JS)[:2])
+    build = jax.jit(lambda pc, poly, p: jengine.prepare_world_full(pc, poly, p, excl, JS,
+                                                                  with_owner=True))
     return lambda buf, valid, poly: build(JCloud(xyz=jnp.asarray(buf), valid=jnp.asarray(valid)),
                                           JPolygon.from_array(poly, JS), jparams(JParams()))
 
@@ -61,13 +66,14 @@ def jax_world():
 @pytest.mark.parametrize("world", WORLDS)
 def test_mc_world_matches_jax(jax_world, reference, world):
     buf, valid, poly = orchard_buffers(S, seed=world, spec=OrchardSpec(**reference["spec"]))
-    jw, jout = jax_world(buf, valid, poly)
-    w, out, _ = engine.prepare_world_full(
+    jw, jout, jowner = jax_world(buf, valid, poly)
+    w, out, owner = engine.prepare_world_full(
         PointCloud(xyz=torch.from_numpy(buf), valid=torch.from_numpy(valid)),
         Polygon.from_array(poly, S, "cpu"), params_as_f32(AosParams(), "cpu"),
-        torch.zeros((S.max_exclusions, 3)), S)
+        torch.zeros((S.max_exclusions, 3)), S, with_owner=True)
     assert_same(jout, out)
     assert_same(jw, w)
+    assert np.array_equal(owner.numpy(), np.asarray(jowner))
     assert int(w.waypoints.count) >= 4
 
 

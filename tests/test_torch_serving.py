@@ -9,7 +9,10 @@ The JAX side runs once per ``ror_method``: ``serving.serve_init`` on frame
 serve_frames over all frames), keeping the ServeState after every frame.
 With ``ror_method="pallas"`` the JAX package's Pallas ROR kernel runs in
 interpret mode (monkeypatched for the run; no file changes), the port's
-through K3's plain version.
+through K3's plain version. That run is stored
+(``tests/torch_reference/make_serving_replay_reference.py`` writes
+``serving_replay_ref.npz``); the tests rebuild its pytree from
+``jax.eval_shape`` of the same function, and the port runs live.
 
 Every leaf is bitwise, for both methods: int and bool leaves, levels
 included, and every float leaf, the plan cache, the ticks' poses, the
@@ -18,6 +21,7 @@ them included."""
 
 import dataclasses
 import functools
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -46,9 +50,9 @@ CMD_KEYS = ("mod", "status", "target_wp", "cluster_idx", "waiting", "completed",
 METHODS = ("exact", "pallas")
 
 
-def _jax_serve(frames, poly, params, excl, method):
-    """(ServeState after serve_init, metrics [F, T] with inc_level [F],
-    ServeStates after each frame stacked [F, ...])."""
+def _serve_fn(poly, params, excl, method):
+    """frames -> (ServeState after serve_init, metrics [F, T] with inc_level
+    [F], ServeStates after each frame stacked [F, ...])."""
     tm = jax.tree_util.tree_map
 
     def run(fr):
@@ -63,22 +67,59 @@ def _jax_serve(frames, poly, params, excl, method):
         _, (metrics, svs) = jax.lax.scan(one_frame, sv0, fr)
         return sv0, metrics, svs
 
-    return jax.jit(run)(frames)
+    return run
 
 
-@pytest.fixture(scope="module")
-def setup():
+def _jax_serve(frames, poly, params, excl, method):
+    """_serve_fn's result, jitted."""
+    return jax.jit(_serve_fn(poly, params, excl, method))(frames)
+
+
+def _jax_inputs():
     bufs, valids, poly = frames_growing(FRACS, JS)
     jpoly = JPolygon.from_array(poly.astype(np.float32), JS)
     jp = jparams(JParams())
     jexcl = jnp.zeros((JS.max_exclusions, 3), jnp.float32)
     frames = JCloud(xyz=jnp.asarray(bufs), valid=jnp.asarray(valids))
-    jax_runs = {}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(ror_pallas, "ror_counts_pallas",
-                   functools.partial(ror_pallas.ror_counts_pallas, interpret=True))
-        for method in METHODS:
-            jax_runs[method] = _jax_serve(frames, jpoly, jp, jexcl, method)
+    return bufs, valids, poly, jpoly, jp, jexcl, frames
+
+
+def jax_serve_run(method):
+    """The JAX side for ``method`` as a function of nothing: _jax_serve on
+    the test's frames (the Pallas ROR kernel in interpret mode while it
+    runs); make_serving_replay_reference.py stores its result."""
+    _, _, _, jpoly, jp, jexcl, frames = _jax_inputs()
+
+    def run():
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(ror_pallas, "ror_counts_pallas",
+                       functools.partial(ror_pallas.ror_counts_pallas, interpret=True))
+            return _jax_serve(frames, jpoly, jp, jexcl, method)
+
+    return run
+
+
+def _stored_jax_serve(method):
+    """The stored JAX side for ``method``, as the pytree _jax_serve returns
+    (its structure from jax.eval_shape, no compile)."""
+    _, _, _, jpoly, jp, jexcl, frames = _jax_inputs()
+    shapes = jax.eval_shape(_serve_fn(jpoly, jp, jexcl, method), frames)
+    leaves, tree = jax.tree_util.tree_flatten(shapes)
+    data = np.load(REPLAY_REF)
+    stored = [data[f"{method}/{i}"] for i in range(len(leaves))]
+    for leaf, s in zip(leaves, stored):
+        assert s.shape == leaf.shape and s.dtype == leaf.dtype, (leaf, s.shape, s.dtype)
+    return jax.tree_util.tree_unflatten(tree, [jnp.asarray(s) for s in stored])
+
+
+REPLAY_REF = (pathlib.Path(__file__).resolve().parent / "torch_reference"
+              / "serving_replay_ref.npz")
+
+
+@pytest.fixture(scope="module")
+def setup():
+    bufs, valids, poly, jpoly, jp, jexcl, frames = _jax_inputs()
+    jax_runs = {method: _stored_jax_serve(method) for method in METHODS}
 
     pt = params_as_f32(AosParams(), "cpu")
     args = (Polygon.from_array(poly.astype(np.float32), S, "cpu"), pt,

@@ -12,7 +12,10 @@ bit against jitted ``jax`` on the same seeded inputs:
   ratios near 0 and near f32's limits, subnormals;
 - ``f32math.sin_f32`` / ``cos_f32`` over +-3 pi (the follower's turn);
 - ``ops.norm2`` against the reference's fused ``sqrt(sum(v**2))`` and
-  ``geom.wrap_angle`` against the jitted wrap.
+  ``geom.wrap_angle`` against the jitted wrap;
+- ``ops.fma``'s CPU path (f64 sums rounded straight to f32, the midpoints
+  and tiny sums redone) bitwise its round-to-odd path, and both against
+  XLA:CPU's contracted ``a * a + c``.
 """
 
 import jax
@@ -24,7 +27,7 @@ import torch
 from aosx.geom import wrap_angle as jwrap
 from aosx_torch import f32math
 from aosx_torch.geom import wrap_angle
-from aosx_torch.ops import cumsum_xla, norm2, sum_xla
+from aosx_torch.ops import _round_odd_f32, cumsum_xla, fma, norm2, sum_xla
 from torch_helpers import one_torch_thread  # noqa: F401
 
 
@@ -136,6 +139,47 @@ def test_norm2_matches_fused_reference():
          * np.exp(rng.uniform(-8, 0, (1 << 18, 1)))).astype(np.float32)
     want = jax.jit(lambda a: jnp.sqrt(jnp.sum(a ** 2, axis=1)))(v)
     _assert_bitwise(want, norm2(torch.from_numpy(v)).numpy())
+
+
+@pytest.mark.parametrize("case", ["binades", "cancel", "midpoints", "tiny", "special"])
+def test_fma_host_equals_fma(case):
+    """fma on CPU tensors of one shape (the host path) == the round-to-odd
+    path that other tensors take, bit for bit (NaN for NaN), on values over
+    many binades, sums that cancel, sums whose f64 rounding lands on an f32
+    midpoint, sums below f32's normal range and the special values; on the
+    finite normal cases also == XLA:CPU's jitted a * a + c (one fma; XLA:CPU
+    flushes subnormals, which neither path keeps away)."""
+    rng = np.random.default_rng(11)
+    n = 1 << 18
+    if case == "special":
+        sp = np.float32([0.0, -0.0, np.inf, -np.inf, np.nan, 3.4e38, -3.4e38, 1e-45, 1.0])
+        a, b, c = (x.ravel() for x in np.meshgrid(sp, sp, sp, indexing="ij"))
+    else:
+        a = _values(rng, n)
+        if case == "binades":
+            c = _values(rng, n)
+        elif case == "cancel":
+            c = -(a * a)
+        elif case == "midpoints":
+            # a small power of two beside a * a: the f64 sum sits on an f32
+            # rounding midpoint where f32(a * a) is exact
+            a = np.float32(rng.integers(1, 1 << 12, n)) * np.float32(2.0 ** -6)
+            c = (a * a * np.float32(2.0 ** -24)).astype(np.float32)
+        else:
+            a = (a * np.float32(1e-21)).astype(np.float32)
+            c = (_values(rng, n) * np.float32(1e-40)).astype(np.float32)
+        b = a
+    t = [torch.from_numpy(np.ascontiguousarray(x)) for x in (a, b, c)]
+    _assert_bitwise(_round_odd_f32(t[0].double() * t[1], t[2]).numpy(), fma(*t).numpy())
+    # 0-d operands (the follower's scalars) and strided ones take the CPU path too
+    for k in range(8):
+        _assert_bitwise(_round_odd_f32(t[0][k].double() * t[1][k], t[2][k]).numpy(),
+                        fma(t[0][k], t[1][k], t[2][k]).numpy())
+    _assert_bitwise(_round_odd_f32(t[0][::3].double() * t[1][::3], t[2][::3]).numpy(),
+                    fma(t[0][::3], t[1][::3], t[2][::3]).numpy())
+    if case not in ("special", "tiny"):
+        want = jax.jit(lambda x, z: x * x + z)(a, c)
+        _assert_bitwise(want, fma(t[0], t[0], t[2]).numpy())
 
 
 def test_wrap_angle_matches_jitted_wrap():

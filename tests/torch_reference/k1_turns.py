@@ -50,11 +50,7 @@ def flood_bound(S, owner0, table, steps, rounding, args):
     """K1's bound for one flood (ms): the plane in and out with the table, or
     the passes' operations counted on this flood's states."""
     n = S.max_seeds
-    pos = table[owner0.long()]
-    state, before = (owner0, pos[..., 0].contiguous(), pos[..., 1].contiguous()), []
-    for step, r in zip(steps, rounding):
-        before.append(state)
-        state = jfa_pass_cuda.jfa_pass_plain(*state, step, *args, r)
+    *before, _ = jfa_pass_cuda.jfa_states_plain(owner0, table, steps, *args, rounding)
     ops = float(np.sum(chip_smoke.k1_ops_by_pass(before, steps, n, S.grid_h + S.grid_w,
                                                   rounding)))
     return max(chip_smoke.bound(8 * S.grid_h * S.grid_w + 8 * (n + 1))[0], ops)

@@ -186,9 +186,11 @@ def make_world(world):
 def static_passes(grid, seeds, s):
     """aosx.gvd.voronoi.jump_flood's static-shift lowering with every pass
     jitted on its own (the seed scatter too): the same fold and shifts as
-    the whole static-shift jit, which takes longer than 50 minutes to
-    compile at MC_STATICS on an 8-core CPU, where a pass compiles in
-    seconds."""
+    the whole static-shift jit, which compiles in about a minute at
+    MC_STATICS but does not finish running (XLA fuses every pass into the
+    later ones and its last fusion's outlined functions recompute them per
+    use), where a pass runs in seconds. A pass jitted alone is not that
+    jit's context (ROADMAP section 3)."""
     import jax
     import jax.numpy as jnp
 
