@@ -29,7 +29,7 @@ from .config import AosParams, Statics
 from .f32math import sincos_f32
 from .geom import atan2, wrap_angle
 from .guards import GUARD_NONFINITE, GUARD_PLAN_CAP
-from .ops import card_graph, fma, lanes, norm2, take_row
+from .ops import card_graph, fma, lanes, norm2, take_row, vector_lanes
 from .tree import tree_map
 from .gvd.graph import build_gvd_graph, merge_seeds
 from .gvd.voronoi import jump_flood
@@ -177,47 +177,60 @@ def initial_state(world: World, s: Statics) -> EngineState:
     )
 
 
-@card_graph
-def _drive(tgt, xy, yaw, mod, goal_yaw, v_dt, yaw_rate):
-    """The follower's move toward tgt and its turn toward the look-ahead
-    point (mode 0, or farther than 1e-6 from the goal) or the goal's yaw
-    (modes 1 and 2 within 0.3 m); mode 3 freezes. Returns (xy, yaw). XLA:CPU's
-    f32 arithmetic (the fused norm and move, glibc's atan2f, sinf and cosf,
-    the jitted wrap), about 230 small kernels, replayed on the card as one
-    CUDA graph (``card_graph``)."""
-    delta = tgt - xy
-    dist = norm2(delta)
-    step = torch.minimum(v_dt, dist)
-    # xy + (delta / dist) * step, rounded as XLA:CPU compiles it where the
-    # reference steps in a scan (engine.episode, rollout_chunk[_cached], the
-    # serving loop): its code for the two coordinates branches on the
-    # moving test, x's product reaches its add in the same block and is
-    # fused into it, y's through a phi after the branches and is not
-    # (jit(step) and vmap(step) fuse both; tests/test_torch_step_batch.py)
-    unit = delta / torch.clamp(dist, min=1e-6)[..., None]
-    moved = torch.stack([fma(unit[..., 0], step, xy[..., 0]),
-                         xy[..., 1] + unit[..., 1] * step], dim=-1)
-    moved = torch.where((dist > 1e-6)[..., None], moved, xy + 0.0)
-    new_xy = torch.where(lanes(mod == 3, delta), xy, moved)
+def _drive_form(fuse_y: bool):
+    """The follower's step (``_drive``) with the y move fused or not."""
 
-    heading = atan2(delta[..., 1], delta[..., 0])
-    desired = torch.where((mod == 1) | (mod == 2) | (dist <= 1e-6),
-                          torch.where(dist < 0.3, goal_yaw, heading), heading)
-    # desired and yaw lie in [-pi, pi] (atan2, and wrap_angle below), so
-    # their difference is within +-2 pi, inside sin's and cos's |x| < 120
-    # (no host check)
-    dyaw = atan2(*sincos_f32(desired - yaw, check=False))
-    new_yaw = torch.where(mod == 3, yaw, yaw + torch.minimum(torch.maximum(dyaw, -yaw_rate),
-                                                               yaw_rate))
-    return new_xy, wrap_angle(new_yaw)
+    @card_graph
+    def drive(tgt, xy, yaw, mod, goal_yaw, v_dt, yaw_rate):
+        """The follower's move toward tgt and its turn toward the look-ahead
+        point (mode 0, or farther than 1e-6 from the goal) or the goal's yaw
+        (modes 1 and 2 within 0.3 m); mode 3 freezes. Returns (xy, yaw).
+        XLA:CPU's f32 arithmetic (the fused norm and move, glibc's atan2f,
+        sinf and cosf, the jitted wrap), about 230 small kernels, replayed
+        on the card as one CUDA graph (``card_graph``)."""
+        delta = tgt - xy
+        dist = norm2(delta)
+        step = torch.minimum(v_dt, dist)
+        # xy + (delta / dist) * step, rounded as XLA:CPU compiles it. Where
+        # the reference steps one rollout in a scan (engine.episode,
+        # rollout_chunk[_cached], the serving loop) its code for the two
+        # coordinates branches on the moving test: x's product reaches its
+        # add in the same block and is fused into it, y's through a phi
+        # after the branches and is not. Under vmap over two lanes or more
+        # (the harness's chunk) each lane's block holds both adds, and both
+        # are fused (jit(step) fuses both too; tests/test_torch_step_batch.py)
+        unit = delta / torch.clamp(dist, min=1e-6)[..., None]
+        y = fma(unit[..., 1], step, xy[..., 1]) if fuse_y else xy[..., 1] + unit[..., 1] * step
+        moved = torch.stack([fma(unit[..., 0], step, xy[..., 0]), y], dim=-1)
+        moved = torch.where((dist > 1e-6)[..., None], moved, xy + 0.0)
+        new_xy = torch.where(lanes(mod == 3, delta), xy, moved)
+
+        heading = atan2(delta[..., 1], delta[..., 0])
+        desired = torch.where((mod == 1) | (mod == 2) | (dist <= 1e-6),
+                              torch.where(dist < 0.3, goal_yaw, heading), heading)
+        # desired and yaw lie in [-pi, pi] (atan2, and wrap_angle below), so
+        # their difference is within +-2 pi, inside sin's and cos's |x| < 120
+        # (no host check)
+        dyaw = atan2(*sincos_f32(desired - yaw, check=False))
+        new_yaw = torch.where(mod == 3, yaw, yaw + torch.minimum(torch.maximum(dyaw, -yaw_rate),
+                                                                   yaw_rate))
+        return new_xy, wrap_angle(new_yaw)
+
+    return drive
 
 
-def _move_robot(robot: Robot, mod, plan: Path, goal_xy, goal_yaw, v_dt=0.12, yaw_rate=0.6):
+_drive = _drive_form(False)
+_drive_vmapped = _drive_form(True)
+
+
+def _move_robot(robot: Robot, mod, plan: Path, goal_xy, goal_yaw, v_dt=0.12, yaw_rate=0.6,
+                vmapped: bool = False):
     """Minimal unicycle stand-in for the external controller: follow the
     plan in mode 0, converge on the goal pose in modes 1/2, freeze in 3.
     Every leaf may carry leading lane axes; reductions run over a lane's own
     plan axis, and two-term sums are written out, so a lane's result equals
-    the single-lane call's bit for bit."""
+    the single-lane call's bit for bit. vmapped: round the move as XLA:CPU
+    does under ``jax.vmap`` over two lanes or more (``_drive``)."""
     dev = plan.xy.device
     Q = plan.xy.shape[-2]
     far = torch.tensor(3.4e38, dtype=torch.float32, device=dev)
@@ -234,27 +247,44 @@ def _move_robot(robot: Robot, mod, plan: Path, goal_xy, goal_yaw, v_dt=0.12, yaw
 
     tgt = torch.where(lanes(mod == 0, goal_xy), follow_tgt, goal_xy)
     f32 = dict(dtype=torch.float32, device=dev)
-    new_xy, new_yaw = _drive(tgt, robot.xy, robot.yaw, torch.as_tensor(mod, device=dev),
-                             goal_yaw, torch.as_tensor(v_dt, **f32),
-                             torch.as_tensor(yaw_rate, **f32))
+    drive = _drive_vmapped if vmapped else _drive
+    new_xy, new_yaw = drive(tgt, robot.xy, robot.yaw, torch.as_tensor(mod, device=dev),
+                            goal_yaw, torch.as_tensor(v_dt, **f32),
+                            torch.as_tensor(yaw_rate, **f32))
     return Robot(xy=new_xy, yaw=new_yaw, follow_i=ci.to(torch.int32))
 
 
-def step(state: EngineState, world: World, params: AosParams, s: Statics, *, v_dt=0.12):
+def vmap_forms(vmap_lanes: int):
+    """(vmapped, vector lanes of the control, mission and plan distances) of
+    a tick that follows XLA:CPU's rounding of ``jax.vmap`` over
+    ``vmap_lanes`` lanes (the Monte-Carlo harness's chunk); 0 or 1: one
+    rollout's scan (a vmap over one lane rounds as the scan does)."""
+    if vmap_lanes < 2:
+        return False, None
+    return True, vector_lanes(vmap_lanes)
+
+
+def step(state: EngineState, world: World, params: AosParams, s: Statics, *, v_dt=0.12,
+         vmap_lanes: int = 0):
     """One engine tick. Returns (state, metrics dict). Every leaf of the
     state and the world (and every field of params) may carry leading lane
     axes; each lane runs the single-lane tick bit for bit, its reductions
-    over its own axes."""
+    over its own axes. vmap_lanes: round as ``jax.vmap`` of the tick over
+    that many lanes, the leading axis (``vmap_forms``), where a lane's bits
+    depend on its index; 0: as one rollout's scan."""
+    vmapped, vector = vmap_forms(vmap_lanes)
     # 1. control tick on the current /plan (odometry message equivalent)
     ctrl = on_path(state.control, state.plan)
-    ctrl, fired, mod, goal_xy, goal_yaw = control_tick(ctrl, state.robot.xy, state.robot.yaw, params)
+    ctrl, fired, mod, goal_xy, goal_yaw = control_tick(ctrl, state.robot.xy, state.robot.yaw,
+                                                       params, vector=vector)
     mod_pub = torch.where(fired | ~ctrl.goal_initialized, mod, state.last_mod)
 
     # 2. mission FSM + replanning
     mission, wp, should_replan = mission_tick(state.mission, state.wp, state.robot.xy,
-                                              mod_pub, params)
+                                              mod_pub, params, vector=vector)
     raw, success = plan_current_path(mission, wp, world.graph, world.costmat,
-                                     world.skeleton, params, s, trim_plane=world.trim_skel)
+                                     world.skeleton, params, s, trim_plane=world.trim_skel,
+                                     vector=vector)
     # keep the last path when frozen or failed (cpp:265-271, 1036-1043)
     use_new = should_replan & success
     raw_path = Path(
@@ -277,7 +307,8 @@ def step(state: EngineState, world: World, params: AosParams, s: Statics, *, v_d
     robot_in = dataclasses.replace(
         state.robot,
         follow_i=torch.where(content_changed, 0, state.robot.follow_i).to(torch.int32))
-    robot = _move_robot(robot_in, mod_pub, plan_path, ctrl.goal_xy, ctrl.goal_yaw, v_dt=v_dt)
+    robot = _move_robot(robot_in, mod_pub, plan_path, ctrl.goal_xy, ctrl.goal_yaw, v_dt=v_dt,
+                        vmapped=vmapped)
 
     new_state = EngineState(robot=robot, mission=mission, control=ctrl, wp=wp,
                             plan=plan_path, raw_path=raw_path, last_mod=mod_pub,

@@ -231,11 +231,14 @@ def extract_vertices(grid: GridWorld, owner, s: Statics):
 # ---------------------------------------------------------------------------
 
 
-def _edge_crossing_dense(grid: GridWorld, a, b, valid, num, s: Statics, n_samples: int):
+def _edge_crossing_dense(grid: GridWorld, a, b, valid, num, s: Statics, n_samples: int,
+                         sample_ok=None):
     """edgePassesThroughOccupiedPixels (cpp:320-359) with every sample
     evaluated: samples k = 0..num at t = min(k/num, 1), cells by C
     truncation, any occupied in-grid sample crosses. a, b [*B, n, 2], each
-    world's entries against its own grid."""
+    world's entries against its own grid. sample_ok [*B, n, n_samples]:
+    only the samples it marks are looked at (the fine windows of
+    ``edge_crossing_packed``)."""
     dev = a.device
     nb = a.dim() - 2
     ab = b - a
@@ -261,7 +264,10 @@ def _edge_crossing_dense(grid: GridWorld, a, b, valid, num, s: Statics, n_sample
         ing = (mx >= 0) & (mx < wc) & (my >= 0) & (my < hc)
         flat = torch.clamp(my, 0, Hs - 1) * Ws + torch.clamp(mx, 0, Ws - 1)
         occ = take(occ_flat, flat, nb) == 1
-        hit |= (occ & ing & (i <= numf)).any(dim=-1)
+        sel = occ & ing & (i <= numf)
+        if sample_ok is not None:
+            sel &= sample_ok[..., c0:c0 + _CROSS_CHUNK]
+        hit |= sel.any(dim=-1)
     return hit & valid & (length >= 1e-6)
 
 
@@ -273,10 +279,14 @@ def edge_crossing_packed(grid: GridWorld, a, b, nmax, valid, s: Statics, cap: in
     ``aosx`` evaluates this coarse-to-fine in a packed slot buffer (every
     C4-th sample in a dilated grid, then exact windows around coarse hits),
     which decides exactly like the dense evaluation whenever its buffers
-    hold, and falls back to the dense evaluation when they overflow. Here
-    the decision is always the dense evaluation; the packed buffers are
-    only accounted, to raise the same guard bits (GUARD_CROSS_DENSE on
-    overflow, GUARD_EDGE_COARSE for capped entries), per world."""
+    hold. When they overflow (GUARD_CROSS_DENSE) it falls back to the dense
+    evaluation, but with ``exact_fallbacks=False`` keeps the fine result of
+    the truncated buffers, which may keep edges the dense one drops. Here
+    a world whose buffers hold takes the dense evaluation; an overflowed
+    world takes the dense evaluation (exact_fallbacks) or looks only at the
+    samples in the fine windows ``aosx``'s truncated buffers keep
+    (``_fine_windows``). GUARD_EDGE_COARSE flags capped entries; both guard
+    bits per world."""
     dev = a.device
     ab = b - a
     length = sqrt(ab[..., 0] * ab[..., 0] + ab[..., 1] * ab[..., 1])
@@ -295,32 +305,62 @@ def edge_crossing_packed(grid: GridWorld, a, b, nmax, valid, s: Statics, cap: in
     NR = (cap // C4 + NC - 1) // NC
     capp = NR * NC
     F = max(4096, cap // 64)
-    nwin_true = _coarse_hits(grid, a, ab, num, numc, nsamp, capped, C4, s)
+    hitc = _coarse_hits(grid, a, ab, num, numc, nsamp, capped, C4, s)
+    nwin_true = hitc.sum(dim=(-2, -1), dtype=torch.int32)
     ok_fast = (total <= capp) & (nwin_true <= F)
 
     # the group's longest cap: samples past an entry's own num are masked
     dense_n = max(256, s.crossing_nmax_long, int(nmax.max()))
-    crossing = _edge_crossing_dense(grid, a, b, valid, num, s, dense_n)
+    sample_ok = None
+    if not s.exact_fallbacks:
+        windows = _fine_windows(hitc, nsamp, num, capp, F, C4, dense_n)
+        sample_ok = windows | ok_fast[..., None, None]
+    crossing = _edge_crossing_dense(grid, a, b, valid, num, s, dense_n, sample_ok)
     zero = _i32(0, dev)
     guards = torch.where((valid & (num_raw > nmax - 1)).any(dim=-1), GUARD_EDGE_COARSE, zero)
     guards |= torch.where(~ok_fast, GUARD_CROSS_DENSE, zero)
     return crossing & valid & (length >= 1e-6), guards
 
 
+def _fine_windows(hitc, nsamp, num, capp: int, F: int, C4: int, n_samples: int):
+    """The fine samples [*B, n, n_samples] that ``aosx``'s packed crossing
+    pass looks at when it keeps its own result. Entry e's coarse samples
+    m = 0..numc fill slots off_e + m of a buffer of capp slots (the
+    exclusive prefix of nsamp; slots past capp are dropped); the first F
+    flagged slots in slot order open a window of the fine samples
+    fc - C4/2 .. fc + 3 C4/2 - 1 around fc = min(m C4, num). Without an
+    overflow the windows hold every fine hit, and the result is the dense
+    one."""
+    dev = hitc.device
+    M = hitc.shape[-1]
+    off = torch.cumsum(nsamp, dim=-1, dtype=torch.int32) - nsamp
+    m = torch.arange(M, dtype=torch.int32, device=dev)
+    slot = off[..., None] + m
+    rank = torch.cumsum(hitc.flatten(-2).to(torch.int32), dim=-1,
+                        dtype=torch.int32).reshape(hitc.shape) - hitc.to(torch.int32)
+    sel = hitc & (slot < capp) & (rank < F)
+    lo = torch.minimum(m * C4, num[..., None]) - C4 // 2
+    ends = torch.zeros(hitc.shape[:-1] + (n_samples + 1,), dtype=torch.int32, device=dev)
+    one = sel.to(torch.int32)
+    ends.scatter_add_(-1, torch.clamp(lo, 0, n_samples).long(), one)
+    ends.scatter_add_(-1, torch.clamp(lo + 2 * C4, 0, n_samples).long(), -one)
+    return torch.cumsum(ends, dim=-1, dtype=torch.int32)[..., :n_samples] > 0
+
+
 def _coarse_hits(grid: GridWorld, a, ab, num, numc, nsamp, capped, C4: int, s: Statics):
-    """Number of coarse slots flagged by aosx's packed crossing pass, per
-    world: coarse samples m = 0..numc of each valid entry whose cell in the
-    occupancy grid dilated by Chebyshev radius C4/4 + 1 is occupied, plus
-    every slot of a capped entry."""
+    """The coarse slots flagged by aosx's packed crossing pass [*B, n, M]:
+    coarse samples m = 0..numc (m < M, the group's most) of each valid
+    entry whose cell in the occupancy grid dilated by Chebyshev radius
+    C4/4 + 1 is occupied, and every slot of a capped entry."""
     dev = a.device
     nb = a.dim() - 2
     Hs, Ws = grid.occ.shape[-2:]
     dil = dilate_chebyshev((grid.occ == 1).to(torch.uint8), C4 // 4 + 1).flatten(-2)
     ox, oy = to_plane(grid.origin_x), to_plane(grid.origin_y)
     numf = torch.clamp(num.to(torch.float32), min=1.0)[..., None]
-    total = torch.zeros(num.shape[:-1], dtype=torch.int32, device=dev)
     # the group's most samples: columns past an entry's own nsamp are masked
     mmax = int(nsamp.max()) if nsamp.numel() else 0
+    hits = []
     for c0 in range(0, mmax, _CROSS_CHUNK):
         m = torch.arange(c0, min(c0 + _CROSS_CHUNK, mmax), dtype=torch.float32, device=dev)
         tt = torch.clamp(m * C4 / numf, max=1.0)
@@ -330,8 +370,10 @@ def _coarse_hits(grid: GridWorld, a, ab, num, numc, nsamp, capped, C4: int, s: S
         my = div_const(py - oy, s.resolution).to(torch.int32)
         flat = torch.clamp(my, 0, Hs - 1) * Ws + torch.clamp(mx, 0, Ws - 1)
         hitc = (take(dil, flat, nb) == 1) | capped[..., None]
-        total += (hitc & (m < nsamp[..., None])).sum(dim=(-2, -1), dtype=torch.int32)
-    return total
+        hits.append(hitc & (m < nsamp[..., None]))
+    if not hits:
+        return torch.zeros(num.shape + (0,), dtype=torch.bool, device=dev)
+    return torch.cat(hits, dim=-1)
 
 
 def _ridge_edges_from(lo, hi, pok, vidx, pos, sx, sy, N: int, S: int, E: int):

@@ -395,6 +395,40 @@ def norm2(v):
     return sqrt(_round_odd_f32(v1 * v1, v[..., 0] * v[..., 0]))
 
 
+def vector_lanes(lanes: int, site: str = "") -> int:
+    """How many leading lanes of a per-lane 2-vector norm XLA:CPU computes
+    in LLVM's vectorized loop, in a program that ``jax.vmap`` maps over
+    ``lanes`` lanes (the Monte-Carlo harness's chunk). There the squares
+    reach their sum through a shuffle and are not fused,
+    sqrt(v0 * v0 + v1 * v1); the loop's scalar remainder fuses them as
+    ``norm2`` does. Read from the chunk's LLVM IR (jax 0.9.0, AVX-512 host,
+    256-bit vectors) at 1-18, 20, 24, 28, 32, 36, 44, 64, 66, 100, 128 and
+    256 lanes: below 16 lanes (a trip count LLVM calls tiny) only 4 and 8
+    are vectorized, whole; from 16 on, 8 lanes a vector iteration and a
+    scalar remainder, except at 20 lanes and, for every site but the
+    travel segment ("travel"), at 28, where 4 lanes a vector iteration
+    leave no remainder."""
+    if lanes in (4, 8):
+        return lanes
+    if lanes < 16:
+        return 0
+    if lanes == 20 or (lanes == 28 and site != "travel"):
+        return lanes
+    return lanes - lanes % 8
+
+
+def norm2_lanes(v, vector: int):
+    """|v| of per-lane 2-vectors v [L, 2] as a vmapped XLA:CPU program
+    evaluates the reference's ``jnp.sqrt(jnp.sum(v ** 2))``: lanes
+    [0, vector) unfused (its vectorized loop), the rest as ``norm2``
+    (``vector_lanes``)."""
+    unfused = sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
+    if vector >= v.shape[0]:
+        return unfused
+    lane = torch.arange(v.shape[0], device=v.device)
+    return torch.where(lane < vector, unfused, norm2(v))
+
+
 def div_const(x, c: float):
     """f32 x / c for a constant c as XLA compiles aosx's division by a
     static constant under jit: its algebraic simplifier makes it a product

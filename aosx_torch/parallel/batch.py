@@ -23,10 +23,14 @@ What differs from the JAX package, and why:
   candidates; the full Worlds are dropped right after. The chunk is
   lane-batched too: ``chunk_steps`` calls of ``plancache.step_cached``
   (cached) or of the lane-aware ``engine.step`` (uncached) on [L, ...]
-  leaves. ``batched_rollouts`` begins all its keys in one call and runs
-  one lane-aware episode. ``looped_worlds`` builds a group one world at a
-  time through unbatched calls: the reference the tests and the smoke
-  run hold the batched build against, not a path of the harness.
+  leaves, rounded as XLA:CPU compiles ``aosx``'s chunk under ``jax.vmap``
+  over the L lanes (``engine.vmap_forms``): a record has the bits of
+  ``aosx``'s harness at that lane count (a block's, with a mesh), which
+  one rollout alone (a scan) can miss by an ulp. ``batched_rollouts``
+  begins all its keys in one call and runs one lane-aware episode.
+  ``looped_worlds`` builds a group one world at a time through unbatched
+  calls: the reference the tests and the smoke run hold the batched build
+  against, not a path of the harness.
 - **Meshes.** ``sharded_rollouts`` and ``sustained_rollouts(mesh=)`` split
   the lanes into one block per device of a ``parallel.spatial.Mesh``; block
   ``k`` is built, stepped and read on ``mesh.devices[k]``. Lanes are
@@ -48,7 +52,7 @@ import torch
 from .. import engine, prng, tree
 from ..config import AosParams, Statics
 from ..convert import to_numpy
-from ..ops import norm2, sum_xla
+from ..ops import norm2, norm2_lanes, sum_xla, vector_lanes
 from ..orchards import OrchardSpec, make_orchard
 from ..plan import plancache
 from ..types import PointCloud, Polygon
@@ -193,12 +197,15 @@ def _acc_init(s: Statics, n_steps_total: int, device, lanes_=()):
     )
 
 
-def _fold(acc, m, tick):
+def _fold(acc, m, tick, vmap_lanes: int = 0):
     """One tick's metrics folded into the accumulator; ``tick`` is the
     tick's index in its episode (i32, per lane). travel adds one segment a
-    tick, sequentially, in f32."""
+    tick, sequentially, in f32; under vmap over L >= 2 lanes XLA:CPU
+    computes the segment of the leading ``ops.vector_lanes(L, "travel")``
+    lanes unfused."""
     xy = m["xy"]
-    seg = norm2(xy - acc["last_xy"])
+    seg = (norm2(xy - acc["last_xy"]) if vmap_lanes < 2
+           else norm2_lanes(xy - acc["last_xy"], vector_lanes(vmap_lanes, "travel")))
     return dict(
         first_done=torch.minimum(acc["first_done"],
                                  torch.where(m["completed"], tick, acc["first_done"])),
@@ -234,15 +241,24 @@ def rollout_begin(key, spec: OrchardSpec, params: AosParams, s: Statics, n_steps
                   classify)
 
 
+def _lane_count(st):
+    """L for a state with a leading lane axis [L], else 0: the lane count
+    of the vmapped program whose rounding a chunk follows."""
+    return st.t.shape[0] if st.t.dim() == 1 else 0
+
+
 def rollout_chunk(world, st, acc, params, s: Statics, n: int, offset):
     """Advance rollouts by n control ticks of engine.step, folding first
     completion step, sequential travel and last status into the
     accumulator. Every leaf may carry a leading lane axis [L] (offset then
-    [L] too, each lane's age); the lanes step together."""
+    [L] too, each lane's age); the lanes step together, rounded as
+    ``aosx``'s harness rounds its chunk, ``jax.vmap`` over the L lanes
+    (``engine.step``'s vmap_lanes)."""
     offset = torch.as_tensor(offset, dtype=torch.int32, device=st.t.device)
+    vmap_lanes = _lane_count(st)
     for i in range(n):
-        st, m = engine.step(st, world, params, s)
-        acc = _fold(acc, m, offset + i)
+        st, m = engine.step(st, world, params, s, vmap_lanes=vmap_lanes)
+        acc = _fold(acc, m, offset + i, vmap_lanes)
     return st, acc
 
 
@@ -333,11 +349,13 @@ def rollout_begin_group(keys, spec: OrchardSpec, params: AosParams, s: Statics,
 
 def rollout_chunk_cached(lite, cache, st, acc, params, s: Statics, n: int, offset):
     """rollout_chunk through plancache.step_cached. Every leaf may carry a
-    leading lane axis [L] (offset then [L] too, each lane's age)."""
+    leading lane axis [L] (offset then [L] too, each lane's age), rounded
+    as ``jax.vmap`` over the L lanes."""
     offset = torch.as_tensor(offset, dtype=torch.int32, device=st.t.device)
+    vmap_lanes = _lane_count(st)
     for i in range(n):
-        st, m = plancache.step_cached(st, lite, cache, params, s)
-        acc = _fold(acc, m, offset + i)
+        st, m = plancache.step_cached(st, lite, cache, params, s, vmap_lanes=vmap_lanes)
+        acc = _fold(acc, m, offset + i, vmap_lanes)
     return st, acc
 
 

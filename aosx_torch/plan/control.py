@@ -8,7 +8,7 @@ import torch
 
 from ..config import AosParams
 from ..geom import normalized_angle
-from ..ops import sqrt, take_row
+from ..ops import norm2_lanes, sqrt, take_row
 from ..types import ControlState, Path
 
 
@@ -32,18 +32,22 @@ def on_path(state: ControlState, path: Path) -> ControlState:
     )
 
 
-def control_tick(state: ControlState, pose_xy, pose_yaw, params: AosParams):
+def control_tick(state: ControlState, pose_xy, pose_yaw, params: AosParams, *,
+                 vector: int | None = None):
     """baseLinkOdomCallback + updateControlMode (cpp:83-141) for one
     odometry message. Returns (state, publish, mod, goal_xy, goal_yaw); the
     1-in-5 decimation rides odom_cnt, and mod 3 is published before the
     first path. Every leaf may carry leading lane axes (and so may every
-    field of params): the arithmetic is elementwise per lane."""
+    field of params): the arithmetic is elementwise per lane. vector: the
+    leading lanes whose goal distance a vmapped program computes in its
+    vectorized loop (``ops.vector_lanes``; None: one rollout's tick)."""
     cnt = state.odom_cnt + 1
     fire = (cnt % params.sm_skipping_hz) == 0
     cnt = torch.where(fire, 0, cnt).to(torch.int32)
 
     dxy = state.goal_xy - pose_xy
-    dist = sqrt(dxy[..., 0] * dxy[..., 0] + dxy[..., 1] * dxy[..., 1])
+    dist = (sqrt(dxy[..., 0] * dxy[..., 0] + dxy[..., 1] * dxy[..., 1]) if vector is None
+            else norm2_lanes(dxy, vector))
     yaw_diff = torch.abs(normalized_angle(state.goal_yaw - pose_yaw))
 
     m = state.mode

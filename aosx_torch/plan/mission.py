@@ -22,7 +22,7 @@ import torch
 
 from ..config import AosParams, Statics
 from ..geom import atan2
-from ..ops import fma, lanes, norm2, scatter_set, set_at, take, take_row
+from ..ops import fma, lanes, norm2, norm2_lanes, scatter_set, set_at, take, take_row
 from ..perceive.raster import f32, shift2d
 from ..types import GridWorld, GvdGraph, MissionState, Path, Waypoints
 from .astar import INF, plan_between
@@ -124,11 +124,13 @@ def _append_origin(wp: Waypoints, params: AosParams) -> Waypoints:
 
 
 def mission_tick(state: MissionState, wp: Waypoints, robot_xy, control_mod,
-                 params: AosParams):
+                 params: AosParams, *, vector: int | None = None):
     """One mission update: control-mod handling (cpp:280-343) then position
     handling (cpp:195-278). Returns (state, wp, should_replan). Every leaf
     (and every field of params) may carry leading lane axes; each lane runs
-    the single-lane arithmetic."""
+    the single-lane arithmetic. vector: the leading lanes whose target
+    distance a vmapped program computes in its vectorized loop
+    (``ops.vector_lanes``; None: one rollout's tick)."""
     advance = (control_mod == 3) & state.waiting_for_docking
     at_last = state.target_wp >= wp.count - 1
     completing = advance & at_last & ~state.exploration_completed
@@ -158,7 +160,8 @@ def mission_tick(state: MissionState, wp: Waypoints, robot_xy, control_mod,
     W = wp.xy.shape[-2]
     tvalid = (target_wp >= 0) & (target_wp < wp.count)
     target = take_row(wp.xy, torch.clamp(target_wp, 0, W - 1))
-    d_target = norm2(robot_xy - target)
+    d_target = norm2(robot_xy - target) if vector is None else norm2_lanes(robot_xy - target,
+                                                                           vector)
 
     # Exploration Complete at the origin (cpp:230-246)
     at_origin_goal = (completed & tvalid & (torch.abs(target[..., 0]) < 0.1)
@@ -330,7 +333,8 @@ def _trim(xy, yaw, count, skel: GridWorld, params: AosParams, s: Statics, trim_p
 
 def plan_current_path(state: MissionState, wp: Waypoints, graph: GvdGraph, costmat,
                       skel: GridWorld, params: AosParams, s: Statics, *, trim_plane,
-                      use_current_position=None, astar_enabled=None):
+                      use_current_position=None, astar_enabled=None,
+                      vector: int | None = None):
     """planAndPublishPath (cpp:976-1567) with the trim distance plane.
     Returns (Path, success bool). use_current_position (f32 [2]): the
     robot's position as the start, for the next_waypoint service's plan.
@@ -342,7 +346,10 @@ def plan_current_path(state: MissionState, wp: Waypoints, graph: GvdGraph, costm
     (graph, costmat, skel, trim_plane) carry len(B) leading axes of B's
     sizes or 1, or none (one world for every lane); params are 0-d or carry
     the leading axes too. B = () is one plan. Each lane's result is the
-    single plan's bit for bit (build_plan_cache: worlds x rows)."""
+    single plan's bit for bit (build_plan_cache: worlds x rows). vector:
+    the leading lanes B = (L,) whose tail and target-point distances a
+    vmapped tick computes in its vectorized loop (``ops.vector_lanes``;
+    None: one plan, or a scan's)."""
     dev = graph.nodes.device
     P = s.max_path
     nb = state.target_wp.dim()
@@ -397,13 +404,14 @@ def plan_current_path(state: MissionState, wp: Waypoints, graph: GvdGraph, costm
     last_node = take_row(node_path, torch.clamp(plen - 1, min=0))
     last_node_xy = take(graph.nodes, torch.clamp(last_node, min=0), nw)
     dtail = target - last_node_xy
-    tail_num = torch.ceil(norm2(dtail) / params.path_step).to(torch.int32)
+    dist = norm2 if vector is None else lambda v: norm2_lanes(v, vector)  # noqa: E731
+    tail_num = torch.ceil(dist(dtail) / params.path_step).to(torch.int32)
     it = arP.to(torch.float32) + 1.0
     tt = it / torch.clamp(tail_num.to(torch.float32), min=1.0)[..., None]
     # last_node + t * dtail rounded once: XLA:CPU fuses it
     tail_xy = fma(tt[..., None], dtail.unsqueeze(-2), last_node_xy.unsqueeze(-2))
     tail_ok = (arP < tail_num[..., None]) & origin_return[..., None]
-    target_point_ok = ~origin_return & (norm2(last_node_xy - target) > 0.01)
+    target_point_ok = ~origin_return & (dist(last_node_xy - target) > 0.01)
     tail_xy = torch.where((arP == 0)[:, None] & ~origin_return[..., None, None],
                           target.unsqueeze(-2), tail_xy)
     tail_ok = tail_ok | ((arP == 0) & target_point_ok[..., None])

@@ -36,7 +36,7 @@ import torch
 
 from .. import tree
 from ..config import AosParams, Statics
-from ..engine import Robot, _move_robot, initial_state, stack_metrics
+from ..engine import Robot, _move_robot, initial_state, stack_metrics, vmap_forms
 from ..guards import GUARD_NONFINITE, GUARD_PLAN_CAP
 from ..ops import lanes, sqrt, take_row
 from ..types import ControlState, MissionState, Path, Waypoints
@@ -345,7 +345,8 @@ def select_row(arr, adopted):
 
 
 def step_cached(state: CachedEngineState, lite: WorldLite, cache: PlanCache,
-                params: AosParams, s: Statics, *, v_dt=0.12, external_pose: bool = False):
+                params: AosParams, s: Statics, *, v_dt=0.12, external_pose: bool = False,
+                vmap_lanes: int = 0):
     """engine.step with the per-tick replan + linearization replaced by the
     cache row select; bit-identical metrics and trajectories.
 
@@ -354,17 +355,20 @@ def step_cached(state: CachedEngineState, lite: WorldLite, cache: PlanCache,
     also carry the selected ``plan_xy``.
 
     Lanes: every leaf of state, lite, cache ([L, R, ...]) and, for a sweep,
-    params may carry one leading lane axis; lanes do not interact."""
+    params may carry one leading lane axis; lanes do not interact.
+    vmap_lanes: round as ``jax.vmap`` over that many lanes
+    (``engine.step``)."""
     dev = state.t.device
+    vmapped, vector = vmap_forms(vmap_lanes)
     # 1. control tick on the currently published /plan
     ctrl = _on_path_cached(state.control, cache, state.adopted)
     ctrl, fired, mod, goal_xy, goal_yaw = control_tick(ctrl, state.robot.xy, state.robot.yaw,
-                                                       params)
+                                                       params, vector=vector)
     mod_pub = torch.where(fired | ~ctrl.goal_initialized, mod, state.last_mod)
 
     # 2. mission FSM; the "replan" is the cache row lookup
     mission, wp, should_replan = mission_tick(state.mission, state.wp, state.robot.xy,
-                                              mod_pub, params)
+                                              mod_pub, params, vector=vector)
     idx_now = cache_row_index(mission, s)
     success = take_row(cache.success, idx_now)
     use_new = should_replan & success
@@ -389,7 +393,7 @@ def step_cached(state: CachedEngineState, lite: WorldLite, cache: PlanCache,
             follow_i=torch.where(use_new & (idx_now != state.adopted), 0,
                                  state.robot.follow_i).to(torch.int32))
         robot = _move_robot(robot_in, mod_pub, plan_path, ctrl.goal_xy, ctrl.goal_yaw,
-                            v_dt=v_dt)
+                            v_dt=v_dt, vmapped=vmapped)
 
     new_state = CachedEngineState(robot=robot, mission=mission, control=ctrl, wp=wp,
                                   adopted=adopted, last_mod=mod_pub, t=state.t + 1)

@@ -94,14 +94,28 @@ kernel on them:
            against the same caches built one world and one row at a time,
            bitwise, both timed; 128 rollouts of 1,200 ticks through 64
            lanes with refill groups of 32 (plan-cached), each record held
-           against the JAX package's (tests/torch_reference/mc_np_seed0.json);
-           8 of them again alone, bitwise equal to their lane's record; a
-           2 x 2 parameter sweep whose first configuration equals the unswept
-           records; launches of K1 and K2 per group build; rollouts/s; the
-           uncached harness (16 rollouts through 8 lanes, refill 4, 300
-           ticks: lane-aware engine.step chunks) bitwise equal to the cached
-           one on the same clouds, its lane-tick; batched_rollouts on 8 keys
-           bitwise equal to the keys one at a time
+           against the JAX package's own harness on the same clouds
+           (tests/torch_reference/mc_np_seed0.json, its lanes vmapped);
+           8 of them again through 8 lanes of their own, bitwise equal to
+           their records; a 2 x 2 parameter sweep whose first configuration
+           equals the unswept records; launches of K1 and K2 per group
+           build; rollouts/s; the uncached harness (16 rollouts through 8
+           lanes, refill 4, 300 ticks: lane-aware engine.step chunks)
+           bitwise equal to the cached one on the same clouds, its
+           lane-tick; batched_rollouts on 8 keys bitwise equal to the keys
+           one at a time
+  phase 9b the realism Monte-Carlo (benchmarks/bench_sustained.py ... cached
+           realism: 0.8 m bow, 15 % tree dropout, MC_REALISM_STATICS): K1
+           and K2 on the first refill group of population keys, of the
+           realism and of the straight population, each in one launch
+           against its plain batched version, bitwise, ms a group and its
+           bound; then sustained_rollouts(128, 64, ..., refill=32,
+           cached=True, classify=True, keys=the first 128 population keys),
+           every field of every record bitwise the JAX package's own harness
+           on the same keys (tests/torch_reference/mc_harness_ref.json);
+           launches of K1 and K2 per group build (K3 none); rollouts/s, the
+           chunk's ms a call, the lanes completed, infeasible and out of
+           budget
   phase 10 the operator's surface. (a) At BENCH_STATICS on the bench orchard:
            make_orchard on the card against the CPU port and the JAX
            package's (bitwise); the bench cloud through save_pcd / load_pcd
@@ -198,8 +212,9 @@ MC_SWEEP_SEEDS, MC_SWEEP_BATCH = 8, 16
 MC_UNCACHED = (16, 8, 4, 300)
 MC_BATCHED_KEYS, MC_BATCHED_STEPS = 8, 150
 # The port evaluates the world build's and the plan path's f32 arithmetic
-# as XLA:CPU does in make_mc_reference.py's jitted begin, chunks and finish
-# (ROADMAP section 3), so a record equals JAX's bit for bit
+# as XLA:CPU does in aosx's own harness, its begin, chunk and finish jitted
+# and vmapped over the lanes (make_mc_reference.py; ROADMAP section 3), so a
+# record equals JAX's bit for bit
 MC_FLOAT_BOUND_M = {"travel_distance": 0.0, "final_dist_to_origin": 0.0}
 # Records beyond that bound, each printed with both sides and the cache rows
 # whose plan lengths differ: record -> its proven cause. None since the flood
@@ -681,6 +696,22 @@ def k1_group_case(S, G, device):
     return grid, seeds
 
 
+def k1_group_bound(owner0, table, steps, args, rounding):
+    """(bound ms, "bytes" or "operations", bytes ms, operations ms) of a
+    group's floods: every world's owner plane in and out and its table, or
+    every world's passes' operations, counted on this run's states."""
+    from aosx_torch.gvd import jfa_pass_cuda
+
+    G, H, W = owner0.shape
+    n = args[0]
+    *before, _ = jfa_pass_cuda.jfa_states_plain(owner0, table, steps, *args, rounding)
+    ops_ms = float(np.sum(k1_ops_by_pass(before, steps, n, H + W, rounding)))
+    del before
+    bytes_ms, _ = bound(G * (8 * H * W + 8 * (n + 1)))
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", bytes_ms,
+            ops_ms)
+
+
 def phase_k1_world_axis(device, S, G=WORLDS):
     """K1 with a world axis: G floods of their own origins, bounds and seed
     tables in one launch, against the plain batched flood and against the
@@ -721,13 +752,7 @@ def phase_k1_world_axis(device, S, G=WORLDS):
                                                            S.resolution, rounding=rounding)
                                    for g, o in enumerate(os)],
                        device, REPS, lambda: [owner0[g].clone() for g in range(G)])
-    # the group's bound: every world's plane in and out and its table, or
-    # every world's passes' operations, counted on this run's states
-    *before, state = jfa_pass_cuda.jfa_states_plain(owner0, table, steps, *args, rounding)
-    ops_ms = float(np.sum(k1_ops_by_pass(before, steps, n, S.grid_h + S.grid_w, rounding)))
-    del before, state
-    bytes_ms, _ = bound(G * (8 * S.grid_h * S.grid_w + 8 * (n + 1)))
-    b_ms, b_by = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+    b_ms, b_by, bytes_ms, ops_ms = k1_group_bound(owner0, table, steps, args, rounding)
     log(f"# phase 2: K1 world axis, {G} MC_STATICS floods ({S.grid_h}x{S.grid_w}, their own "
         f"origins, live bounds and 3 to {n} seeds; {len(steps)} passes): {launches} launch(es), "
         f"{ms_k:.4f} ms a group ({ms_k / G:.5f} a world) against {ms_1:.4f} ms for {G} "
@@ -940,6 +965,20 @@ def check_k2_group(name, occ, h_cells, w_cells, max_iters):
     return stats.tolist(), launches, err
 
 
+def k2_group_bound(skel, its):
+    """(bound ms, "bytes" or "operations") of a group's thinnings: every
+    world's plane in and out, or its iterations of the circuit over the
+    words still holding a cell, summed over the group."""
+    from aosx_torch.perceive import skeleton_cuda
+
+    G, H, W = skel.shape
+    words = [int((skeleton_cuda.pack_rows(skel[g]) != 0).sum()) for g in range(G)]
+    bytes_ms, _ = bound(2 * G * H * W)
+    ops_ms, _ = bound(0, int32_ops=sum(it * 2.0 * K2_OPS_PER_WORD * w
+                                       for it, w in zip(its, words)))
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
 def phase_k2_world_axis(device, S, spec, name, seeds, caps):
     """K2 with a world axis on a group of orchards' opened grids: one launch
     (or one a chunk of worlds) against the plain batched loop and the
@@ -963,13 +1002,7 @@ def phase_k2_world_axis(device, S, spec, name, seeds, caps):
     _, ms_1 = timed_ms(lambda: [skeleton_cuda.zhang_suen_fixpoint(planes[g], hc[g], wc[g],
                                                                   S.skeleton_max_iters)
                                 for g in range(G)], device, REPS)
-    # every world's plane in and out, or its iterations of the circuit over
-    # the words still holding a cell, summed over the group
-    words = [int((skeleton_cuda.pack_rows(skel[g]) != 0).sum()) for g in range(G)]
-    bytes_ms, _ = bound(2 * G * H * W)
-    ops_ms, _ = bound(0, int32_ops=sum(it * 2.0 * K2_OPS_PER_WORD * w
-                                       for it, w in zip(its, words)))
-    b_ms, b_by = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+    b_ms, b_by = k2_group_bound(skel, its)
     log(f"# phase 3: K2 world axis, {G} {name} opened grids ({H}x{W}): {launches} launch(es), "
         f"iterations per world {its}; {ms_k:.4f} ms a group ({ms_k / G:.5f} a world) against "
         f"{ms_1:.4f} ms for {G} single-world launches; planes and per-world counts bitwise "
@@ -1947,22 +1980,6 @@ MC_INT_FIELDS = ("completed", "steps_to_complete", "final_status", "waypoints", 
 MC_FLOAT_FIELDS = ("travel_distance", "final_dist_to_origin")
 
 
-def mc_single(cloud, params, S, device, budget, chunk):
-    """One rollout alone: plancache.episode_cached written out (world, cache,
-    feasibility, then single-lane ticks) and folded into the record the
-    harness keeps, stopped where the harness retires a lane: at the first
-    chunk boundary with exploration_completed set, or at the budget."""
-    from aosx_torch.parallel import batch
-
-    lite, cache, st, acc = batch._begin_cached(batch.cloud_tensors(cloud, S, device), params,
-                                               S, budget, "sorted")
-    for off in range(0, budget, chunk):
-        st, acc = batch.rollout_chunk_cached(lite, cache, st, acc, params, S, chunk, off)
-        if bool(st.mission.exploration_completed):
-            break
-    return {k: v.cpu().numpy() for k, v in batch.rollout_finish(st, acc, S).items()}
-
-
 def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
                       budget=MC_BUDGET, chunk=MC_CHUNK, rerun_ids=MC_RERUN_IDS,
                       sweep_seeds=MC_SWEEP_SEEDS, sweep_batch=MC_SWEEP_BATCH,
@@ -2115,19 +2132,22 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
     if int(comp.sum()) == 0:
         raise AssertionError("no rollout completed")
 
-    # lanes and refill change nothing: rollouts again, alone
-    t0 = time.perf_counter()
-    for i in rerun_ids:
-        alone = mc_single(make_orchard_np(spec, seed=i), params, S, device, budget, chunk)
-        bad = [k for k in res if alone[k].tobytes() != res[k][i].tobytes()]
+    # lanes, neighbours and refill change nothing: the same rollouts again
+    # through a harness of their own, as many lanes as rollouts (a width
+    # whose chunk XLA:CPU rounds as it rounds 64 lanes: every lane in its
+    # vectorized loop, ops.vector_lanes)
+    (again, _), again_ms = timed(lambda: batch.sustained_rollouts(
+        len(rerun_ids), len(rerun_ids), spec, params, S, budget, chunk_steps=chunk,
+        refill=len(rerun_ids), ror_method="sorted", cached=True,
+        clouds=lambda j: make_orchard_np(spec, seed=rerun_ids[j]), device=device))
+    for j, i in enumerate(rerun_ids):
+        bad = [k for k in res if again[k][j].tobytes() != res[k][i].tobytes()]
         if bad:
-            raise AssertionError(f"rollout {i} alone differs from its lane's record in {bad}: "
-                                 f"{ {k: (alone[k].item(), res[k][i].item()) for k in bad} }")
-    sync()
-    single_s = (time.perf_counter() - t0) / len(rerun_ids)
-    log(f"# phase 9: rollouts {list(rerun_ids)} alone (single-lane ticks up to the chunk "
-        f"boundary their lane retired at) equal "
-        f"their lane's record bitwise; {single_s:.1f} s a rollout alone")
+            raise AssertionError(f"rollout {i} in a harness of {len(rerun_ids)} lanes differs from "
+                                 f"its record in {bad}: "
+                                 f"{ {k: (again[k][j].item(), res[k][i].item()) for k in bad} }")
+    log(f"# phase 9: rollouts {list(rerun_ids)} again through {len(rerun_ids)} lanes of their own "
+        f"(no refill) equal their records bitwise; {again_ms / 1e3:.1f} s")
 
     # a 2 x 2 sweep on the same numpy clouds; configuration 0 is the default
     # parameters
@@ -2199,10 +2219,178 @@ def phase_monte_carlo(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL,
         uncached_begin_group_ms=1e3 * ustats["begin_s"] / ustats["begin_calls"],
         batched_rollouts_s=br_ms / 1e3,
         begin_world_looped_ms=begin_looped, begin_world_batched_ms=begin_batched,
-        group_peak_allocated_gib=group_mem, single_rollout_s=single_s,
+        group_peak_allocated_gib=group_mem, rerun_s=again_ms / 1e3,
         records_differing=len(differ), float_err_m=worst, completed=int(comp.sum()),
         infeasible=int((res["feasible"] == 0).sum()), flagged=int((res["guards"] != 0).sum()),
         sweep_s=sweep_ms / 1e3, peak_allocated_gib=mem, launches_per_group=per_group)
+
+
+MC_HARNESS_REFERENCE = REFERENCE.with_name("mc_harness_ref.json")
+
+
+def mc_group_kernels(device, S, spec, keys, name):
+    """K1 and K2 on one refill group of population keys as the world build
+    runs them: the group's opened grids through K2 and its skeletons' floods
+    over the merged seeds through K1, each in one launch, against the plain
+    batched versions (and K2's single-world runs), bitwise; ms a group of
+    each and its bound. These launches are not the main path's."""
+    import torch
+    from aosx_torch.config import AosParams, params_as_f32
+    from aosx_torch.cuda_build import timed_ms
+    from aosx_torch.gvd import jfa_pass_cuda, voronoi
+    from aosx_torch.gvd.graph import merge_seeds
+    from aosx_torch.orchards import make_orchard
+    from aosx_torch.perceive import points, raster, skeleton, skeleton_cuda
+    from aosx_torch.perceive.pipeline import perceive
+
+    params = params_as_f32(AosParams(), device)
+    excl = torch.zeros((S.max_exclusions, 3), device=device)
+    pc, poly = make_orchard(keys, spec, S, device)
+    xy, keep, bounds, _ = points.preprocess(pc, poly, params, excl, S, ror_method="sorted")
+    opened = skeleton.morph_open(raster.inflate(raster.generate_grid(xy, keep, bounds, S), S))
+    occ, hc, wc = opened.occ.contiguous(), opened.h_cells, opened.w_cells
+    G, H, W = occ.shape
+    stats, k2_launches, k2_err = check_k2_group(name, occ, hc, wc, S.skeleton_max_iters)
+    (skel, _), k2_ms = timed_ms(lambda: skeleton_cuda.zhang_suen_fixpoint(
+        occ, hc, wc, S.skeleton_max_iters), device, REPS)
+    _, k2_plain_ms = cuda_ms(lambda: skeleton_cuda.zhang_suen_fixpoint_plain(
+        occ, hc, wc, S.skeleton_max_iters), 2)
+    its = [st[0] for st in stats]
+    k2_bound, _ = k2_group_bound(skel, its)
+
+    out = perceive(pc, poly, params, excl, S, ror_method="sorted")
+    seeds = merge_seeds(out.seeds, params, S)
+    grid = out.skeleton
+    n = seeds.xy.shape[-2]
+    steps = voronoi._passes(S)
+    rounding = voronoi.pass_roundings(S, steps, tuple(grid.occ.shape[-2:]))
+    owner0, table = voronoi._jfa_init(grid, seeds, S)
+    args = (n, grid.origin_x, grid.origin_y, S.resolution)
+    ref, k1_plain_ms = cuda_ms(lambda: jfa_pass_cuda.jfa_flood_plain(owner0, table, steps, *args,
+                                                                     rounding), 2)
+    zero_counts([jfa_pass_cuda.jfa_flood])
+    got = jfa_pass_cuda.jfa_flood(owner0.clone(), table, steps, *args, want_positions=True,
+                                  rounding=rounding)
+    k1_launches = jfa_pass_cuda.jfa_flood.launches
+    k1_err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, ref))
+    if ((device.type == "cuda" and k1_launches != 1)
+            or not all(torch.equal(a, b) for a, b in zip(got, ref))):
+        raise AssertionError(f"K1 on the {name} group: {k1_launches} launch(es), owner / ox / oy "
+                             f"differ from the plain batched flood (max abs err {k1_err})")
+    _, k1_ms = timed_ms(lambda o: jfa_pass_cuda.jfa_flood(o, table, steps, *args,
+                                                         rounding=rounding),
+                        device, REPS, owner0.clone)
+    k1_bound, *_ = k1_group_bound(owner0, table, steps, args, rounding)
+    log(f"# phase 9b: the first {name} refill group ({G} worlds, {H}x{W}, population keys): "
+        f"K2 {k2_launches} launch, iterations {its}, {k2_ms:.4f} ms a group (plain batched "
+        f"{k2_plain_ms:.2f} ms), bound {k2_bound:.5f} ms ({100 * k2_bound / k2_ms:.1f} %); K1 "
+        f"{k1_launches} launch, {len(steps)} passes, {k1_ms:.4f} ms a group (plain batched "
+        f"{k1_plain_ms:.2f} ms), bound {k1_bound:.5f} ms ({100 * k1_bound / k1_ms:.1f} %); "
+        f"both bitwise their plain versions (K1: owner, ox and oy; K2: planes and per-world "
+        f"counts, and each world alone)")
+    assert_under_bound(f"K2 {name} group", k2_ms, k2_bound)
+    assert_under_bound(f"K1 {name} group", k1_ms, k1_bound)
+    return dict(k1_ms=k1_ms, k1_plain_ms=k1_plain_ms, k1_bound_ms=k1_bound, k1_err=k1_err,
+                k2_ms=k2_ms, k2_plain_ms=k2_plain_ms, k2_bound_ms=k2_bound, k2_err=k2_err,
+                k2_iterations=its)
+
+
+def phase_realism(device, total=MC_TOTAL, lanes=MC_BATCH, refill=MC_REFILL, budget=MC_BUDGET,
+                  chunk=MC_CHUNK):
+    """Phase 9b: the realism Monte-Carlo (curved rows, 15 % tree dropout,
+    MC_REALISM_STATICS) through the harness's normal entry point on
+    population keys, every record against aosx's own harness on the same
+    keys (mc_harness_ref.json); K1 and K2 on its first refill group and on
+    the straight population's, against their plain versions."""
+    import torch
+    from aosx_torch import prng
+    from aosx_torch.config import MC_REALISM_STATICS, MC_STATICS, AosParams, params_as_f32
+    from aosx_torch.gvd import jfa_pass_cuda
+    from aosx_torch.orchards import OrchardSpec
+    from aosx_torch.parallel import batch
+    from aosx_torch.perceive import ror_cuda, skeleton_cuda
+
+    ref = json.loads(MC_HARNESS_REFERENCE.read_text())
+    pops = ref["populations"]
+    entry = pops["realism"]["phase9"]
+    if ([entry["lanes"], entry["refill"], len(entry["ids"]), ref["steps_budget"],
+         ref["chunk_steps"]] != [lanes, refill, total, budget, chunk]
+            or entry["ids"] != list(range(total))):
+        raise AssertionError("phase 9b: the reference was made at another shape")
+    S = MC_REALISM_STATICS
+    spec = OrchardSpec(**pops["realism"]["spec"])
+    params = params_as_f32(AosParams(), device)
+    keys = prng.split(prng.prng_key(ref["population"]["seed"], torch.device("cpu")),
+                      ref["population"]["size"])[:total]
+    kernels = (jfa_pass_cuda.jfa_flood, skeleton_cuda.zhang_suen_fixpoint, ror_cuda.ror_counts)
+
+    groups = {name: mc_group_kernels(device, st, OrchardSpec(**pops[name]["spec"]),
+                                     keys[:refill], name)
+              for name, st in (("straight", MC_STATICS), ("realism", S))}
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    # the main path, counts set to 0 just before it
+    zero_counts(kernels)
+    sync()
+    t0 = time.perf_counter()
+    res, stats = batch.sustained_rollouts(total, lanes, spec, params, S, budget,
+                                          chunk_steps=chunk, refill=refill, ror_method="sorted",
+                                          cached=True, classify=True, keys=keys, device=device)
+    sync()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    n_groups = stats["begin_calls"]
+    if n_groups != lanes // refill + (total - lanes) // refill:
+        raise AssertionError(f"phase 9b: begin_calls {n_groups}")
+    if device.type == "cuda":
+        assert_group_launches(launches, n_groups, S, "the realism Monte-Carlo path")
+    if launches["ror_counts"] != 0:
+        raise AssertionError(f"phase 9b: K3 launched on a sorted-ROR path: {launches}")
+
+    differ = {}
+    for i, want in enumerate(entry["records"]):
+        got = {k: res[k][i].item() for k in res}
+        if got.keys() != want.keys() or any(
+                np.float32(got[k]).tobytes() != np.float32(want[k]).tobytes()
+                if k in MC_FLOAT_FIELDS else got[k] != want[k] for k in want):
+            differ[i] = {k: (got.get(k), want[k]) for k in want if got.get(k) != want[k]}
+    comp = res["completed"].astype(bool)
+    flagged = res["guards"] != 0
+    infeasible = ~comp & ~flagged & (res["feasible"] == 0)
+    residual = ~comp & ~flagged & (res["feasible"] == 1)
+    lane_ticks = stats["chunk_calls"] * lanes * chunk
+    log(f"# phase 9b: sustained_rollouts total={total} lanes={lanes} refill={refill} "
+        f"budget={budget} chunk={chunk}, cached, classify, MC_REALISM_STATICS, population keys "
+        f"0-{total - 1}: {stats['rollouts_per_sec']:.3f} rollouts/s over "
+        f"{stats['elapsed_s']:.1f} s from the first chunk ({wall_s:.1f} s with the initial "
+        f"fill); chunk {stats['chunk_calls']} calls, "
+        f"{1e3 * stats['chunk_s'] / stats['chunk_calls']:.0f} ms a call, "
+        f"{1e6 * stats['chunk_s'] / lane_ticks:.2f} us a lane-tick; begin {n_groups} groups, "
+        f"{1e3 * stats['begin_s'] / n_groups:.0f} ms a group; launches {launches}")
+    log(f"# phase 9b: completed {int(comp.sum())}, infeasible {int(infeasible.sum())} "
+        f"{np.nonzero(infeasible)[0].tolist()}, residual (out of budget, feasible) "
+        f"{int(residual.sum())} {np.nonzero(residual)[0].tolist()}, guard-flagged "
+        f"{int(flagged.sum())}; completed but infeasible "
+        f"{int((comp & (res['feasible'] == 0)).sum())}")
+    log(f"# phase 9b: {total - len(differ)} of {total} records bitwise equal to aosx's own harness "
+        f"on the same keys (every field, feasible included); differ: {differ}")
+    if differ:
+        raise AssertionError(f"phase 9b: {len(differ)} realism records differ from the JAX "
+                             f"harness's")
+    if not comp.any() or not infeasible.any() or not residual.any():
+        raise AssertionError("phase 9b: the realism lanes did not part ways (completed, "
+                             "infeasible, out of budget)")
+    return launches, dict(
+        rollouts_per_sec=stats["rollouts_per_sec"], elapsed_s=stats["elapsed_s"], wall_s=wall_s,
+        chunk_calls=stats["chunk_calls"],
+        chunk_call_ms=1e3 * stats["chunk_s"] / stats["chunk_calls"],
+        lane_tick_us=1e6 * stats["chunk_s"] / lane_ticks, begin_calls=n_groups,
+        begin_group_ms=1e3 * stats["begin_s"] / n_groups, completed=int(comp.sum()),
+        infeasible=int(infeasible.sum()), residual=int(residual.sum()),
+        flagged=int(flagged.sum()), records_differing=len(differ), groups=groups)
 
 
 # ---------------------------------------------------------------------------
@@ -2740,6 +2928,7 @@ def main():
     serve_launches, serve_stats = phase(7, phase_serving, device)
     probe_rows = phase(8, phase_probes, device)
     mc_launches, mc_stats = phase(9, phase_monte_carlo, device)
+    realism_launches, realism_stats = phase("9b", phase_realism, device)
     host_stats = phase(10, phase_host_surface, device, bench_spec)
     host_stats.update(phase(10, phase_dashboard, device))
     mesh_stats = phase(11, phase_mesh, device, bench_spec)
@@ -2747,7 +2936,8 @@ def main():
     def row(name, source, replaces, k):
         # launches: on the serving path (phase 7); launches_stage_full: on
         # stage_full (phase 5); launches_mc: on the Monte-Carlo path (phase
-        # 9). No single PyTorch call computes any of the three functions,
+        # 9); launches_mc_realism: on the realism Monte-Carlo path (phase
+        # 9b). No single PyTorch call computes any of the three functions,
         # hence library_ms null
         # K1: ms, plain_ms and bound_ms are a pass's share of a flood
         # (launches: whole floods; the passes they ran beside them); K2: an
@@ -2756,12 +2946,13 @@ def main():
         core = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
         extra = {key: v for key, v in k.items() if key not in core}
         for path, counts in (("", serve_launches), ("_stage_full", launches),
-                             ("_mc", mc_launches)):
+                             ("_mc", mc_launches), ("_mc_realism", realism_launches)):
             if f"{name}.passes" in counts:
                 extra[f"passes{path}"] = counts[f"{name}.passes"]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=serve_launches[name], launches_stage_full=launches.get(name, 0),
                     launches_mc=mc_launches[name],
+                    launches_mc_realism=realism_launches[name],
                     max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
                     bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None, **extra)
 
@@ -2780,9 +2971,18 @@ def main():
         probe_row("chase_ro", 90, probe_rows["chase_ro"]),
         probe_row("gather_rows", 117, probe_rows["gather_rows"]),
     ]
+    # K1's and K2's time on a refill group of each Monte-Carlo population
+    # (phase 9b), a group's flood or thinning, beside its plain version and
+    # bound
+    for krow, key in ((kernels[0], "k1"), (kernels[1], "k2")):
+        for pop, g in realism_stats["groups"].items():
+            krow.update({f"group_{pop}_ms": g[f"{key}_ms"],
+                         f"group_{pop}_plain_ms": g[f"{key}_plain_ms"],
+                         f"group_{pop}_bound_ms": g[f"{key}_bound_ms"]})
     log(f"# stages: {json.dumps(stages)}")
     log(f"# serving: {json.dumps(serve_stats)}")
     log(f"# monte carlo: {json.dumps(mc_stats)}")
+    log(f"# monte carlo, realism: {json.dumps(realism_stats)}")
     log(f"# operator's surface: {json.dumps(host_stats)}")
     log(f"# meshes: {json.dumps(mesh_stats)}")
     log(f"# K3 uniform cloud: kernel {k3['uniform_ms']:.3f} ms, plain {k3['uniform_plain_ms']:.3f} ms")

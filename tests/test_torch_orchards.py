@@ -8,7 +8,10 @@ from ``aosx_torch/prng.py`` and ``aosx_torch/f32math.py``) against
 - XLA:CPU's f32 log, log1p and erfinv, and glibc's sinf and cosf (which
   XLA:CPU calls), over millions of arguments each, and ``normal``;
 - the generator's cloud, validity mask and polygon on the dashboard's
-  orchard, bowed rows and dropped trees, seeds 0-2.
+  orchard, bowed rows and dropped trees, seeds 0-2;
+- the realism population of ``benchmarks/bench_sustained.py`` (its orchard
+  with a 0.8 m bow and 15 % dropout together) at MC_REALISM_STATICS, on
+  population keys 0-7 drawn in one call over the keys.
 
 The card against the CPU port is held by chip_smoke.py's phase 10 (this
 module imports JAX, which the card's machine lacks)."""
@@ -21,14 +24,18 @@ import numpy as np
 import pytest
 import torch
 
-from aosx.config import TEST_STATICS as JS
+from aosx.config import MC_REALISM_STATICS as JRS, TEST_STATICS as JS
 from aosx.orchards import OrchardSpec as JSpec, make_orchard as jmake
 from aosx_torch import f32math, prng
-from aosx_torch.config import TEST_STATICS as S
+from aosx_torch.config import MC_REALISM_STATICS as RS, TEST_STATICS as S
 from aosx_torch.orchards import OrchardSpec, make_orchard
 from torch_helpers import one_torch_thread  # noqa: F401
 
 DASH = OrchardSpec(n_rows=3, row_len=12.0, origin=(6.0, 4.0))
+# benchmarks/bench_sustained.py's orchard with its realism knobs
+REALISM = OrchardSpec(n_rows=4, row_len=12.0, row_spacing=3.5, tree_spacing=1.0, trunk_pts=16,
+                      noise_pts=64, origin=(4.0, 3.0), polygon_pad=1.5, row_curve=0.8,
+                      dropout=0.15)
 SPECS = {"dashboard": DASH, "curved": dataclasses.replace(DASH, row_curve=0.6),
          "dropout": OrchardSpec(dropout=0.15)}
 
@@ -108,3 +115,24 @@ def test_make_orchard_matches_jax(spec):
         assert np.array_equal(np.asarray(jpoly.pts), poly.pts.numpy())
         assert int(jpoly.count) == int(poly.count)
         _same(jpc.xyz, pc.xyz.numpy())
+
+
+def test_make_orchard_realism_population_matches_jax():
+    """Population keys 0-7 (split(PRNGKey(0), 4096)), one port call over the
+    keys [8, 2] against JAX's vmap over them and each key alone."""
+    jkeys = jax.random.split(jax.random.PRNGKey(0), 4096)[:8]
+    keys = prng.split(prng.prng_key(0, "cpu"), 4096)[:8]
+    assert np.array_equal(np.asarray(jax.random.key_data(jkeys)), keys.numpy())
+    jspec = JSpec(**dataclasses.asdict(REALISM))
+    jpc, jpoly = jax.jit(jax.vmap(lambda k: jmake(k, jspec, JRS)))(jkeys)
+    pc, poly = make_orchard(keys, REALISM, RS)
+    assert np.array_equal(np.asarray(jpc.valid), pc.valid.numpy())
+    assert np.array_equal(np.asarray(jpoly.pts), poly.pts.numpy())
+    assert np.array_equal(np.asarray(jpoly.count), poly.count.numpy())
+    _same(jpc.xyz, pc.xyz.numpy())
+    # trees dropped: the valid counts part ways between keys
+    assert len(set(pc.valid.sum(dim=-1).tolist())) > 1
+    one = jax.jit(lambda k: jmake(k, jspec, JRS))
+    for i in range(8):
+        jpc1, _ = one(jkeys[i])
+        _same(jpc1.xyz, pc.xyz[i].numpy())

@@ -13,6 +13,10 @@ bit against jitted ``jax`` on the same seeded inputs:
 - ``f32math.sin_f32`` / ``cos_f32`` over +-3 pi (the follower's turn);
 - ``ops.norm2`` against the reference's fused ``sqrt(sum(v**2))`` and
   ``geom.wrap_angle`` against the jitted wrap;
+- ``ops.norm2_lanes`` with ``ops.vector_lanes`` against a per-lane norm
+  under jitted ``jax.vmap`` over 2 to 64 lanes, alone (the control and
+  mission distances) and folded into a sum (the harness's travel), where
+  XLA:CPU's vectorized loop leaves the squares unfused;
 - ``ops.fma``'s CPU path (f64 sums rounded straight to f32, the midpoints
   and tiny sums redone) bitwise its round-to-odd path, and both against
   XLA:CPU's contracted ``a * a + c``.
@@ -27,7 +31,8 @@ import torch
 from aosx.geom import wrap_angle as jwrap
 from aosx_torch import f32math
 from aosx_torch.geom import wrap_angle
-from aosx_torch.ops import _round_odd_f32, cumsum_xla, fma, norm2, sum_xla
+from aosx_torch.ops import (_round_odd_f32, cumsum_xla, fma, norm2, norm2_lanes, sum_xla,
+                            vector_lanes)
 from torch_helpers import one_torch_thread  # noqa: F401
 
 
@@ -139,6 +144,32 @@ def test_norm2_matches_fused_reference():
          * np.exp(rng.uniform(-8, 0, (1 << 18, 1)))).astype(np.float32)
     want = jax.jit(lambda a: jnp.sqrt(jnp.sum(a ** 2, axis=1)))(v)
     _assert_bitwise(want, norm2(torch.from_numpy(v)).numpy())
+
+
+# lane counts of the harness's chunk whose LLVM IR was read: a tiny trip
+# count (2, 3, 12: scalar; 4, 8: vector), vector iterations of 8 with a
+# scalar remainder (17), of 4 (20; 28 but for the travel) and none (16, 64)
+VMAP_LANES = (2, 3, 4, 8, 12, 16, 17, 20, 28, 64)
+
+
+@pytest.mark.parametrize("site", ["distance", "travel"])
+@pytest.mark.parametrize("lanes", VMAP_LANES)
+def test_norm2_lanes_matches_vmapped_norm(lanes, site):
+    """A per-lane 2-vector norm under jitted ``jax.vmap``: alone (control's
+    goal distance, the mission's target distance) and added to an
+    accumulator where a flag is set (the harness's travel segment)."""
+    if site == "travel":
+        ref = jax.jit(jax.vmap(lambda acc, h, a, b: acc + jnp.where(
+            h, jnp.sqrt(jnp.sum((a - b) ** 2)), 0.0)))
+    else:
+        ref = jax.jit(jax.vmap(lambda a, b: jnp.sqrt(jnp.sum((a - b) ** 2))))
+    vector = vector_lanes(lanes, site)
+    rng = np.random.default_rng(lanes)
+    for _ in range(100):
+        a = (rng.standard_normal((lanes, 2)) * 5).astype(np.float32)
+        b = (rng.standard_normal((lanes, 2)) * 5).astype(np.float32)
+        args = (np.zeros(lanes, np.float32), np.ones(lanes, bool)) if site == "travel" else ()
+        _assert_bitwise(ref(*args, a, b), norm2_lanes(torch.from_numpy(a - b), vector))
 
 
 @pytest.mark.parametrize("case", ["binades", "cancel", "midpoints", "tiny", "special"])

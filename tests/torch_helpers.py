@@ -5,14 +5,23 @@ outputs are compared leaf for leaf through ``aosx_torch.convert.to_numpy``,
 which walks JAX and port dataclasses alike."""
 
 import dataclasses
+import hashlib
+import pathlib
 
 import numpy as np
 import pytest
 import torch
 
+from aosx_torch import prng
+from aosx_torch.config import MC_REALISM_STATICS, MC_STATICS, AosParams, params_as_f32
 from aosx_torch.convert import to_numpy
 from aosx_torch.orchards import OrchardSpec, make_orchard_np
+from aosx_torch.parallel.batch import sustained_rollouts
 
+# the JAX package's own Monte-Carlo harness records
+# (torch_reference/make_mc_harness_reference.py)
+MC_HARNESS_REFERENCE = (pathlib.Path(__file__).resolve().parent / "torch_reference"
+                        / "mc_harness_ref.json")
 # the test_episode.py orchard: near the origin, so that the (8, 0) initial
 # waypoint and the origin return are reachable
 SPEC = OrchardSpec(n_rows=3, row_len=12.0, origin=(6.0, 4.0), noise_pts=64)
@@ -92,6 +101,16 @@ def _leaves(tree, prefix=""):
         yield prefix, np.asarray(tree)
 
 
+def leaf_digests(tree):
+    """Every leaf of a tree (JAX or port dataclasses alike, ``to_numpy``'s
+    walk) by name: [shape, dtype, sha256 of its bytes]. Two trees with equal
+    digests are equal leaf for leaf, bitwise; the stored JAX sides of
+    full-size worlds keep only these."""
+    return {name: [list(a.shape), str(a.dtype),
+                   hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()]
+            for name, a in _leaves(to_numpy(tree))}
+
+
 def assert_same(ref, got, ulp_bounds=None):
     """Every leaf of ``got`` equals ``ref``: int/bool leaves and f32 leaves
     bitwise, except f32 leaves named in ``ulp_bounds`` (leaf path -> max
@@ -137,3 +156,31 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (hand-written sm_90a kernels)")
     return torch.device("cuda")
+
+
+def mc_harness_run(ref, population, shape):
+    """(the port's records as dicts, the stored JAX records) of one
+    population at one of the shapes of tests/torch_reference/
+    mc_harness_ref.json: ``sustained_rollouts`` on the CPU, cached, on the
+    population keys of the shape's ids."""
+    pop = ref["populations"][population]
+    entry = pop[shape]
+    ids = entry["ids"]
+    statics = {"MC_STATICS": MC_STATICS, "MC_REALISM_STATICS": MC_REALISM_STATICS}
+    cpu = torch.device("cpu")
+    keys = prng.split(prng.prng_key(ref["population"]["seed"], cpu),
+                      ref["population"]["size"])[torch.tensor(ids)]
+    res, _ = sustained_rollouts(
+        len(ids), entry["lanes"], OrchardSpec(**pop["spec"]), params_as_f32(AosParams(), cpu),
+        statics[pop["statics"]], ref["steps_budget"], chunk_steps=ref["chunk_steps"],
+        refill=entry["refill"], ror_method=ref["ror_method"], cached=True, classify=True,
+        keys=keys, device=cpu)
+    got = [{k: np.asarray(v)[i].item() for k, v in res.items()} for i in range(len(ids))]
+    return got, entry["records"]
+
+
+def assert_records(got, want, ids):
+    """Every field of every record equal, ints and floats bitwise."""
+    bad = {i: {k: (g[k], w[k]) for k in w if g[k] != w[k]}
+           for i, g, w in zip(ids, got, want) if g != w}
+    assert not bad, f"records differ from aosx's (port, JAX): {bad}"
