@@ -3,8 +3,9 @@
 Replaces the TPU kernel ``aosx/gvd/jfa_pass_pallas.py::jfa_pass``. The CUDA
 C++ source is ``aosx_torch/csrc/jfa_pass.cu`` (design and bounds in its
 header note): it carries the flood's owner, x and y planes as the TPU kernel
-does, a cell's position as the indices of the seeds whose x and y it holds,
-stored only where it is not the owner's seed.
+does, the owners as u16 words between its first and its closing pass, a
+cell's position as the indices of the seeds whose x and y it holds, stored
+only where it is not the owner's seed; a thread folds 4 cells of a row.
 
 Plain PyTorch versions beside it: ``jfa_pass_plain`` is one pass over the
 three carried planes (the TPU kernel's interface: shifted pass-start planes
@@ -46,8 +47,9 @@ from ..perceive.raster import to_plane, iota2, shift2d
 
 FAR = 1e9
 MAX_STEPS = 32
-# jfa_pass.cu's kMaxSeeds: a seed index (or S, none) in 16 bits
-MAX_SEEDS = 0xFFFF
+# jfa_pass.cu's kMaxSeeds: an owner (a seed index, or S for none) in the 15
+# bits of a u16 owner word
+MAX_SEEDS = 0x7FFF
 # jfa_pass.cu's code of a d2 form (Steps::forms: 2 bits a candidate), of the
 # triple a fold starts from (Steps::own: 2 bits a fold) and its chain flag
 FORM_CODES = {"x": 0, "y": 1, "u": 2}
@@ -59,6 +61,7 @@ SPLIT_X_BIT = 1 << 11
 CHAIN_PLANES = 12
 
 
+@functools.lru_cache(maxsize=None)
 def form_codes(rounding: str):
     """The kernel's six words of a ``voronoi.ROUNDINGS`` key: the form words
     of its five folds (owner, x, y planes, a chain's triples a and b;
@@ -70,12 +73,12 @@ def form_codes(rounding: str):
         return sum(FORM_CODES[c] << (2 * m) for m, c in enumerate(forms))
 
     spec = _voronoi.CHAINS.get(rounding)
-    words = [word(f) for f in _voronoi.ROUNDINGS[rounding]]
+    words = tuple(word(f) for f in _voronoi.ROUNDINGS[rounding])
     if spec is None:
-        return words + [0, 0, SPLIT_X_BIT if rounding in _voronoi.SPLIT_X else 0]
+        return words + (0, 0, SPLIT_X_BIT if rounding in _voronoi.SPLIT_X else 0)
     own = list(spec["own"]) + [spec["a"][1], spec["b"][1]]
-    return words + [word(spec["a"][0]), word(spec["b"][0]),
-                    CHAIN_BIT | sum(OWN_CODES[c] << (2 * q) for q, c in enumerate(own))]
+    return words + (word(spec["a"][0]), word(spec["b"][0]),
+                    CHAIN_BIT | sum(OWN_CODES[c] << (2 * q) for q, c in enumerate(own)))
 
 
 def cell_coords(shape, origin_x, origin_y, res: float, device, split_x: bool = False,
@@ -185,26 +188,45 @@ def jfa_flood_plain(owner, table, steps, S: int, origin_x, origin_y, res: float,
     return state
 
 
+@functools.lru_cache(maxsize=64)
+def _codes(names):
+    """The kernel's form words of a flood's passes, six a pass."""
+    return tuple(c for r in names for c in form_codes(r))
+
+
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    fn = cuda_build.load("jfa_pass").jfa_flood
-    fn.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, ctypes.POINTER(_int),
-                   ctypes.POINTER(_int),
-                   _int, _int, _int, _int, _int, ctypes.c_float, _vp, _vp, ctypes.POINTER(_int),
-                   _vp]
-    fn.restype = _int
-    return fn
+    lib = cuda_build.load("jfa_pass")
+    lib.jfa_flood.argtypes = [_vp] * 10 + [ctypes.POINTER(_int)] * 2 + [_int] * 5 + [
+        ctypes.c_float, _vp, _vp, ctypes.POINTER(_int), _vp]
+    lib.jfa_flood.restype = _int
+    lib.jfa_flood_config.argtypes = [_int] + [ctypes.POINTER(_int)] * 5
+    lib.jfa_flood_config.restype = _int
+    return lib
+
+
+def launch_config(S: int, device=None):
+    """The launch K1 takes on the card for a flood with S seeds: {"threads"
+    a block, "blocks_per_sm" co-resident, "registers" and "local_bytes"
+    (the stack frame of its out-of-line calls and any spills) a thread,
+    "shared_table": the seed table staged in shared memory}."""
+    names = ("threads", "blocks_per_sm", "registers", "local_bytes", "shared_table")
+    vals = [_int(0) for _ in names]
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        rc = _lib().jfa_flood_config(int(S), *(ctypes.byref(v) for v in vals))
+    cuda_build.check(rc, "jfa_flood_config")
+    return {k: v.value for k, v in zip(names, vals)}
 
 
 def jfa_flood(owner, table, steps, S: int, origin_x, origin_y, res: float,
               want_positions: bool = False, rounding=None):
     """The 8-direction Jacobi passes at ``steps`` (a single pass is
     ``steps=[k]``) over the owner planes (i32 [*B, H, W], owners in 0..S
-    with S = none, S <= 65535), the position planes starting at the owners'
+    with S = none, S <= 32767), the position planes starting at the owners'
     seeds in ``table`` (f32 [*B, S + 1, 2], row S = (1e9, 1e9)), each world
     of the leading axes B from its own origin (0-d or of shape B), each pass
     rounded as its ``voronoi.ROUNDINGS`` key in ``rounding`` (None: all
@@ -216,8 +238,9 @@ def jfa_flood(owner, table, steps, S: int, origin_x, origin_y, res: float,
     call into the library and one cooperative launch for the whole flood of
     the whole group (a launch a chunk of worlds where the group exceeds the
     card's co-resident blocks), with no host read (``jfa_flood.launches``
-    counts the launches, ``jfa_flood.passes`` the passes they ran);
-    ``owner`` is then one plane of the ping-pong pair and is OVERWRITTEN."""
+    counts the launches, ``jfa_flood.passes`` the passes they ran). The
+    kernel reads ``owner`` (16-byte aligned) in its first pass and writes
+    the result to a new plane; ``owner`` is not modified."""
     steps = [int(k) for k in steps]
     names = _roundings(steps, rounding)
     if owner.device.type == "cpu":
@@ -237,8 +260,12 @@ def jfa_flood(owner, table, steps, S: int, origin_x, origin_y, res: float,
     G = math.prod(B)
     if W % 4 != 0:
         raise ValueError(f"jfa_flood: the plane's width {W} must be a multiple of 4")
-    if S > MAX_SEEDS:
-        raise ValueError(f"jfa_flood: {S} seeds; a position word holds indices up to {MAX_SEEDS}")
+    if H * W >= 2 ** 31:
+        raise ValueError(f"jfa_flood: a plane of {H} x {W} cells; the kernel indexes in 32 bits")
+    if owner.data_ptr() % 16:
+        raise ValueError("jfa_flood: the owner plane must be 16-byte aligned")
+    if not 0 <= S <= MAX_SEEDS:
+        raise ValueError(f"jfa_flood: {S} seeds; an owner word holds owners up to {MAX_SEEDS}")
     if not 1 <= len(steps) <= MAX_STEPS or any(k < 1 for k in steps):
         raise ValueError(f"jfa_flood: 1 to {MAX_STEPS} steps, each >= 1: {steps}")
 
@@ -247,9 +274,13 @@ def jfa_flood(owner, table, steps, S: int, origin_x, origin_y, res: float,
         return v.expand(B).contiguous().reshape(G)
 
     gx, gy = per_world(origin_x), per_world(origin_y)
-    other = torch.empty_like(owner)
-    # the position words' ping-pong pair (a flood of one pass needs none)
-    pos = [torch.empty_like(owner) for _ in range(2)] if len(steps) > 1 else [None, None]
+    out = torch.empty_like(owner)
+    # the owner words' (u16) and the position words' ping-pong pairs (a flood
+    # of one pass needs none)
+    words = pos = [None, None]
+    if len(steps) > 1:
+        words = list(torch.empty((2,) + tuple(owner.shape), dtype=torch.int16, device=dev))
+        pos = [torch.empty_like(owner) for _ in range(2)]
     # a chain's planes: the triples a and b of its two versions and the "s"
     # version's owner and position ping-pong pairs (jfa_pass.cu's chain)
     chain = (torch.empty(B + (CHAIN_PLANES, H, W), dtype=torch.int32, device=dev)
@@ -262,21 +293,21 @@ def jfa_flood(owner, table, steps, S: int, origin_x, origin_y, res: float,
     if G > 0:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            forms = [c for r in names for c in form_codes(r)]
-            rc = _lib()(owner.data_ptr(), other.data_ptr(),
-                        *(p.data_ptr() if p is not None else None for p in pos),
-                        chain.data_ptr() if chain is not None else None,
-                        table.data_ptr(), gx.data_ptr(), gy.data_ptr(),
-                        (_int * len(steps))(*steps), (_int * len(forms))(*forms), len(steps),
-                        G, H, W, int(S),
-                        float(res), ox.data_ptr() if want_positions else None,
-                        oy.data_ptr() if want_positions else None, ctypes.byref(launches),
-                        stream)
+            forms = _codes(tuple(names))
+            rc = _lib().jfa_flood(owner.data_ptr(), out.data_ptr(),
+                                  *(p.data_ptr() if p is not None else None
+                                    for p in words + pos),
+                                  chain.data_ptr() if chain is not None else None,
+                                  table.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+                                  (_int * len(steps))(*steps), (_int * len(forms))(*forms),
+                                  len(steps), G, H, W, int(S),
+                                  float(res), ox.data_ptr() if want_positions else None,
+                                  oy.data_ptr() if want_positions else None,
+                                  ctypes.byref(launches), stream)
         jfa_flood.launches += launches.value
         jfa_flood.passes += launches.value * len(steps)
         cuda_build.check(rc, "jfa_flood")
-    result = other if len(steps) % 2 else owner
-    return (result, ox, oy) if want_positions else result
+    return (out, ox, oy) if want_positions else out
 
 
 jfa_flood.launches = 0

@@ -26,7 +26,13 @@ kernel on them:
            launch against the plain batched flood and each world's
            single-world flood, bitwise, ms a group beside 32 single-world
            launches, against the group's bound; 2,400 tiny worlds, more
-           than the co-resident blocks, in a counted launch a chunk
+           than the co-resident blocks, in a counted launch a chunk; planes
+           of an odd number of 4-cell quads a row, owned everywhere and in
+           3 % of the cells, at steps 1 to 8 and one larger than the plane
+           (unaligned candidate rows, edges, quads without owners), bitwise;
+           a flood at S = 32767 (the table in device memory), bitwise and
+           timed, and S = 32768 refused; the launch K1 takes (threads,
+           blocks an SM, registers and spills a thread)
   phase 3  K2: Zhang-Suen to the fixpoint in one cooperative launch on the
            bench and the Monte-Carlo orchard's opened grids and on live
            regions that divide by nothing, against the plain loop: plane,
@@ -52,7 +58,7 @@ kernel on them:
            guard bits, and the JAX package's full-size reference summary
            (tests/torch_reference/bench_np_seed0.json: counts, hashes, the
            robot's pose after the step bitwise, the waypoints bitwise, the
-           owner plane bitwise: NAMED_OWNER_CELLS names no cell);
+           owner plane bitwise in every cell);
            per-stage times
   phase 6  K3: all-pairs ROR counts of 131,072 points (the bench orchard,
            parked as ror_counts parks it, and a uniform cloud at its
@@ -160,6 +166,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import json
 import pathlib
 import subprocess
@@ -175,13 +182,6 @@ SERVING_REFERENCE = REFERENCE.with_name("serving_np_seed0.json")
 ULP_BOUND = 4
 # Phase 5's waypoints against the reference's, in ulp
 WAYPOINT_ULP_BOUND = 0
-# Owner cells (row, col) of a reference plane where the port's owner differs,
-# each with its proven cause (ROADMAP section 3); phases 5 and 7 print every
-# cell that differs and fail on one not named here. K1 and its plain version
-# carry the flood's owner, x and y planes and fold each in the rounding
-# XLA:CPU gives it in the reference's lowering (aosx_torch/gvd/voronoi.py's
-# ROUNDINGS), so no cell is named
-NAMED_OWNER_CELLS = {"bench": {}, "serving frame 0": {}}
 TEST_TICKS = 20
 TEST_V_DT = 0.5
 REPS = 5
@@ -335,21 +335,6 @@ def cloud(statics, spec, seed, device):
     from aosx_torch.parallel.batch import cloud_tensors
 
     return cloud_tensors(make_orchard_np(spec, seed=seed), statics, device)
-
-
-def owner_cells_off(owner, ref_owner, plane):
-    """The cells (row, col) where an owner plane differs from the reference's
-    plane ``plane`` of NAMED_OWNER_CELLS, printed with their causes. Returns
-    (their number, the cells it does not name)."""
-    named = NAMED_OWNER_CELLS[plane]
-    cells = [tuple(int(v) for v in c) for c in np.argwhere(owner != ref_owner)]
-    by_cause = {}
-    for c in cells:
-        by_cause.setdefault(named.get(c, "cause not named"), []).append(c)
-    for cause, cs in by_cause.items():
-        log(f"#   {plane} owner cells {cs} (port {[int(owner[c]) for c in cs]}, reference "
-            f"{[int(ref_owner[c]) for c in cs]}): {cause}")
-    return len(cells), [c for c in cells if c not in named]
 
 
 def ulp_distance(a, b):
@@ -802,6 +787,165 @@ def phase_k1_chunks(device, G=2400, H=8, W=16, S=6):
     return launches
 
 
+# K1's unaligned candidate rows and edges: planes whose width holds an odd
+# number of 4-cell quads, every step from 1 to 8 (each residue of the column
+# offset mod 4) and one larger than the plane (tests/test_torch_k1_host.py's
+# cases, and a plane of many blocks)
+K1_EDGE_PLANES = ((40, 52, 64), (300, 1004, 256))
+K1_EDGE_STEPS = (1, 2, 3, 4, 5, 6, 7, 8, 1031)
+K1_EDGE_MIXES = {"plain": ("pallas", "xla", "pallas", "pallas_last"),
+                 "chain": ("band_window", "chain", "band", "pallas_last")}
+
+
+def k1_random_planes(H, W, S, device, seed, spread=False):
+    """Owners anywhere (some none) over seeds on a coarse lattice of
+    coordinates, so that distances tie and near-tie often (with ``spread``,
+    two thirds of the seeds anywhere on the plane instead): (owner, table)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lattice = np.float32([1.1, 2.3, 3.7, 4.9, 6.1, 7.3, 8.5])
+    xy = rng.choice(lattice, (S, 2))
+    if spread:
+        anywhere = rng.uniform(0.0, [W * 0.1, H * 0.1], (S, 2))
+        xy = np.where(np.arange(S)[:, None] % 3 == 0, xy, anywhere)
+    table = np.concatenate([xy, [[1e9, 1e9]]]).astype(np.float32)
+    owner = rng.integers(0, S + 1, (H, W)).astype(np.int32)
+    return torch.from_numpy(owner).to(device), torch.from_numpy(table).to(device)
+
+
+def k1_launch_report(S):
+    """K1's launch for S seeds (jfa_pass_cuda.launch_config) and the build's
+    ptxas lines for its kernels and out-of-line functions (registers, stack
+    and spill bytes), as a log line's text."""
+    from aosx_torch import cuda_build
+    from aosx_torch.gvd import jfa_pass_cuda
+
+    cfg = jfa_pass_cuda.launch_config(S)
+    log_path = cuda_build.library_path("jfa_pass").with_suffix(".log")
+    lines = log_path.read_text().splitlines() if log_path.exists() else []
+    funcs, name = {}, None
+    for ln in lines:
+        for key in ("Compiling entry function '", "Function properties for "):
+            if key in ln:
+                name = ln.split(key)[1].split("'")[0].strip()
+        if name and ("flood_kernel" in name or "xy_folds" in name or "chain_cell" in name
+                     or "stored_position" in name):
+            short = next(k for k in ("flood_kernelILb1", "flood_kernelILb0", "xy_folds",
+                                     "chain_cell", "stored_position", "flood_kernel")
+                         if k in name)
+            short = {"flood_kernelILb1": "flood_kernel<shared table>",
+                     "flood_kernelILb0": "flood_kernel<device-memory table>"}.get(short, short)
+            if "spill" in ln or "Used" in ln:
+                funcs.setdefault(short, []).append(ln.replace("ptxas info    :", "").strip())
+    return cfg, "; ".join(f"{k}: {' '.join(v)}" for k, v in funcs.items())
+
+
+def phase_k1_edges(device):
+    """K1 where the quads' candidate rows are unaligned or leave the grid,
+    on planes of an odd number of quads a row (K1_EDGE_PLANES), owned
+    everywhere or in 3 % of the cells (quads that see no owner), at every
+    step of K1_EDGE_STEPS: floods of [step, 3, step, step] in each mix of
+    K1_EDGE_MIXES (the step's rows read from the caller's i32 plane, then
+    from the u16 words), with and without positions, and single passes at
+    the step in every rounding but a chain's; all bitwise their plain
+    versions. Then a flood at S = 32767, the most an owner word holds (its
+    table read from device memory), bitwise and timed, and S = 32768
+    refused by the wrapper and by the library's entry point. Logs the
+    launch K1 takes (threads, blocks an SM, registers, spills)."""
+    import ctypes
+
+    import torch
+    from aosx_torch.cuda_build import timed_ms
+    from aosx_torch.gvd import jfa_pass_cuda, voronoi
+
+    org, res = (0.35, -0.45), 0.1
+    singles = [r for r in voronoi.ROUNDINGS if r not in voronoi.CHAINS]
+    n_cases = 0
+    for (H, W, S), step, sparse in itertools.product(K1_EDGE_PLANES, K1_EDGE_STEPS,
+                                                     (False, True)):
+        owner, table = k1_random_planes(H, W, S, device, step)
+        if sparse:
+            # owners in 3 % of the cells: whole quads see none
+            owner = torch.where(torch.rand(owner.shape, generator=torch.Generator(
+                device).manual_seed(step), device=device) > 0.03, S, owner)
+        steps = [step, 3, step, step]
+        for mix, rounding in K1_EDGE_MIXES.items():
+            want = jfa_pass_cuda.jfa_flood_plain(owner, table, steps, S, *org, res,
+                                                 list(rounding))
+            got = jfa_pass_cuda.jfa_flood(owner, table, steps, S, *org, res,
+                                          want_positions=True, rounding=list(rounding))
+            alone = jfa_pass_cuda.jfa_flood(owner, table, steps, S, *org, res,
+                                            rounding=list(rounding))
+            if not (all(torch.equal(a, b) for a, b in zip(got, want))
+                    and torch.equal(alone, want[0])):
+                raise AssertionError(f"K1 {H}x{W} S={S} steps {steps} ({mix}) differs from "
+                                     "its plain version")
+            n_cases += 2
+        for r in singles:
+            want = jfa_pass_cuda.jfa_pass_plain(owner, table[owner.long()][..., 0],
+                                                table[owner.long()][..., 1], step, S, *org,
+                                                res, r)
+            got = jfa_pass_cuda.jfa_flood(owner, table, [step], S, *org, res,
+                                          want_positions=True, rounding=[r])
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"K1 {H}x{W} S={S} single pass at step {step} in "
+                                     f"rounding {r} differs from jfa_pass_plain")
+            n_cases += 1
+    log(f"# phase 2: K1 unaligned rows and edges: planes {[p[:2] for p in K1_EDGE_PLANES]} "
+        f"({[p[1] // 4 for p in K1_EDGE_PLANES]} quads a row), owned everywhere and in 3 % of "
+        f"the cells, steps {list(K1_EDGE_STEPS)}: {n_cases} floods and single passes bitwise "
+        f"their plain versions (owner, ox, oy)")
+
+    # the seed cap: S = 32767 (a 262,144-byte table: device memory)
+    S = jfa_pass_cuda.MAX_SEEDS
+    H, W = 256, 512
+    owner, table = k1_random_planes(H, W, S, device, 11, spread=True)
+    steps = [1, 256, 128, 64, 32, 16, 8, 4, 2, 1]
+    rounding = ["pallas", "xla"] + ["pallas"] * 7 + ["pallas_last"]
+    want = jfa_pass_cuda.jfa_flood_plain(owner, table, steps, S, *org, res, rounding)
+    got = jfa_pass_cuda.jfa_flood(owner, table, steps, S, *org, res, want_positions=True,
+                                  rounding=rounding)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"K1 at S = {S} differs from its plain version")
+    top = int(want[0].max())
+    if top < S - 1024:
+        raise AssertionError(f"K1 at S = {S}: no owner above {top} survives the flood")
+    _, ms_cap = timed_ms(lambda: jfa_pass_cuda.jfa_flood(owner, table, steps, S, *org, res,
+                                                         rounding=rounding), device, REPS)
+    # one more seed than a word holds: the wrapper raises, the entry refuses
+    big = torch.zeros((S + 2, 2), dtype=torch.float32, device=device)
+    small = torch.zeros((8, 8), dtype=torch.int32, device=device)
+    try:
+        jfa_pass_cuda.jfa_flood(small, big, [1], S + 1, 0.0, 0.0, res)
+    except ValueError as e:
+        raised = str(e)
+    else:
+        raise AssertionError(f"jfa_flood took S = {S + 1} seeds")
+    launches = ctypes.c_int(0)
+    xy0 = torch.zeros(1, dtype=torch.float32, device=device)
+    codes = jfa_pass_cuda.form_codes("xla")
+    rc = jfa_pass_cuda._lib().jfa_flood(
+        small.data_ptr(), torch.empty_like(small).data_ptr(), None, None, None, None, None,
+        big.data_ptr(), xy0.data_ptr(), xy0.data_ptr(), (ctypes.c_int * 1)(1),
+        (ctypes.c_int * 6)(*codes), 1, 1, 8, 8, S + 1, res, None, None,
+        ctypes.byref(launches), torch.cuda.current_stream(device).cuda_stream)
+    if rc == 0 or launches.value != 0:
+        raise AssertionError(f"the jfa_flood entry took S = {S + 1} seeds (rc {rc})")
+    log(f"# phase 2: K1 at the seed cap S = {S}, {H}x{W}, {len(steps)} passes: bitwise its plain "
+        f"version (owners up to {top}), {ms_cap:.4f} ms a flood with the table in device "
+        f"memory; S = {S + 1} refused by the wrapper ({raised}) and by the entry point "
+        f"(cudaError {rc})")
+    for S in (4096, 256, jfa_pass_cuda.MAX_SEEDS):
+        cfg, ptxas = k1_launch_report(S)
+        log(f"# phase 2: K1 launch at S = {S}: {cfg['threads']} threads a block, "
+            f"{cfg['blocks_per_sm']} blocks an SM, {cfg['registers']} registers and "
+            f"{cfg['local_bytes']} local bytes (stack frame and spills) a thread, table in "
+            f"{'shared' if cfg['shared_table'] else 'device'} memory")
+    log(f"# phase 2: K1 ptxas: {ptxas}")
+    return dict(edge_cases=n_cases, seed_cap_ms=ms_cap)
+
+
 def phase_k1(device, card):
     """K1 at BENCH_STATICS and MC_STATICS, each in its own rounding (the
     Pallas roundings at BENCH, "xla" at MC) and in the other; at
@@ -821,6 +965,7 @@ def phase_k1(device, card):
                            device, pallas=True)
     group = phase_k1_world_axis(device, MC_STATICS)
     group["chunked_launches"] = phase_k1_chunks(device)
+    phase_k1_edges(device)
     keep = ("ms", "plain_ms", "flood_ms", "flood_plain_ms", "flood_no_owner_ms", "passes",
             "ms_by_step", "bound_ms", "bound_by")
     return dict(bench,
@@ -1285,14 +1430,14 @@ def phase_bench_slice(device, bench_spec):
     diffs = {k: (got[k], ref[k]) for k in got if got[k] != ref[k] and k != "owner_sha256"}
     if diffs:
         raise AssertionError(f"BENCH_STATICS slice differs from the JAX reference: {diffs}")
-    owner_cells, unnamed = 0, []
+    # the owner plane bitwise: K1 and its plain version carry the flood's
+    # owner, x and y planes and fold each in the rounding XLA:CPU gives it in
+    # the reference's lowering (aosx_torch/gvd/voronoi.py's ROUNDINGS)
     if got["owner_sha256"] != ref["owner_sha256"]:
         ref_owner = np.load(REFERENCE.with_name("bench_np_seed0_owner.npz"))["owner"]
-        owner_cells, unnamed = owner_cells_off(owner.cpu().numpy(), ref_owner, "bench")
-        log(f"# phase 5: owner plane differs from the JAX reference in {owner_cells} of "
-            f"{ref_owner.size} cells, {len(unnamed)} of them not named")
-    if unnamed:
-        raise AssertionError(f"owner plane differs in cells not named: {unnamed}")
+        off = np.argwhere(owner.cpu().numpy() != ref_owner)
+        raise AssertionError(f"owner plane differs from the JAX reference in {len(off)} of "
+                             f"{ref_owner.size} cells, first {off[:8].tolist()}")
     wp_ulp = ulp_distance(np.asarray(ref["waypoints_xy"], np.float32), wxy)
     if wp_ulp > WAYPOINT_ULP_BOUND:
         raise AssertionError(f"waypoint xy differ from the reference by {wp_ulp} ulp")
@@ -1308,11 +1453,10 @@ def phase_bench_slice(device, bench_spec):
     _, t_step = cuda_ms(lambda: engine.step(engine.initial_state(world, S), world, params, S), REPS)
     _, t_total = cuda_ms(stage_full, REPS)
     mem = torch.cuda.max_memory_allocated() / 2**30
-    owner_note = f"but {owner_cells} named cells" if owner_cells else "bitwise"
     log(f"# phase 5: median ms (CUDA events, {REPS} reps): perceive {t_perceive:.2f}, "
         f"graph+costs+waypoints+trim {t_world:.2f}, step {t_step:.2f}, stage_full {t_total:.2f}; "
         f"matches the JAX reference (counts, skeleton hash, the robot's pose after the step; "
-        f"owner plane {owner_note}; waypoints within {wp_ulp:g} ulp); "
+        f"owner plane bitwise; waypoints within {wp_ulp:g} ulp); "
         f"peak allocated {mem:.2f} GiB")
     return launches, dict(perceive_ms=t_perceive, world_ms=t_world, step_ms=t_step,
                           stage_full_ms=t_total)
@@ -1680,10 +1824,10 @@ def compare_serving(ref, sv0, frame_states, got_frames, per_frame_metrics, param
         raise AssertionError("frame 0: the valid mask differs from the JAX reference")
     ror_points = int((sv0.inc.cnt.cpu().numpy() != ref0["cnt"])[valid0].sum())
     owner = jump_flood(sv0.inc.out.skeleton, merge_seeds(sv0.inc.out.seeds, params, S), S)
-    owner_cells, unnamed = owner_cells_off(owner.cpu().numpy(), ref0["owner"], "serving frame 0")
+    owner_cells = int((owner.cpu().numpy() != ref0["owner"]).sum())
     log(f"# phase 7: frame 0 ROR counts differ from the JAX reference at {ror_points} of "
         f"{int(valid0.sum())} valid points (bound {ROR_POINT_BOUND}); owner plane in "
-        f"{owner_cells} of {owner.numel()} cells ({len(unnamed)} not named); tick xy within "
+        f"{owner_cells} of {owner.numel()} cells (bound 0); tick xy within "
         f"{worst_ulp:g} ulp (bound {TICK_ULP_BOUND}), yaw within {worst_yaw:.3g} rad (bound "
         f"{YAW_BOUND_RAD:.3g})")
     log(f"# phase 7: plan cache: frame 0 raw A* paths against JAX's, rows by kind: "
@@ -1699,8 +1843,8 @@ def compare_serving(ref, sv0, frame_states, got_frames, per_frame_metrics, param
             f"{NAMED_CACHE_ROWS.get(r, 'cause not named')}")
     if ror_points > ROR_POINT_BOUND:
         bad.append(f"frame 0 ROR counts differ at {ror_points} points")
-    if unnamed:
-        bad.append(f"frame 0 owner plane differs in cells not named: {unnamed}")
+    if owner_cells:
+        bad.append(f"frame 0 owner plane differs in {owner_cells} cells")
     if bad:
         raise AssertionError("serving differs from the JAX reference: " + "; ".join(bad))
 

@@ -9,7 +9,10 @@ grid with max_seeds random seeds) at BENCH_STATICS (2000 x 2048) and
 MC_STATICS (384 x 512), each in two lowerings' roundings, every checkout
 its own (``voronoi.pass_roundings`` of its own ``aosx_torch``): the static
 shifts' ("xla") and the Pallas lowering's, where ``aosx`` would run a pass
-through its Pallas kernel (the preset with ``jfa_pass_pallas`` on). A
+through its Pallas kernel (the preset with ``jfa_pass_pallas`` on); the
+BENCH flood in the Pallas roundings over a plane without owners (loads,
+stores and barriers alone); and a group of 32 MC_STATICS floods in one call
+(``chip_smoke.k1_group_case``, phase 2's world axis). A
 checkout that predates the roundings runs its one rounding ("xla") in both
 cases. Where every checkout folds the three planes as this one does, the
 results must be bitwise between all checkouts; otherwise (a checkout whose
@@ -56,6 +59,22 @@ def flood_bound(S, owner0, table, steps, rounding, args):
     return max(chip_smoke.bound(8 * S.grid_h * S.grid_w + 8 * (n + 1))[0], ops)
 
 
+def flood_case(sides, lowerings, statics, table, steps, fargs):
+    """``fn(flood, owner)``: a flood of ``steps`` through one side's
+    ``jfa_flood``, each side in its own roundings of the lowering
+    ``statics`` asks (``voronoi.pass_roundings`` of its own ``aosx_torch``)."""
+    roundings = {side: lowerings[side].pass_roundings(statics, steps)
+                 for side in sides if hasattr(lowerings[side], "pass_roundings")}
+
+    def fn(flood, o):
+        if "rounding" in inspect.signature(flood).parameters:
+            side = next(k for k, v in sides.items() if v is flood)
+            return flood(o, table, steps, *fargs, rounding=roundings[side])
+        return flood(o, table, steps, *fargs)
+
+    return fn
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("others", type=pathlib.Path, nargs="+")
@@ -80,7 +99,8 @@ def main(argv=None):
         owner0, table = voronoi._jfa_init(grid, seeds, S)
         steps = voronoi._passes(S)
         pallas = dataclasses.replace(S, jfa_pass_pallas=True, jfa_dynamic_shifts=False)
-        fargs = (S.max_seeds, grid.origin_x, grid.origin_y, S.resolution)
+        n = S.max_seeds
+        fargs = (n, grid.origin_x, grid.origin_y, S.resolution)
         static = dataclasses.replace(S, jfa_pass_pallas=False, jfa_dynamic_shifts=False)
         for rname, statics in (("xla", static), ("pallas", pallas)):
             name = f"{preset} {rname}"
@@ -88,17 +108,28 @@ def main(argv=None):
                                        voronoi.pass_roundings(statics, steps), fargs)
             if plain:
                 apart.add(name)
-            # each side's own roundings of the lowering
-            roundings = {side: lowerings[side].pass_roundings(statics, steps)
-                         for side in sides if hasattr(lowerings[side], "pass_roundings")}
-
-            def fn(flood, o, table=table, steps=steps, fargs=fargs, roundings=roundings):
-                if "rounding" in inspect.signature(flood).parameters:
-                    side = next(k for k, v in sides.items() if v is flood)
-                    return flood(o, table, steps, *fargs, rounding=roundings[side])
-                return flood(o, table, steps, *fargs)
-
+            fn = flood_case(sides, lowerings, statics, table, steps, fargs)
             cases.append((name, fn, owner0.clone))
+            if preset == "BENCH_STATICS" and rname == "pallas":
+                # the same flood over a plane without owners: no candidate
+                # is folded
+                empty = f"{name}, no owners"
+                bounds[empty] = chip_smoke.bound(8 * S.grid_h * S.grid_w + 8 * (n + 1))[0]
+                if plain:
+                    apart.add(empty)
+                cases.append((empty, fn, lambda o=owner0, n=n: torch.full_like(o, n)))
+    # a refill group's worth of MC floods in one call
+    S = MC_STATICS
+    grid, seeds = chip_smoke.k1_group_case(S, chip_smoke.WORLDS, device)
+    owner0, table = voronoi._jfa_init(grid, seeds, S)
+    steps = voronoi._passes(S)
+    fargs = (S.max_seeds, grid.origin_x, grid.origin_y, S.resolution)
+    name = f"MC_STATICS group of {chip_smoke.WORLDS}"
+    bounds[name] = chip_smoke.k1_group_bound(owner0, table, steps, fargs,
+                                             voronoi.pass_roundings(S, steps))[0]
+    if plain:
+        apart.add(name)
+    cases.append((name, flood_case(sides, lowerings, S, table, steps, fargs), owner0.clone))
     others = [str(root) for root in args.others]
     summary = in_turns(
         cases, sides, [*others, "this", "this", *reversed(others)], device, args.reps,
