@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from . import profiling
 from .config import AosParams, Statics
 from .f32math import sincos_f32
 from .geom import atan2, wrap_angle
@@ -122,19 +123,20 @@ def owner_plane(out: PerceiveOut, params: AosParams, s: Statics):
 def world_from_perceive(out: PerceiveOut, params: AosParams, s: Statics, *,
                         stencil_mesh=None, stencil_axis: str = "space") -> World:
     """Graph + costmat + waypoints + trim plane from a PerceiveOut (with or
-    without a leading world axis)."""
-    graph = build_gvd_graph(out.seeds, out.rows_sorted, out.skeleton, params, s,
-                            stencil_mesh=stencil_mesh, stencil_axis=stencil_axis)
-    costmat = cost_matrix(graph, s)
-    return World(
-        skeleton=out.skeleton,
-        occupancy=out.occupancy,
-        graph=graph,
-        costmat=costmat,
-        waypoints=build_waypoints(graph, params, s),
-        guards=out.guards | graph.guards | costmat.guards,
-        trim_skel=trim_distance_plane(out.skeleton, s),
-    )
+    without a leading world axis): one ``gvd`` span (``profiling``)."""
+    with profiling.span("gvd"):
+        graph = build_gvd_graph(out.seeds, out.rows_sorted, out.skeleton, params, s,
+                                stencil_mesh=stencil_mesh, stencil_axis=stencil_axis)
+        costmat = cost_matrix(graph, s)
+        return World(
+            skeleton=out.skeleton,
+            occupancy=out.occupancy,
+            graph=graph,
+            costmat=costmat,
+            waypoints=build_waypoints(graph, params, s),
+            guards=out.guards | graph.guards | costmat.guards,
+            trim_skel=trim_distance_plane(out.skeleton, s),
+        )
 
 
 def prepare_world(pc: PointCloud, poly: Polygon, params: AosParams, exclusions,

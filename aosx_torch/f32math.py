@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops import fma, sqrt
+from .ops import fma, read_any, sqrt
 
 # XLA:CPU's f32 log: a Cephes-style polynomial on the mantissa in
 # [sqrt(1/2), sqrt(2)), evaluated with the multiply-adds LLVM contracts
@@ -146,7 +146,7 @@ def sincos_f32(y, check: bool = True):
     returns y and cosf 1. ``check`` raises (a host read) on |y| >= 120: a
     caller whose domain is bounded by construction passes False and says
     why."""
-    if check and bool((y.abs() >= _SINCOS_MAX).any()):
+    if check and read_any(y.abs() >= _SINCOS_MAX, "sincos_check"):
         raise ValueError("sin_f32/cos_f32 cover |x| < 120 only")
     x = y.double()
     n = ((x * _HPI_INV).to(torch.int64) + 0x800000) >> 24      # |x * 2^24 / (pi / 2)| < 2^31

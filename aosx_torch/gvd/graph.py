@@ -31,6 +31,7 @@ import math
 
 import torch
 
+from .. import profiling
 from ..config import AosParams, Statics
 from ..guards import (
     GUARD_CROSS_DENSE,
@@ -117,7 +118,8 @@ def merge_seeds(seeds: SeedSet, params: AosParams, s: Statics) -> SeedSet:
         return rep | (und & ~conf_rep & ~conf_und), absorbed | (und & conf_rep)
 
     zeros = torch.zeros_like(svalid)
-    rep, absorbed = while_loop(lambda st: undecided(st).any(dim=-1), body, (zeros, zeros))
+    rep, absorbed = while_loop(lambda st: undecided(st).any(dim=-1), body, (zeros, zeros),
+                                "merge_seeds")
     within = earlier_near & rep[..., None, :]
     absorber = torch.where(within, idx, S).min(dim=-1).values
     owner = torch.where(rep, idx, torch.where(absorbed, absorber, S))
@@ -685,12 +687,13 @@ def build_gvd_graph(seeds: SeedSet, rows_sorted: TreeRows, skel: GridWorld,
         raise ValueError("build_gvd_graph: a world axis takes neither compute_clearances "
                          "nor stencil_mesh")
     merged = merge_seeds(seeds, params, s)
-    if stencil_mesh is not None:
-        from ..parallel.spatial import jump_flood_sharded
+    with profiling.span("gvd.flood"):
+        if stencil_mesh is not None:
+            from ..parallel.spatial import jump_flood_sharded
 
-        owner = jump_flood_sharded(skel, merged, s, stencil_mesh, stencil_axis)
-    else:
-        owner = jump_flood(skel, merged, s)
+            owner = jump_flood_sharded(skel, merged, s, stencil_mesh, stencil_axis)
+        else:
+            owner = jump_flood(skel, merged, s)
     pos, owners, node_valid = extract_vertices(skel, owner, s)
     ea, eb, ev, lengths, n_edges, edge_guards = build_edges(
         pos, owners, node_valid, skel, merged, params, s, fused_length=not compute_clearances)

@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from . import profiling
+
 
 def _first_k(prio, k: int):
     """The k smallest priorities along the last axis, ascending."""
@@ -95,9 +97,13 @@ def compact_true_hier(mask_flat, k: int, kw: int, win: int = 32,
 CHECK_EVERY = 4
 
 
-def while_loop(cond, body, state, check_every: int = CHECK_EVERY):
+def while_loop(cond, body, state, site: str, check_every: int = CHECK_EVERY):
     """``lax.while_loop`` as a Python loop that reads ``cond`` on the host
-    only every ``check_every`` iterations.
+    only every ``check_every`` iterations. ``site`` names the caller in the
+    counters (``profiling``): ``host_read.<site>`` each condition read
+    (``read_any``), ``loop_iters.<site>`` the bodies run and
+    ``loop_calls.<site>`` the calls, so that the reads are
+    ``loop_iters / check_every + loop_calls``.
 
     ``cond`` may return a tensor of lanes (the batch axes of a vmapped
     loop): the loop runs while ANY lane is active, every lane in lockstep,
@@ -116,10 +122,21 @@ def while_loop(cond, body, state, check_every: int = CHECK_EVERY):
 
     Each returns one condition per world of a group (the world axis of
     ``engine.prepare_world``) or per lane of a batch."""
-    while bool(cond(state).any()):
+    trips = 0
+    while read_any(cond(state), site):
         for _ in range(check_every):
             state = body(state)
+        trips += check_every
+    profiling.count("loop_iters." + site, trips)
+    profiling.count("loop_calls." + site)
     return state
+
+
+def read_any(x, site: str) -> bool:
+    """``bool(x.any())``: the host waits for the device to read it, counted
+    as ``host_read.<site>`` (``profiling``)."""
+    profiling.count("host_read." + site)
+    return bool(x.any())
 
 
 def segment_sum(vals, segs, num: int):
@@ -185,6 +202,8 @@ def take_row(arr, i):
     ``arr[b, i[b]]`` for every lane b, as a gather (every bit kept)."""
     i = torch.as_tensor(i, device=arr.device).long()
     if i.dim() == 0:
+        # indexing by a 0-d tensor reads it on the host
+        profiling.count("host_read.take_row")
         return arr[i]
     return torch.gather(arr, i.dim(), _row_index(arr, i)).squeeze(i.dim())
 
@@ -290,7 +309,8 @@ def card_graph(fn):
     them. The arguments are copied into the graph's inputs and its outputs
     cloned. fn must read nothing from the host once it has run once (its
     constant tables are made then). Arguments on the CPU, or on more than
-    one device, run fn as it is."""
+    one device, run fn as it is. Captures and replays are counted
+    (``graph.capture``, ``graph.replay``; ``profiling``)."""
     graphs = {}
 
     @functools.wraps(fn)
@@ -311,10 +331,12 @@ def card_graph(fn):
             with torch.cuda.graph(graph):
                 out = fn(*static)
             entry = graphs[key] = (graph, static, out)
+            profiling.count("graph.capture")
         graph, static, out = entry
         for s, a in zip(static, args):
             s.copy_(a)
         graph.replay()
+        profiling.count("graph.replay")
         return tuple(o.clone() for o in out) if isinstance(out, tuple) else out.clone()
 
     return run

@@ -49,7 +49,7 @@ import time
 import numpy as np
 import torch
 
-from .. import engine, prng, tree
+from .. import engine, prng, profiling, tree
 from ..config import AosParams, Statics
 from ..convert import to_numpy
 from ..ops import norm2, norm2_lanes, sum_xla, vector_lanes
@@ -306,7 +306,15 @@ def _begin_group(orchard, params: AosParams, s: Statics, n_steps_total: int,
     over worlds x rows x A* candidates) and one ``tour_feasibility``, its
     initial states and accumulators. ``params``: one AosParams for the
     group, or one whose leaves carry the [G] axis. The full Worlds are
-    temporaries of this function."""
+    temporaries of this function. One ``begin`` span (``profiling``)."""
+    with profiling.span("begin"):
+        return _build_group(orchard, params, s, n_steps_total, ror_method)
+
+
+def _build_group(orchard, params: AosParams, s: Statics, n_steps_total: int,
+                 ror_method: str):
+    """``_begin_group`` without its span, for a caller whose ``begin`` span
+    also covers the orchards (``rollout_begin_group``)."""
     device = orchard[0].xyz.device
     G = orchard[0].xyz.shape[:-2]
     world = _world(orchard, params, s, ror_method)
@@ -343,19 +351,25 @@ def rollout_begin_group(keys, spec: OrchardSpec, params: AosParams, s: Statics,
     of ``sustained_rollouts``) in one call: every leaf gains a leading [G]
     axis, each lane bitwise the single key's begin."""
     device = default_device() if device is None else device
-    return _begin_group(make_orchard(torch.as_tensor(keys, dtype=torch.int64), spec, s, device),
-                        params, s, n_steps_total, ror_method)
+    with profiling.span("begin"):
+        with profiling.span("begin.orchard"):
+            orchard = make_orchard(torch.as_tensor(keys, dtype=torch.int64), spec, s, device)
+        return _build_group(orchard, params, s, n_steps_total, ror_method)
 
 
 def rollout_chunk_cached(lite, cache, st, acc, params, s: Statics, n: int, offset):
     """rollout_chunk through plancache.step_cached. Every leaf may carry a
     leading lane axis [L] (offset then [L] too, each lane's age), rounded
-    as ``jax.vmap`` over the L lanes."""
-    offset = torch.as_tensor(offset, dtype=torch.int32, device=st.t.device)
-    vmap_lanes = _lane_count(st)
-    for i in range(n):
-        st, m = plancache.step_cached(st, lite, cache, params, s, vmap_lanes=vmap_lanes)
-        acc = _fold(acc, m, offset + i, vmap_lanes)
+    as ``jax.vmap`` over the L lanes. A ``chunk`` span of ``tick`` spans
+    (``profiling``)."""
+    with profiling.span("chunk"):
+        offset = torch.as_tensor(offset, dtype=torch.int32, device=st.t.device)
+        vmap_lanes = _lane_count(st)
+        for i in range(n):
+            with profiling.span("tick"):
+                st, m = plancache.step_cached(st, lite, cache, params, s, vmap_lanes=vmap_lanes)
+                with profiling.span("tick.fold"):
+                    acc = _fold(acc, m, offset + i, vmap_lanes)
     return st, acc
 
 
@@ -500,6 +514,7 @@ def sustained_rollouts(total: int, batch: int, spec: OrchardSpec, params: AosPar
             for k, dev in enumerate(devices):
                 blk = blocks[k]
                 blk[1], blk[2] = chunk(blk, ages[k * per:(k + 1) * per], dev)
+                profiling.count("host_read.completion")
                 comp.append(blk[1].mission.exploration_completed.cpu().numpy())
             comp = np.concatenate(comp)
             chunk_s += time.perf_counter() - tc

@@ -8,6 +8,7 @@ import dataclasses
 
 import torch
 
+from .. import profiling
 from ..config import AosParams, Statics
 from ..types import GridWorld, PointCloud, Polygon, SeedSet, TreeRows
 from . import points as _points
@@ -39,34 +40,49 @@ def perceive(pc: PointCloud, poly: Polygon, params: AosParams, exclusions,
 
     A cloud and polygon with a leading world axis (xyz [G, N, 3], the
     polygon's pts [G, P, 2]) perceive a group of worlds in one call, K2 and
-    K3 launched once for the group; a mesh does not take a world axis."""
+    K3 launched once for the group; a mesh does not take a world axis.
+
+    Spans (``profiling``): ``perceive``, its stages ``perceive.points``
+    (preprocess, ROR), ``perceive.raster`` (grid, inflation, borders),
+    ``perceive.skeleton`` (K2), then ``perceive_tail``'s."""
     if stencil_mesh is not None and pc.xyz.dim() > 2:
         raise ValueError("perceive: stencil_mesh does not take a world axis")
-    xy, keep, bounds, guards = _points.preprocess(
-        pc, poly, params, exclusions, s, ror_method=ror_method)
-    grid = _raster.generate_grid(xy, keep, bounds, s)
-    if stencil_mesh is not None:
-        from ..parallel.spatial import inflate_sharded, skeletonize_sharded
+    with profiling.span("perceive"):
+        with profiling.span("perceive.points"):
+            xy, keep, bounds, guards = _points.preprocess(
+                pc, poly, params, exclusions, s, ror_method=ror_method)
+        with profiling.span("perceive.raster"):
+            grid = _raster.generate_grid(xy, keep, bounds, s)
+            if stencil_mesh is not None:
+                from ..parallel.spatial import inflate_sharded
 
-        inflated = inflate_sharded(grid, s, stencil_mesh, stencil_axis)
-        occupancy = _raster.mark_borders(inflated)
-        skel = skeletonize_sharded(inflated, s, stencil_mesh, stencil_axis)
-    else:
-        inflated = _raster.inflate(grid, s)
-        occupancy = _raster.mark_borders(inflated)
-        skel = _skeleton.skeletonize(inflated, s)
-    return perceive_tail(skel, occupancy, poly, params, s, guards)
+                inflated = inflate_sharded(grid, s, stencil_mesh, stencil_axis)
+            else:
+                inflated = _raster.inflate(grid, s)
+            occupancy = _raster.mark_borders(inflated)
+        with profiling.span("perceive.skeleton"):
+            if stencil_mesh is not None:
+                from ..parallel.spatial import skeletonize_sharded
+
+                skel = skeletonize_sharded(inflated, s, stencil_mesh, stencil_axis)
+            else:
+                skel = _skeleton.skeletonize(inflated, s)
+        return perceive_tail(skel, occupancy, poly, params, s, guards)
 
 
 def perceive_tail(skel, occupancy, poly: Polygon, params: AosParams,
                   s: Statics, pre_guards) -> PerceiveOut:
     """Everything downstream of the skeleton: clusters -> rows -> seeds ->
-    published grids. pre_guards seeds the output guard bitmask."""
-    clusters = _rows.cluster_grid(skel, poly, params, s)
-    rows = _rows.rows_from_clusters(clusters, skel, poly, params, s)
-    rows_sorted = _rows.sort_rows(rows)
-    seeds = _seeds.generate_seeds(rows, skel, poly, params, s)
-    skeleton_pub = _raster.mark_polygon_rect(skel, poly, params.polygon_margin, s)
+    published grids. pre_guards seeds the output guard bitmask. Spans
+    ``perceive.rows`` (clusters, union-finds, rows, sort) and
+    ``perceive.seeds`` (seeds, published skeleton)."""
+    with profiling.span("perceive.rows"):
+        clusters = _rows.cluster_grid(skel, poly, params, s)
+        rows = _rows.rows_from_clusters(clusters, skel, poly, params, s)
+        rows_sorted = _rows.sort_rows(rows)
+    with profiling.span("perceive.seeds"):
+        seeds = _seeds.generate_seeds(rows, skel, poly, params, s)
+        skeleton_pub = _raster.mark_polygon_rect(skel, poly, params.polygon_margin, s)
     return PerceiveOut(
         occupancy=occupancy,
         skeleton=skel,

@@ -44,6 +44,7 @@ from ..ops import (
     compact_true_hier,
     gather_last,
     lanes,
+    read_any,
     scatter_set,
     segment_max,
     segment_min,
@@ -165,7 +166,7 @@ def union_find_labels(nbrs, s: Statics, L0=None):
 
     state = (L0, torch.ones(B, dtype=torch.bool, device=dev),
              torch.zeros(B, dtype=torch.int32, device=dev))
-    L, _, _ = while_loop(cond, body, state)
+    L, _, _ = while_loop(cond, body, state, "union_find_labels")
     return L
 
 
@@ -232,7 +233,7 @@ def run_level_labels(cell_flat, cell_ok, h: int, w: int, s: Statics):
 
     state = (_arange(R, dev).expand(B + (R,)), torch.ones(B, dtype=torch.bool, device=dev),
              torch.zeros(B, dtype=torch.int32, device=dev))
-    Lr, _, _ = while_loop(cond, body, state)
+    Lr, _, _ = while_loop(cond, body, state, "run_level_labels")
 
     # root run -> its start's compact index (= the component's min cell)
     stgt = torch.where(is_start & (rid < R), rid, R)
@@ -269,7 +270,7 @@ def cluster_grid(skel: GridWorld, poly: Polygon, params: AosParams, s: Statics):
     cell_ok = in_buf & torch.where(lanes(has_poly, inp), inp, True)
 
     L_fast, uf_overflow = run_level_labels(cell_flat, cell_ok, h, w, s)
-    if s.exact_fallbacks and bool(uf_overflow.any()):
+    if s.exact_fallbacks and read_any(uf_overflow, "uf_overflow"):
         # the cell-level fallback for every world, kept where it overflowed
         nbrs = neighbor_table(cell_flat, cell_ok, compact_inverse(cell_flat, cell_ok, h * w),
                               h, w)

@@ -72,7 +72,8 @@ def greedy_dedupe(xy, valid, thresh):
         return accepted | (und & ~conf_acc & ~conf_und), rejected | (und & conf_acc)
 
     zeros = torch.zeros_like(valid)
-    accepted, _ = while_loop(lambda st: undecided(st).any(dim=-1), body, (zeros, zeros))
+    accepted, _ = while_loop(lambda st: undecided(st).any(dim=-1), body, (zeros, zeros),
+                             "greedy_dedupe")
     return accepted
 
 
@@ -163,7 +164,8 @@ def raycast_bounded(grid: GridWorld, start, direction, active, max_dist, min_dis
               torch.zeros(B + (N,), dtype=torch.int32, device=dev),
               torch.zeros(B + (N,), dtype=torch.bool, device=dev),
               torch.ones(B + (N,), dtype=torch.int32, device=dev))
-    _, _, hit, first_k = while_loop(lambda st: (~st[0]).any(dim=-1), body, state0)
+    _, _, hit, first_k = while_loop(lambda st: (~st[0]).any(dim=-1), body, state0,
+                                     "raycast_bounded")
 
     kf = first_k.to(torch.float32)
     # start + direction * (k * step) rounded once: XLA:CPU fuses it (the ray
@@ -243,7 +245,7 @@ def cast_rays_unbounded(grid: GridWorld, start, direction, active, min_dist,
 
     md = torch.as_tensor(min_dist, dtype=torch.float32, device=dev)
     dist0 = torch.full(B + (N,), 1.0, dtype=torch.float32, device=dev) * md[..., None]
-    _, _, result = while_loop(cond, body, (dist0, ~active, result0))
+    _, _, result = while_loop(cond, body, (dist0, ~active, result0), "cast_rays_unbounded")
     return result
 
 

@@ -150,7 +150,7 @@ def astar(costs: CsrCosts, nodes, node_valid, start, goal, weight, s: Statics,
     state = (g0, torch.full(B + (K, N), -1, dtype=torch.int32, device=dev), open0,
              torch.zeros(B + (K, N), dtype=torch.bool, device=dev), ~runnable,
              torch.zeros(B + (K,), dtype=torch.int32, device=dev))
-    _, parent, _, closed, done, _ = while_loop(active, body, state)
+    _, parent, _, closed, done, _ = while_loop(active, body, state, "astar")
     goal_k = goal[..., None].expand(B + (K,))
     found = done & runnable & closed.gather(-1, goal_k[..., None]).squeeze(-1)
 

@@ -152,7 +152,7 @@ def _find_breakpoints(xy, count, max_segments, params, P):
     state = (torch.zeros(B + (P,), dtype=torch.bool, device=dev), ss, se,
              torch.ones(B, dtype=torch.int32, device=dev),
              torch.zeros(B, dtype=torch.int32, device=dev))
-    bp_mask, _, _, _, _ = while_loop(lambda st: st[3] > 0, body, state)
+    bp_mask, _, _, _, _ = while_loop(lambda st: st[3] > 0, body, state, "linearize")
     return bp_mask
 
 

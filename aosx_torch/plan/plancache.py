@@ -34,7 +34,7 @@ import dataclasses
 
 import torch
 
-from .. import tree
+from .. import profiling, tree
 from ..config import AosParams, Statics
 from ..engine import Robot, _move_robot, initial_state, stack_metrics, vmap_forms
 from ..guards import GUARD_NONFINITE, GUARD_PLAN_CAP
@@ -191,16 +191,21 @@ def build_plan_cache(world, params: AosParams, s: Statics, wp_base=None) -> Plan
     ``jax.vmap`` maps worlds x rows x A* candidates. Row W+4 is planned
     dead and then replaced by the engine's initial empty /aos/path before
     the linearize, as the JAX package's row W+4. Returns [*B, R, ...]
-    leaves; each lane's rows are the single world's bit for bit."""
-    raws, success = _plan_all_rows(world, params, s, wp_base)
-    W4 = num_rows(s) - 1
-    empty = torch.arange(num_rows(s), device=success.device) == W4
-    raws = Path(xy=torch.where(empty[:, None, None], 0.0, raws.xy),
-                yaw=torch.where(empty[:, None], 0.0, raws.yaw),
-                count=torch.where(empty, 0, raws.count).to(torch.int32))
-    success = success & ~empty
-    plans = linearize(raws, _row_axis(params, world.waypoints.count.dim()), s)
-    return PlanCache(**_row_payload(raws, plans, success))
+    leaves; each lane's rows are the single world's bit for bit. Spans
+    (``profiling``): ``plan_cache``, its stages ``plan_cache.astar`` (the
+    batched plan_current_path) and ``plan_cache.linearize``."""
+    with profiling.span("plan_cache"):
+        with profiling.span("plan_cache.astar"):
+            raws, success = _plan_all_rows(world, params, s, wp_base)
+        W4 = num_rows(s) - 1
+        empty = torch.arange(num_rows(s), device=success.device) == W4
+        raws = Path(xy=torch.where(empty[:, None, None], 0.0, raws.xy),
+                    yaw=torch.where(empty[:, None], 0.0, raws.yaw),
+                    count=torch.where(empty, 0, raws.count).to(torch.int32))
+        success = success & ~empty
+        with profiling.span("plan_cache.linearize"):
+            plans = linearize(raws, _row_axis(params, world.waypoints.count.dim()), s)
+        return PlanCache(**_row_payload(raws, plans, success))
 
 
 def tour_feasibility(cache: PlanCache, wp: Waypoints, params: AosParams, s: Statics, *,
@@ -216,41 +221,43 @@ def tour_feasibility(cache: PlanCache, wp: Waypoints, params: AosParams, s: Stat
     [*B, ...], params 0-d or [*B]; 0-d for one world): feasible, row0_ok,
     returnable (bool), first_bad_leg (i32 cache row, num_rows(s) if none;
     row 0 reads waypoint 0 through the clamp of rows - 1) and bad_legs
-    (i32)."""
-    dev = cache.plan_xy.device
-    W = s.max_waypoints
-    R = num_rows(s)
-    rows = torch.arange(R, dtype=torch.int32, device=dev)
-    Wn = wp.xy.shape[-2]
+    (i32). One ``feasibility`` span (``profiling``)."""
+    with profiling.span("feasibility"):
+        dev = cache.plan_xy.device
+        W = s.max_waypoints
+        R = num_rows(s)
+        rows = torch.arange(R, dtype=torch.int32, device=dev)
+        Wn = wp.xy.shape[-2]
 
-    wp2 = _append_origin(wp, params)
-    origin_tgt = take_row(wp2.xy, torch.clamp(wp2.count - 1, 0, Wn - 1))
-    tgt = wp.xy[..., torch.clamp(rows - 1, 0, Wn - 1).long(), :]
-    is_origin_row = (rows == W + 1) | (rows == W + 2)
-    tgt = torch.where(is_origin_row[:, None], origin_tgt.unsqueeze(-2), tgt)
+        wp2 = _append_origin(wp, params)
+        origin_tgt = take_row(wp2.xy, torch.clamp(wp2.count - 1, 0, Wn - 1))
+        tgt = wp.xy[..., torch.clamp(rows - 1, 0, Wn - 1).long(), :]
+        is_origin_row = (rows == W + 1) | (rows == W + 2)
+        tgt = torch.where(is_origin_row[:, None], origin_tgt.unsqueeze(-2), tgt)
 
-    dp = cache.plan_xy - tgt.unsqueeze(-2)
-    d = sqrt(dp[..., 0] * dp[..., 0] + dp[..., 1] * dp[..., 1])
-    valid = (torch.arange(cache.plan_xy.shape[-2], device=dev)
-             < cache.plan_count[..., None])
-    far = torch.tensor(3.4e38, dtype=torch.float32, device=dev)
-    mind = torch.where(valid, d, far).min(dim=-1).values
-    dockable = (cache.success & (cache.plan_count > 0)
-                & (mind <= lanes(params.docking_radius - dock_margin, mind)))
+        dp = cache.plan_xy - tgt.unsqueeze(-2)
+        d = sqrt(dp[..., 0] * dp[..., 0] + dp[..., 1] * dp[..., 1])
+        valid = (torch.arange(cache.plan_xy.shape[-2], device=dev)
+                 < cache.plan_count[..., None])
+        far = torch.tensor(3.4e38, dtype=torch.float32, device=dev)
+        mind = torch.where(valid, d, far).min(dim=-1).values
+        dockable = (cache.success & (cache.plan_count > 0)
+                    & (mind <= lanes(params.docking_radius - dock_margin, mind)))
 
-    live = (rows >= 1) & (rows <= wp.count[..., None])   # mid-tour legs: targets 0..count-1
-    legs_ok = torch.where(live, dockable, True)
-    init_wp = torch.stack([params.initial_waypoint_x, params.initial_waypoint_y], dim=-1)
-    d0 = cache.goal_xy[..., 0, :] - init_wp
-    row0_ok = sqrt(d0[..., 0] * d0[..., 0] + d0[..., 1] * d0[..., 1]) <= params.initial_arrive_dist
-    first_bad = torch.where(legs_ok, R, rows).min(dim=-1).values.to(torch.int32)
-    return dict(
-        feasible=row0_ok & legs_ok.all(dim=-1) & (wp.count > 0),
-        row0_ok=row0_ok,
-        first_bad_leg=torch.where(row0_ok, first_bad, 0).to(torch.int32),
-        bad_legs=(~legs_ok).sum(dim=-1, dtype=torch.int32) + (~row0_ok).to(torch.int32),
-        returnable=dockable[..., W + 1],
-    )
+        live = (rows >= 1) & (rows <= wp.count[..., None])   # mid-tour legs: targets 0..count-1
+        legs_ok = torch.where(live, dockable, True)
+        init_wp = torch.stack([params.initial_waypoint_x, params.initial_waypoint_y], dim=-1)
+        d0 = cache.goal_xy[..., 0, :] - init_wp
+        row0_ok = (sqrt(d0[..., 0] * d0[..., 0] + d0[..., 1] * d0[..., 1])
+                   <= params.initial_arrive_dist)
+        first_bad = torch.where(legs_ok, R, rows).min(dim=-1).values.to(torch.int32)
+        return dict(
+            feasible=row0_ok & legs_ok.all(dim=-1) & (wp.count > 0),
+            row0_ok=row0_ok,
+            first_bad_leg=torch.where(row0_ok, first_bad, 0).to(torch.int32),
+            bad_legs=(~legs_ok).sum(dim=-1, dtype=torch.int32) + (~row0_ok).to(torch.int32),
+            returnable=dockable[..., W + 1],
+        )
 
 
 def add_carry_row(cache: PlanCache, s: Statics) -> PlanCache:
@@ -357,65 +364,74 @@ def step_cached(state: CachedEngineState, lite: WorldLite, cache: PlanCache,
     Lanes: every leaf of state, lite, cache ([L, R, ...]) and, for a sweep,
     params may carry one leading lane axis; lanes do not interact.
     vmap_lanes: round as ``jax.vmap`` over that many lanes
-    (``engine.step``)."""
+    (``engine.step``).
+
+    Spans (``profiling``), one a stage: ``tick.control``, ``tick.mission``
+    (with the cache row's adoption), ``tick.move`` (the follower's CUDA
+    graph) and ``tick.metrics``."""
     dev = state.t.device
     vmapped, vector = vmap_forms(vmap_lanes)
     # 1. control tick on the currently published /plan
-    ctrl = _on_path_cached(state.control, cache, state.adopted)
-    ctrl, fired, mod, goal_xy, goal_yaw = control_tick(ctrl, state.robot.xy, state.robot.yaw,
-                                                       params, vector=vector)
-    mod_pub = torch.where(fired | ~ctrl.goal_initialized, mod, state.last_mod)
+    with profiling.span("tick.control"):
+        ctrl = _on_path_cached(state.control, cache, state.adopted)
+        ctrl, fired, mod, goal_xy, goal_yaw = control_tick(ctrl, state.robot.xy,
+                                                           state.robot.yaw, params,
+                                                           vector=vector)
+        mod_pub = torch.where(fired | ~ctrl.goal_initialized, mod, state.last_mod)
 
     # 2. mission FSM; the "replan" is the cache row lookup
-    mission, wp, should_replan = mission_tick(state.mission, state.wp, state.robot.xy,
-                                              mod_pub, params, vector=vector)
-    idx_now = cache_row_index(mission, s)
-    success = take_row(cache.success, idx_now)
-    use_new = should_replan & success
-    adopted = torch.where(use_new, idx_now, state.adopted).to(torch.int32)
+    with profiling.span("tick.mission"):
+        mission, wp, should_replan = mission_tick(state.mission, state.wp, state.robot.xy,
+                                                  mod_pub, params, vector=vector)
+        idx_now = cache_row_index(mission, s)
+        success = take_row(cache.success, idx_now)
+        use_new = should_replan & success
+        adopted = torch.where(use_new, idx_now, state.adopted).to(torch.int32)
 
-    plan_count = take_row(cache.plan_count, adopted)
-    plan_xy = select_row(cache.plan_xy, adopted)
-    plan_path = Path(xy=plan_xy, yaw=torch.zeros_like(plan_xy[..., 0]), count=plan_count)
-    status = torch.where(mission.status == 3, 3,
-                         torch.where(mission.status == 2, 2,
-                                     torch.where(success, 0, 1))).to(torch.int32)
-    mission = dataclasses.replace(mission, status=status)
+        plan_count = take_row(cache.plan_count, adopted)
+        plan_xy = select_row(cache.plan_xy, adopted)
+        plan_path = Path(xy=plan_xy, yaw=torch.zeros_like(plan_xy[..., 0]), count=plan_count)
+        status = torch.where(mission.status == 3, 3,
+                             torch.where(mission.status == 2, 2,
+                                         torch.where(success, 0, 1))).to(torch.int32)
+        mission = dataclasses.replace(mission, status=status)
 
     # 3. robot kinematics; the follower's progress index resets when the
     # ADOPTED ROW changes (engine.step's content-changed reset in cache
     # coordinates)
-    if external_pose:
-        robot = state.robot
-    else:
-        robot_in = dataclasses.replace(
-            state.robot,
-            follow_i=torch.where(use_new & (idx_now != state.adopted), 0,
-                                 state.robot.follow_i).to(torch.int32))
-        robot = _move_robot(robot_in, mod_pub, plan_path, ctrl.goal_xy, ctrl.goal_yaw,
-                            v_dt=v_dt, vmapped=vmapped)
+    with profiling.span("tick.move"):
+        if external_pose:
+            robot = state.robot
+        else:
+            robot_in = dataclasses.replace(
+                state.robot,
+                follow_i=torch.where(use_new & (idx_now != state.adopted), 0,
+                                     state.robot.follow_i).to(torch.int32))
+            robot = _move_robot(robot_in, mod_pub, plan_path, ctrl.goal_xy, ctrl.goal_yaw,
+                                v_dt=v_dt, vmapped=vmapped)
 
-    new_state = CachedEngineState(robot=robot, mission=mission, control=ctrl, wp=wp,
-                                  adopted=adopted, last_mod=mod_pub, t=state.t + 1)
-    nonfinite = ((~torch.isfinite(robot.xy)).sum(dim=-1, dtype=torch.int32)
-                 + take_row(cache.nonfinite, adopted)
-                 + (~torch.isfinite(ctrl.goal_xy)).sum(dim=-1, dtype=torch.int32))
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    metrics = dict(
-        xy=robot.xy,
-        yaw=robot.yaw,
-        mod=mod_pub,
-        status=status,
-        target_wp=mission.target_wp,
-        cluster_idx=cluster_index_from_total(mission.target_wp, lite.cluster_total),
-        waiting=mission.waiting_for_docking,
-        completed=mission.exploration_completed,
-        plan_len=plan_count,
-        nonfinite=nonfinite,
-        guards=lite.guards
-        | torch.where(nonfinite > 0, GUARD_NONFINITE, zero)
-        | torch.where(plan_count >= s.max_plan, GUARD_PLAN_CAP, zero),
-    )
+    with profiling.span("tick.metrics"):
+        new_state = CachedEngineState(robot=robot, mission=mission, control=ctrl, wp=wp,
+                                      adopted=adopted, last_mod=mod_pub, t=state.t + 1)
+        nonfinite = ((~torch.isfinite(robot.xy)).sum(dim=-1, dtype=torch.int32)
+                     + take_row(cache.nonfinite, adopted)
+                     + (~torch.isfinite(ctrl.goal_xy)).sum(dim=-1, dtype=torch.int32))
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        metrics = dict(
+            xy=robot.xy,
+            yaw=robot.yaw,
+            mod=mod_pub,
+            status=status,
+            target_wp=mission.target_wp,
+            cluster_idx=cluster_index_from_total(mission.target_wp, lite.cluster_total),
+            waiting=mission.waiting_for_docking,
+            completed=mission.exploration_completed,
+            plan_len=plan_count,
+            nonfinite=nonfinite,
+            guards=lite.guards
+            | torch.where(nonfinite > 0, GUARD_NONFINITE, zero)
+            | torch.where(plan_count >= s.max_plan, GUARD_PLAN_CAP, zero),
+        )
     if external_pose:
         metrics["plan_xy"] = plan_xy
     return new_state, metrics

@@ -1,24 +1,133 @@
-"""Tracing and timing harness (mirror of ``aosx/profiling.py``) on
-``torch.profiler``: a trace context, a per-stage wall-clock timer that
-waits for the device each thunk ran on, and a NaN/Inf guard."""
+"""Tracing for the port on ``torch.profiler`` (the counterpart of
+``aosx/profiling.py``'s trace and NaN guard; its outside timer has none
+here): the program's own spans and counters, a trace context that writes
+them with the device's activity to a Chrome file, and a NaN/Inf guard.
+
+Spans. ``span(name)`` marks a stage of the program as
+``aosx_torch.<name>`` in whatever ``torch.profiler`` session is recording,
+in the same event stream as the CUDA activity it launches (so on the
+device trace's clock); its parent is the span that encloses it on the one
+host thread. With no profiler recording a span does nothing beyond one
+check of the profiler's state. A span is a host-side operator event, not a
+user annotation, so the profiler mirrors nothing of it on the device's
+timeline: the device activity an operator's trace reads is the program's
+own. While a profiler records, each span's count, host seconds, self
+seconds (less what its child spans cover) and the counters it saw move are
+also summed in memory (``span_totals``), so that a profiled stretch can be
+read by stage without its trace. No span lies inside a function that
+``ops.card_graph`` captures.
+
+Counters. ``count(name, n)`` adds to a plain integer that always counts, at
+the site where the work happens: ``host_read.<site>`` each time the host
+waits on the device for a value (the condition reads of ``ops.while_loop``,
+the 0-d index of ``ops.take_row``, the union-find overflow in
+``perceive.rows``, the domain check of ``f32math.sincos_f32``, the
+completion read of ``parallel.batch.sustained_rollouts``),
+``loop_iters.<site>`` and ``loop_calls.<site>`` the bodies and the calls of
+each ``ops.while_loop`` site, and ``graph.capture`` / ``graph.replay`` the
+CUDA graphs of ``ops.card_graph``. ``counters()`` returns them with the
+hand-written kernels' own launch counts beside them.
+
+An operator sees the spans with ``with profiling.trace(dir):`` around the
+work and reads ``profiling.counters()`` before and after it."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
-from typing import Callable, Dict
 
-import numpy as np
 import torch
+
+PREFIX = "aosx_torch."
+
+_profiling = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+_counts: dict = {}
+# per span name, over the spans run while a profiler recorded
+_totals: dict = {}
+# the spans open on the host thread while a profiler records, innermost last
+_open: list = []
+
+
+class _Span:
+    __slots__ = ("name", "mark", "t0", "child_s", "counts")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.mark = torch._C._profiler._RecordFunctionFast(PREFIX + self.name)
+        self.mark.__enter__()
+        self.child_s = 0.0
+        self.counts = {}
+        _open.append(self)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        self.mark.__exit__(*exc)
+        _open.pop()
+        if _open:
+            _open[-1].child_s += dt
+        tot = _totals.setdefault(self.name, {"count": 0, "seconds": 0.0, "self_seconds": 0.0,
+                                             "counts": {}})
+        tot["count"] += 1
+        tot["seconds"] += dt
+        tot["self_seconds"] += dt - self.child_s
+        for k, n in self.counts.items():
+            tot["counts"][k] = tot["counts"].get(k, 0) + n
+        return False
+
+
+def span(name: str):
+    """A context manager marking the block as the stage ``name``
+    (``aosx_torch.<name>`` in a profiler's trace); nothing while no
+    profiler records."""
+    if not _profiling():
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` (and to the open spans' tallies while
+    a profiler records)."""
+    _counts[name] = _counts.get(name, 0) + n
+    for sp in _open:
+        sp.counts[name] = sp.counts.get(name, 0) + n
+
+
+def counters() -> dict:
+    """A snapshot of every counter, and beside them the launches of the
+    hand-written kernels as their wrappers count them
+    (``launches.<wrapper>``; K1 also ``passes.jfa_flood``)."""
+    from . import probes
+    from .gvd import jfa_pass_cuda
+    from .perceive import ror_cuda, skeleton_cuda
+
+    out = dict(_counts)
+    for f in (jfa_pass_cuda.jfa_flood, skeleton_cuda.zhang_suen_fixpoint, ror_cuda.ror_counts,
+              probes.chase_rw, probes.chase_ro, probes.gather_rows):
+        out["launches." + f.__name__] = f.launches
+    out["passes.jfa_flood"] = jfa_pass_cuda.jfa_flood.passes
+    return out
+
+
+def span_totals() -> dict:
+    """Per span name, summed over the spans run while a profiler recorded:
+    {"count", "seconds" (host), "self_seconds" (less its child spans),
+    "counts" (how much each counter moved inside them)}. A copy."""
+    return {k: dict(v, counts=dict(v["counts"])) for k, v in _totals.items()}
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Capture a torch.profiler trace of the block (CPU, and CUDA where a
-    card is present) into ``log_dir`` as a Chrome trace; yields the
-    profiler, whose ``key_averages()`` sums the time by kernel."""
-    import os
-
+    card is present), the program's spans among its events, into
+    ``log_dir`` as a Chrome trace; yields the profiler, whose
+    ``key_averages()`` sums the time by kernel and by span."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -26,46 +135,6 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def _devices(tree, out):
-    if isinstance(tree, torch.Tensor):
-        out.add(tree.device)
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            _devices(v, out)
-    elif isinstance(tree, (tuple, list)):
-        for v in tree:
-            _devices(v, out)
-    elif hasattr(tree, "__dataclass_fields__"):
-        for k in tree.__dataclass_fields__:
-            _devices(getattr(tree, k), out)
-    return out
-
-
-def _wait(result):
-    """Block until the work behind ``result`` is done on every CUDA device
-    its tensors live on."""
-    for dev in _devices(result, set()):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-    return result
-
-
-def time_stages(stages: Dict[str, Callable[[], object]], reps: int = 5) -> Dict[str, float]:
-    """Wall-clock each thunk after one warm-up call (kernel builds
-    excluded), waiting for the devices its result lives on. Returns the
-    median ms per stage."""
-    out = {}
-    for name, thunk in stages.items():
-        _wait(thunk())
-        ts = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            _wait(thunk())
-            ts.append((time.perf_counter() - t0) * 1e3)
-        out[name] = float(np.median(ts))
-    return out
 
 
 def nan_guard(x, name: str = "value"):

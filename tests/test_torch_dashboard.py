@@ -102,8 +102,6 @@ def test_panel_total_waypoints():
 
 def test_profiling_on_cpu(tmp_path, capsys):
     x = torch.arange(1000, dtype=torch.float32)
-    ms = profiling.time_stages({"sum": lambda: x.sum(), "sort": lambda: torch.sort(-x)}, reps=3)
-    assert set(ms) == {"sum", "sort"} and all(v > 0 for v in ms.values())
     assert profiling.nan_guard(x, "x") is x and capsys.readouterr().out == ""
     bad = torch.tensor([1.0, float("nan")])
     assert profiling.nan_guard(bad, "bad") is bad
