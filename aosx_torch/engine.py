@@ -225,6 +225,14 @@ _drive = _drive_form(False)
 _drive_vmapped = _drive_form(True)
 
 
+def _f32_on(v, dev):
+    """v as an f32 tensor on ``dev``; a Python number is filled on the
+    device, with no copy from the host (a CUDA graph captures it)."""
+    if torch.is_tensor(v):
+        return v.to(dev, torch.float32)
+    return torch.full((), v, dtype=torch.float32, device=dev)
+
+
 def _move_robot(robot: Robot, mod, plan: Path, goal_xy, goal_yaw, v_dt=0.12, yaw_rate=0.6,
                 vmapped: bool = False):
     """Minimal unicycle stand-in for the external controller: follow the
@@ -235,7 +243,7 @@ def _move_robot(robot: Robot, mod, plan: Path, goal_xy, goal_yaw, v_dt=0.12, yaw
     does under ``jax.vmap`` over two lanes or more (``_drive``)."""
     dev = plan.xy.device
     Q = plan.xy.shape[-2]
-    far = torch.tensor(3.4e38, dtype=torch.float32, device=dev)
+    far = 3.4e38    # f32 on the select, as the reference's f32 constant
     idx = torch.arange(Q, device=dev)
     dp = plan.xy - robot.xy[..., None, :]
     d = norm2(dp)
@@ -248,11 +256,9 @@ def _move_robot(robot: Robot, mod, plan: Path, goal_xy, goal_yaw, v_dt=0.12, yaw
     follow_tgt = take_row(plan.xy, look)
 
     tgt = torch.where(lanes(mod == 0, goal_xy), follow_tgt, goal_xy)
-    f32 = dict(dtype=torch.float32, device=dev)
     drive = _drive_vmapped if vmapped else _drive
     new_xy, new_yaw = drive(tgt, robot.xy, robot.yaw, torch.as_tensor(mod, device=dev),
-                            goal_yaw, torch.as_tensor(v_dt, **f32),
-                            torch.as_tensor(yaw_rate, **f32))
+                            goal_yaw, _f32_on(v_dt, dev), _f32_on(yaw_rate, dev))
     return Robot(xy=new_xy, yaw=new_yaw, follow_i=ci.to(torch.int32))
 
 

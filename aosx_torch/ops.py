@@ -232,9 +232,14 @@ def set_at(arr, i, value, nb: int):
     the one-hot of i, so no two lanes ever write one cell."""
     T = arr.dim() - nb - 1
     hot = torch.arange(arr.shape[nb], device=arr.device) == i.unsqueeze(-1)
-    value = torch.as_tensor(value, dtype=arr.dtype, device=arr.device)
-    if value.dim() > 0:
-        value = value.unsqueeze(-T - 1)
+    if torch.is_tensor(value):
+        value = value.to(arr.device, arr.dtype)
+        if value.dim() > 0:
+            value = value.unsqueeze(-T - 1)
+    else:
+        # filled on the device: no copy from the host (a CUDA graph
+        # captures it)
+        value = torch.full((), value, dtype=arr.dtype, device=arr.device)
     return torch.where(hot.reshape(hot.shape + (1,) * T), value, arr)
 
 
@@ -301,6 +306,56 @@ def cumsum_xla(x):
     return y.reshape(lead + (nb * b,))[..., :n]
 
 
+# > 0 while ``capture_graph`` runs its function: ``card_graph`` then runs
+# its own as it is, so that its kernels join the graph being made
+_capture_depth = 0
+
+
+def capture_graph(fn, dev):
+    """A CUDA graph of ``fn()`` on the card ``dev``: fn runs once on a side
+    stream (what it makes at its first call, such as constant tables, is
+    made then), then once more under capture. While fn runs, a
+    ``card_graph`` function it calls runs as it is, so that its kernels
+    join this graph. Counted as ``graph.capture`` (``profiling``). Returns
+    (the graph, what the captured call returned); ``graph.replay()`` reruns
+    its kernels on the current stream, reading and writing the tensors fn
+    read and wrote under capture."""
+    global _capture_depth
+    _capture_depth += 1
+    try:
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = fn()
+    finally:
+        _capture_depth -= 1
+    profiling.count("graph.capture")
+    return graph, out
+
+
+def copy_leaves(dst, src):
+    """``d.copy_(s)`` for each pair of the tensor lists dst and src: one
+    multi-tensor copy a dtype where the two agree in dtype, shape and
+    strides, one copy a pair elsewhere."""
+    groups = {}
+    for d, s in zip(dst, src, strict=True):
+        if not d.numel():
+            continue
+        if d.dtype == s.dtype and d.shape == s.shape and d.stride() == s.stride():
+            ds, ss = groups.setdefault(d.dtype, ([], []))
+            ds.append(d)
+            ss.append(s)
+        else:
+            d.copy_(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
 def card_graph(fn):
     """``fn`` of tensors replayed on the card from a CUDA graph, captured at
     its first call for each device, shape and dtype of its arguments: the
@@ -309,32 +364,26 @@ def card_graph(fn):
     them. The arguments are copied into the graph's inputs and its outputs
     cloned. fn must read nothing from the host once it has run once (its
     constant tables are made then). Arguments on the CPU, or on more than
-    one device, run fn as it is. Captures and replays are counted
-    (``graph.capture``, ``graph.replay``; ``profiling``)."""
+    one device, run fn as it is; so does a call made while a graph is
+    being captured (``capture_graph``, or any capture on the current
+    stream), whose graph then holds fn's kernels. Captures and replays are
+    counted (``graph.capture``, ``graph.replay``; ``profiling``)."""
     graphs = {}
 
     @functools.wraps(fn)
     def run(*args):
         dev = args[0].device
-        if dev.type != "cuda" or any(a.device != dev for a in args):
+        if (dev.type != "cuda" or any(a.device != dev for a in args) or _capture_depth
+                or torch.cuda.is_current_stream_capturing()):
             return fn(*args)
         key = tuple((a.shape, a.dtype) for a in args) + (dev,)
         entry = graphs.get(key)
         if entry is None:
             static = [a.clone() for a in args]
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                fn(*static)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                out = fn(*static)
+            graph, out = capture_graph(lambda: fn(*static), dev)
             entry = graphs[key] = (graph, static, out)
-            profiling.count("graph.capture")
         graph, static, out = entry
-        for s, a in zip(static, args):
-            s.copy_(a)
+        copy_leaves(static, args)
         graph.replay()
         profiling.count("graph.replay")
         return tuple(o.clone() for o in out) if isinstance(out, tuple) else out.clone()

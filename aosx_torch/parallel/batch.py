@@ -26,7 +26,10 @@ What differs from the JAX package, and why:
   leaves, rounded as XLA:CPU compiles ``aosx``'s chunk under ``jax.vmap``
   over the L lanes (``engine.vmap_forms``): a record has the bits of
   ``aosx``'s harness at that lane count (a block's, with a mesh), which
-  one rollout alone (a scan) can miss by an ulp. ``batched_rollouts``
+  one rollout alone (a scan) can miss by an ulp. On the card the cached
+  chunk's ticks are replays of one CUDA graph of the whole tick
+  (``rollout_chunk_cached``), the same kernels in the same order.
+  ``batched_rollouts``
   begins all its keys in one call and runs one lane-aware episode.
   ``looped_worlds`` builds a group one world at a time through unbatched
   calls: the reference the tests and the smoke run hold the batched build
@@ -36,7 +39,9 @@ What differs from the JAX package, and why:
   ``k`` is built, stepped and read on ``mesh.devices[k]``. Lanes are
   independent, so every lane's record is bitwise the one of ``mesh=None``.
 - **No compile, no warm-up.** There is nothing to trace, so the harness
-  times from its first chunk call. ``width_valve``, ``host_jit`` and the
+  times from its first chunk call; on the card that call also captures
+  its tick's CUDA graph (one tick run and one capture, once a shape).
+  ``width_valve``, ``host_jit`` and the
   sync-debug switch guard against faults of the TPU toolchain and have no
   counterpart.
 """
@@ -52,7 +57,8 @@ import torch
 from .. import engine, prng, profiling, tree
 from ..config import AosParams, Statics
 from ..convert import to_numpy
-from ..ops import norm2, norm2_lanes, sum_xla, vector_lanes
+from ..ops import (capture_graph, copy_leaves, norm2, norm2_lanes, sum_xla,
+                   vector_lanes)
 from ..orchards import OrchardSpec, make_orchard
 from ..plan import plancache
 from ..types import PointCloud, Polygon
@@ -357,19 +363,121 @@ def rollout_begin_group(keys, spec: OrchardSpec, params: AosParams, s: Statics,
         return _build_group(orchard, params, s, n_steps_total, ror_method)
 
 
+def _tick(st, acc, tick, lite, cache, params, s: Statics, vmap_lanes: int):
+    """One cached tick: ``plancache.step_cached``, its metrics folded into
+    the accumulator at episode tick ``tick``. Returns (state, acc)."""
+    st, m = plancache.step_cached(st, lite, cache, params, s, vmap_lanes=vmap_lanes)
+    with profiling.span("tick.fold"):
+        acc = _fold(acc, m, tick, vmap_lanes)
+    return st, acc
+
+
+def _tensors(t):
+    """The tensor leaves of a tree, in the tree's order."""
+    return [x for x in tree.leaves(t) if torch.is_tensor(x)]
+
+
+def _rebuild(like, tensors):
+    """The tree ``like`` with its tensor leaves replaced, in order, by
+    ``tensors`` (its other leaves kept)."""
+    it = iter(tensors)
+    return tree.tree_map(lambda x: next(it) if torch.is_tensor(x) else x, like)
+
+
+def tick_flat(carry, fixed, like, s: Statics, vmap_lanes: int):
+    """The cached tick over flat tensors, in place. ``carry`` holds the
+    tensor leaves of (state, acc, tick index) and ``fixed`` those of the
+    read-only (lite, cache, params); ``like`` is a tree
+    (state, acc, tick, lite, cache, params) of their structure, whose
+    tensor leaves are not read. One ``_tick``; its new state and acc are
+    then written into carry's tensors (one multi-tensor copy a dtype,
+    ``ops.copy_leaves``) and the tick index is advanced by one. A leaf
+    the tick passed through unchanged is not copied; a new leaf that
+    shares memory with an input is cloned first, so that no copy reads
+    what another writes. What a CUDA graph of the chunk captures
+    (``rollout_chunk_cached``)."""
+    st, acc, tick = _rebuild(like[:3], carry)
+    st, acc = _tick(st, acc, tick, *_rebuild(like[3:], fixed), s, vmap_lanes)
+    inputs = {x.untyped_storage().data_ptr() for x in carry + fixed if x.numel()}
+    dst, src = [], []
+    for d, x in zip(carry[:-1], _tensors((st, acc)), strict=True):
+        if not x.numel() or (x.data_ptr() == d.data_ptr() and x.stride() == d.stride()):
+            continue
+        dst.append(d)
+        src.append(x.clone() if x.untyped_storage().data_ptr() in inputs else x)
+    copy_leaves(dst, src)
+    tick.add_(1)
+
+
+# the cached tick's CUDA graphs, one a key (``_graph_key``)
+_TICK_GRAPHS: dict = {}
+
+
+def _graph_key(like, s: Statics, vmap_lanes: int):
+    """What a tick's graph is made for: the device, ``s``, the lanes, and
+    the structure of ``like`` with every tensor leaf's shape and dtype and
+    every other leaf's value."""
+    sig = tree.tree_map(lambda x: ("tensor", tuple(x.shape), x.dtype) if torch.is_tensor(x)
+                        else x, like)
+    return (like[0].t.device, s, vmap_lanes, repr(sig))
+
+
+def _graphable(like) -> bool:
+    """Whether the cached ticks of ``like`` (tick_flat's tree) run as
+    replays of one CUDA graph: every tensor on one card, and a lane axis on
+    the state, so that every row select gathers by a lane index (a 0-d
+    index reads it on the host, ``ops.take_row``)."""
+    dev = like[0].t.device
+    return (dev.type == "cuda" and _lane_count(like[0]) > 0
+            and all(x.device == dev for x in _tensors(like)))
+
+
+def _graphed_ticks(like, s: Statics, n: int, vmap_lanes: int):
+    """n cached ticks of ``like`` (tick_flat's tree) as n replays of the
+    CUDA graph of one ``tick_flat``, captured at the first call for each
+    key (``_graph_key``). Every input is copied into the graph's own
+    tensors at the call's start (nothing is captured by address); between
+    replays the state stays there. Returns clones of the final (state,
+    acc). One ``tick`` span a replay; ``tick.graphed`` and
+    ``graph.replay`` count them."""
+    key = _graph_key(like, s, vmap_lanes)
+    entry = _TICK_GRAPHS.get(key)
+    if entry is None:
+        static = tree.tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, like)
+        carry, fixed = _tensors(static[:3]), _tensors(static[3:])
+        graph, _ = capture_graph(lambda: tick_flat(carry, fixed, static, s, vmap_lanes),
+                                 like[0].t.device)
+        entry = _TICK_GRAPHS[key] = (graph, carry, fixed)
+    graph, carry, fixed = entry
+    copy_leaves(carry + fixed, _tensors(like[:3]) + _tensors(like[3:]))
+    for _ in range(n):
+        with profiling.span("tick"):
+            graph.replay()
+    profiling.count("graph.replay", n)
+    profiling.count("tick.graphed", n)
+    return _rebuild(like[:2], [x.clone() for x in carry[:-1]])
+
+
 def rollout_chunk_cached(lite, cache, st, acc, params, s: Statics, n: int, offset):
     """rollout_chunk through plancache.step_cached. Every leaf may carry a
     leading lane axis [L] (offset then [L] too, each lane's age), rounded
     as ``jax.vmap`` over the L lanes. A ``chunk`` span of ``tick`` spans
-    (``profiling``)."""
+    (``profiling``).
+
+    On the card, with a lane axis, the n ticks are n replays of one CUDA
+    graph of the whole tick (``_graphed_ticks``): the same kernels, so the
+    same bits, without the host launching each tick's hundreds of small
+    operations one by one. Elsewhere (the CPU, one rollout without a lane
+    axis) the ticks run as they are, each with its stage spans."""
     with profiling.span("chunk"):
         offset = torch.as_tensor(offset, dtype=torch.int32, device=st.t.device)
         vmap_lanes = _lane_count(st)
+        like = (st, acc, offset, lite, cache, params)
+        if _graphable(like):
+            return _graphed_ticks(like, s, n, vmap_lanes)
         for i in range(n):
             with profiling.span("tick"):
-                st, m = plancache.step_cached(st, lite, cache, params, s, vmap_lanes=vmap_lanes)
-                with profiling.span("tick.fold"):
-                    acc = _fold(acc, m, offset + i, vmap_lanes)
+                st, acc = _tick(st, acc, offset + i, lite, cache, params, s, vmap_lanes)
     return st, acc
 
 

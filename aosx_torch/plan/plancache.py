@@ -368,7 +368,9 @@ def step_cached(state: CachedEngineState, lite: WorldLite, cache: PlanCache,
 
     Spans (``profiling``), one a stage: ``tick.control``, ``tick.mission``
     (with the cache row's adoption), ``tick.move`` (the follower's CUDA
-    graph) and ``tick.metrics``."""
+    graph) and ``tick.metrics``; silent where the whole tick is captured
+    into a CUDA graph (``parallel.batch.rollout_chunk_cached`` on the
+    card), where no host launch lies inside them."""
     dev = state.t.device
     vmapped, vector = vmap_forms(vmap_lanes)
     # 1. control tick on the currently published /plan

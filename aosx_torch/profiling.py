@@ -14,8 +14,11 @@ timeline: the device activity an operator's trace reads is the program's
 own. While a profiler records, each span's count, host seconds, self
 seconds (less what its child spans cover) and the counters it saw move are
 also summed in memory (``span_totals``), so that a profiled stretch can be
-read by stage without its trace. No span lies inside a function that
-``ops.card_graph`` captures.
+read by stage without its trace. A span does nothing while the current
+stream is capturing a CUDA graph (``ops.capture_graph``), so no span lies
+inside a graph: a graph's kernels are seen under the span around its
+replay (the Monte-Carlo chunk's ``tick``), and a tick's stage spans only
+where the tick runs uncaptured.
 
 Counters. ``count(name, n)`` adds to a plain integer that always counts, at
 the site where the work happens: ``host_read.<site>`` each time the host
@@ -24,9 +27,11 @@ the 0-d index of ``ops.take_row``, the union-find overflow in
 ``perceive.rows``, the domain check of ``f32math.sincos_f32``, the
 completion read of ``parallel.batch.sustained_rollouts``),
 ``loop_iters.<site>`` and ``loop_calls.<site>`` the bodies and the calls of
-each ``ops.while_loop`` site, and ``graph.capture`` / ``graph.replay`` the
-CUDA graphs of ``ops.card_graph``. ``counters()`` returns them with the
-hand-written kernels' own launch counts beside them.
+each ``ops.while_loop`` site, ``graph.capture`` / ``graph.replay`` the
+CUDA graphs of ``ops.capture_graph`` (``ops.card_graph`` and the cached
+tick of ``parallel.batch.rollout_chunk_cached``), and ``tick.graphed`` the
+ticks stepped by a replay of that tick's graph. ``counters()`` returns
+them with the hand-written kernels' own launch counts beside them.
 
 An operator sees the spans with ``with profiling.trace(dir):`` around the
 work and reads ``profiling.counters()`` before and after it."""
@@ -82,11 +87,16 @@ class _Span:
         return False
 
 
+def _capturing() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
 def span(name: str):
     """A context manager marking the block as the stage ``name``
     (``aosx_torch.<name>`` in a profiler's trace); nothing while no
-    profiler records."""
-    if not _profiling():
+    profiler records, or while the current stream captures a CUDA
+    graph."""
+    if not _profiling() or _capturing():
         return _OFF
     return _Span(name)
 
